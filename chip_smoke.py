@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``mcncrossmodalemotions_torch/csrc``
-(nvcc -> ``build/kernels/``), holds each against its plain PyTorch version
-on the card, then drives the port's main path -- whole-clip student
-feature extraction (``compute_audio_feats``) with the full-width VGG-M
-student and seeded weights -- over synthetic tracks in three duration
-buckets, with and without the kernels. Phases:
+Builds the port's CUDA kernels from ``mcncrossmodalemotions_torch/csrc``
+(one nvcc per source, started together -> ``build/kernels/``), holds each
+against its plain PyTorch version on the card, then drives the port's
+three main paths with the full-width VGG-M student: whole-clip feature
+extraction (``compute_audio_feats``, seeded weights, synthetic tracks in
+three duration buckets), the distillation train step at the headline
+shape, and offline ``run_distillation`` end to end; each path with and
+without the kernels where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library.
@@ -17,17 +19,42 @@ buckets, with and without the kernels. Phases:
    main run launches the kernels at.
 4. K1 spectrogram kernel vs the plain frontend, max rel error (max |diff|
    / max |plain|) <= 1e-4: at [64, 64384] (T=400, plus one row against a
-   float64 numpy FFT within atol 5e-4), T=150 and T=1000, and at each
-   chunk's int16 feed; kernel and plain times (CUDA events) there.
+   float64 numpy FFT within atol 5e-4), T=150 and T=1000, at each
+   chunk's int16 feed and at the train step's int16 [128, 64384]; kernel
+   and plain times (CUDA events) at the last two.
 5. K2 3x3/2 max-pool kernel vs F.max_pool2d at each chunk's pool1 and
    pool2 input, bf16 and fp32, post-ReLU: bitwise equal; bf16 times.
 6. slice: per-track logits finite and [1, 8]; the main run launched K1
    once and K2 twice per chunk; kernel-on logits within 2e-2 *
    max|logit| of the plain run; tracks/s.
+7. k2-backward at the train step's pool1 [128,253,197,96] and pool2
+   [128,61,47,256] inputs, bf16 and fp32, post-ReLU, random dy: the
+   with-index forward bitwise equal to the index-free one, and dx of the
+   backward kernel bitwise equal to autograd of F.max_pool2d (same
+   winners, fp32 sums in the same window order); bf16 times of both
+   kernels against the plain with-indices forward and backward.
+8. train: the full-width pipeline at int16 [128, 64384], hot-cross-ent at
+   T=2, weight decay 0 (``bench.py``'s train step), from one seeded init:
+   3 steps with the kernels, then 3 plain. Losses finite and within 1e-2
+   relative of each other (bf16 convs, cuDNN's non-deterministic weight
+   gradients, K1's fp32 summation order), conv1's 3-step update within
+   0.5 relative L2 of the plain one (a mis-routed pool gradient gave 1.10
+   at tiny width on the CPU); per step K1 launched once, the
+   with-index K2 forward twice, the K2 backward twice and the index-free
+   K2 forward never; mean step ms and utts/s of each mode over 10 timed
+   steps after 2 warm-up steps.
+9. distill: ``run_distillation`` (full width, batch 64) on the port's
+   ``build_synthetic_imdb`` with 8 speakers x 20 tracks (2 full train
+   batches an epoch) for 2 epochs: checkpoints 1 and 2 and
+   ``metrics.jsonl`` appear, losses finite, the exact kernel launch
+   counts; a second call with ``num_epochs=3`` resumes at epoch 3;
+   ``feed_bound_frac`` per epoch.
 
-Prints one JSON line of kernel results (``ms``/``plain_ms``: summed over
-the main run's launch shapes; K1's at the int16 feed, whose decode both
-versions run), then, last, the device line
+Prints one JSON line of kernel results (``launches``: counted over the
+three main runs, each read between a reset just before and just after it;
+``ms``/``plain_ms``: summed over the main runs' launch shapes, K1's at the
+int16 feed, whose decode both versions run, the with-index forward and
+the backward at the train step's), then, last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without the device
 line, when any phase fails or no CUDA device is present. Imports no jax.
 """
@@ -48,6 +75,13 @@ BATCH = 64
 K1_REL_TOL = 1e-4             # fp32 vs fp32, summation order only
 K1_GOLDEN_ATOL = 5e-4         # as tests/test_spectrogram.py
 SLICE_REL_TOL = 2e-2          # bf16 convs over an fp32 frontend
+TRAIN_BATCH = 128             # bench.py's train step
+TRAIN_LOSS_RTOL = 1e-2        # bf16 convs, cuDNN wgrad order, K1 sum order
+TRAIN_UPDATE_RTOL = 0.5       # conv1's 3-step update, relative L2: a
+                              # mis-routed pool gradient gave 1.10 at
+                              # tiny width on the CPU (0.087 unmutated)
+TRAIN_LR = 1e-4               # bench.py's lr
+TIMED_STEPS, WARMUP_STEPS = 10, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -116,6 +150,227 @@ def pool_inputs(rows: int, bucket: int, nfft: int) -> dict:
     return {"pool1": (rows, h1, w1, 96), "pool2": (rows, h2, w2, 256)}
 
 
+def bits(t):
+    """An integer view of a float tensor, for bitwise comparison."""
+    import torch
+
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def reset_counts(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_counts(wrappers) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def k2_backward_phase(card: str, timings: dict, errs: dict) -> None:
+    """K2 with-index forward and backward vs their plain versions at the
+    train step's pool inputs (phase 7)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mcncrossmodalemotions_torch.ops import pool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    for label, shape in pool_inputs(TRAIN_BATCH, 400, 512).items():
+        for dtype in (torch.bfloat16, torch.float32):
+            gen.manual_seed(SEED)
+            x = torch.relu(torch.randn(shape, device=dev, generator=gen)).to(dtype)
+            y, idx = pool.max_pool_3x3s2_idx_cuda(x)
+            dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
+            dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3])
+            y_ref = pool.max_pool_3x3s2_cuda(x)
+            same_y = torch.equal(bits(y), bits(y_ref))
+            errs["max_pool_3x3s2_idx"] = max(
+                errs["max_pool_3x3s2_idx"],
+                (y.float() - y_ref.float()).abs().max().item())
+            ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
+            torch.cuda.synchronize()
+            same_dx = torch.equal(bits(dx), bits(ref))
+            same_mask = torch.equal(dx != 0, ref != 0)
+            err = (dx.float() - ref.float()).abs().max().item()
+            errs["max_pool_3x3s2_bwd"] = max(errs["max_pool_3x3s2_bwd"], err)
+            print(f"  K2 backward {label} {shape} {dtype}: with-index y "
+                  f"{'bitwise equal' if same_y else 'DIFFERENT'}; dx "
+                  f"{'bitwise equal' if same_dx else 'DIFFERENT'} (winner "
+                  f"mask {'identical' if same_mask else 'DIFFERENT'}, max abs "
+                  f"{err:.3e})", flush=True)
+            check(same_y, f"K2 with-index {label} {dtype}: y not bitwise equal")
+            check(same_dx, f"K2 backward {label} {dtype}: dx not bitwise equal "
+                  "to autograd of F.max_pool2d")
+            if dtype == torch.bfloat16:  # the train step's dtype
+                nchw = x.permute(0, 3, 1, 2)
+                k, p = paired_ms(lambda: pool.max_pool_3x3s2_idx_cuda(x),
+                                 lambda: F.max_pool2d(nchw, 3, 2,
+                                                      return_indices=True))
+                timings["max_pool_3x3s2_idx"][0] += k
+                timings["max_pool_3x3s2_idx"][1] += p
+                print(f"  {card}: K2 with-index {label} {shape} bf16: kernel "
+                      f"{k:.4f} ms, plain (max_pool2d_with_indices) {p:.4f} ms")
+                xg = x.detach().requires_grad_(True)
+                yg = F.max_pool2d(xg.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+                k, p = paired_ms(
+                    lambda: pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3]),
+                    lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True))
+                timings["max_pool_3x3s2_bwd"][0] += k
+                timings["max_pool_3x3s2_bwd"][1] += p
+                print(f"  {card}: K2 backward {label} {shape} bf16: kernel "
+                      f"{k:.4f} ms, plain (max_pool2d_with_indices_backward) "
+                      f"{p:.4f} ms", flush=True)
+                del xg, yg
+            del x, y, y_ref, idx, dy, dx, ref
+            torch.cuda.empty_cache()
+
+
+def train_phase(card: str, wrappers: dict) -> dict:
+    """The full-width train step with and without the kernels (phase 8);
+    returns the kernel steps' launch counts."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.train.state import (
+        SGDConfig,
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        build_student,
+        random_student_variables,
+        student_loss_fn,
+        student_state_dict_from_flax,
+    )
+
+    dev = torch.device("cuda")
+    v = random_student_variables(seed=SEED)
+    init = student_state_dict_from_flax(
+        {"params": {"net": v["params"]}, "batch_stats": {"net": v["batch_stats"]}})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = DEFAULT_SPEC.crop_samples(400)
+    batch = {
+        "data": (torch.randn(TRAIN_BATCH, n, device=dev, generator=gen)
+                 * 0.1 * 32767).round().clamp(-32768, 32767).to(torch.int16),
+        "logit_target": torch.randn(TRAIN_BATCH, 8, device=dev,
+                                    generator=gen) * 2,
+        "max_label": torch.randint(0, 8, (TRAIN_BATCH,), device=dev,
+                                   generator=gen, dtype=torch.int32),
+        "pad_mask": torch.ones(TRAIN_BATCH, device=dev),
+    }
+    loss_fn = student_loss_fn("hot-cross-ent", temperature=2.0)
+    runs = {}
+    for mode in ("kernels", "plain"):
+        model = build_student()  # full width, bf16 compute, fp32 params
+        model.load_state_dict(init)
+        state = TrainState.create(model.to(dev),
+                                  torch.Generator(device=dev).manual_seed(SEED))
+        step = make_train_step(loss_fn, SGDConfig(weight_decay=0.0),
+                               pass_pad_mask=True,
+                               use_kernels=mode == "kernels")
+        w0 = state.model.net.conv1.weight.detach().clone()
+        reset_counts(wrappers)
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch, TRAIN_LR)
+            losses.append(m["loss"].item())
+        counts = read_counts(wrappers)
+        update = state.model.net.conv1.weight.detach() - w0
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WARMUP_STEPS):
+            step(state, batch, TRAIN_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, m = step(state, batch, TRAIN_LR)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[mode] = dict(losses=losses, counts=counts, update=update,
+                          step_s=step_s)
+        print(f"  train {mode}: losses {losses}; launches over 3 steps "
+              f"{counts}", flush=True)
+        print(f"  {card}: train step {mode}: {1e3 * step_s:.3f} ms = "
+              f"{TRAIN_BATCH / step_s:.2f} utts/s (mean of {TIMED_STEPS} steps "
+              f"after {WARMUP_STEPS} warm-up), peak memory {peak:.2f} GiB",
+              flush=True)
+        del state, step, model
+        torch.cuda.empty_cache()
+
+    k, p = runs["kernels"], runs["plain"]
+    check(all(np.isfinite(k["losses"] + p["losses"])), "non-finite train loss")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+    upd = ((k["update"] - p["update"]).norm() / p["update"].norm()).item()
+    print(f"  train kernels vs plain: max loss rel diff {rel:.3e} (gate "
+          f"{TRAIN_LOSS_RTOL}); conv1 update rel L2 {upd:.3e} (gate "
+          f"{TRAIN_UPDATE_RTOL})")
+    check(rel <= TRAIN_LOSS_RTOL, "kernel-on train losses disagree with plain")
+    check(upd <= TRAIN_UPDATE_RTOL, "kernel-on conv1 update disagrees with plain")
+    want = {"spectrogram": 3, "max_pool_3x3s2": 0, "max_pool_3x3s2_idx": 6,
+            "max_pool_3x3s2_bwd": 6}
+    check(k["counts"] == want, f"train launches {k['counts']}, expected {want}")
+    check(not any(p["counts"].values()), f"plain steps launched {p['counts']}")
+    return k["counts"]
+
+
+def distill_phase(root: Path, wrappers: dict) -> dict:
+    """``run_distillation`` end to end, then its resume (phase 9); returns
+    the first call's launch counts."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
+    from mcncrossmodalemotions_torch.exp.run_distillation import (
+        DistillationConfig,
+        run_distillation,
+    )
+    from mcncrossmodalemotions_torch.train.checkpoints import list_checkpoints
+
+    imdb = build_synthetic_imdb(root / "wav", num_speakers=8,
+                                tracks_per_speaker=20, seed=SEED)
+    kw = dict(batch_size=64, mini_epoch_ratio=1.0, out_root=str(root / "exps"),
+              seed=SEED)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    _, history, exp_dir = run_distillation(DistillationConfig(num_epochs=2, **kw),
+                                           imdb, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    for h in history:
+        tr = h["train"]
+        print(f"  distill epoch {h['epoch']}: train loss {tr['loss']:.4f}, "
+              f"{tr['num_samples']} samples, {tr['samples_per_sec']:.2f} "
+              f"samples/s, feed_bound_frac {tr['feed_bound_frac']}, "
+              f"feed_wait_s {tr['feed_wait_s']}, device_drain_s "
+              f"{tr['device_drain_s']}; val loss {h['val']['loss']:.4f} "
+              f"({h['val']['num_samples']} samples)", flush=True)
+    print(f"  distill: 2 epochs in {wall:.2f} s; launches {counts}")
+    check([h["epoch"] for h in history] == [1, 2], "distill epochs")
+    check(all(h["train"]["num_samples"] == 128 for h in history),
+          "an epoch did not run 2 full batches of 64")
+    check(all(np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["loss"])
+              for h in history), "non-finite distill loss")
+    check([e for e, _ in list_checkpoints(exp_dir)] == [1, 2],
+          "checkpoints 1 and 2 missing")
+    check(len((exp_dir / "metrics.jsonl").read_text().splitlines()) == 2,
+          "metrics.jsonl lacks the two epochs")
+    n_val = history[0]["val"]["num_samples"]
+    val_batches = -(-n_val // 64)
+    want = {"spectrogram": 2 * (2 + val_batches),
+            "max_pool_3x3s2": 2 * 2 * val_batches,
+            "max_pool_3x3s2_idx": 2 * 2 * 2, "max_pool_3x3s2_bwd": 2 * 2 * 2}
+    check(counts == want, f"distill launches {counts}, expected {want}")
+    _, history, _ = run_distillation(DistillationConfig(num_epochs=3, **kw),
+                                     imdb, device="cuda")
+    print(f"  distill resume: ran epochs {[h['epoch'] for h in history]}, "
+          f"feed_bound_frac {history[-1]['train']['feed_bound_frac']}")
+    check([h["epoch"] for h in history] == [3], "resume did not start at epoch 3")
+    check([e for e, _ in list_checkpoints(exp_dir)] == [1, 2, 3],
+          "checkpoint 3 missing")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -150,6 +405,10 @@ def main() -> int:
     cfg = DEFAULT_SPEC
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
+    wrappers = {"spectrogram": spectrogram_cuda,
+                "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
+                "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
+                "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda}
 
     with phase("device", walls):
         smi = subprocess.run(
@@ -166,8 +425,9 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build", walls):
-        for lib in ("spectrogram", "max_pool_3x3s2"):
-            _build.load(lib)
+        libs = ("spectrogram", "max_pool_3x3s2")
+        _build.load(*libs)  # one nvcc each, all started together
+        for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -191,8 +451,8 @@ def main() -> int:
                   f"{chunks}")
             check(len({b for _, _, b in chunks}) >= 3, "fewer than three buckets")
 
-        timings = {"spectrogram": [0.0, 0.0], "max_pool_3x3s2": [0.0, 0.0]}
-        k1_err, k2_err = 0.0, 0.0
+        timings = {k: [0.0, 0.0] for k in wrappers}
+        errs = {k: 0.0 for k in wrappers}
         with phase("k1", walls):
             bench_n = cfg.crop_samples(400)
             cases = [("bench crop", BATCH, bench_n, torch.float32, False),
@@ -202,6 +462,7 @@ def main() -> int:
                       torch.float32, False)]
             cases += [(f"slice t_pad={t_pad}", rows, cfg.crop_samples(t_pad),
                        torch.int16, True) for rows, t_pad, _ in chunks]
+            cases.append(("train crop", TRAIN_BATCH, bench_n, torch.int16, True))
             for label, rows, n, dtype, timed in cases:
                 gen.manual_seed(SEED)
                 x = torch.randn(rows, n, device=dev, generator=gen)
@@ -214,7 +475,7 @@ def main() -> int:
                       f"K1 {label}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
                 err = (got - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
-                k1_err = max(k1_err, err)
+                errs["spectrogram"] = max(errs["spectrogram"], err)
                 print(f"  K1 {label} {tuple(x.shape)} {dtype} "
                       f"(T={cfg.num_frames(n)}): max abs {err:.3e}, "
                       f"max rel {rel:.3e}", flush=True)
@@ -249,7 +510,8 @@ def main() -> int:
                         same = got.shape == ref.shape and torch.equal(
                             got.view(ibits), ref.view(ibits))
                         err = (got.float() - ref.float()).abs().max().item()
-                        k2_err = max(k2_err, err)
+                        errs["max_pool_3x3s2"] = max(
+                            errs["max_pool_3x3s2"], err)
                         print(f"  K2 bucket {bucket} {label} {shape} {dtype}: "
                               f"bitwise {'equal' if same else 'DIFFERENT'} "
                               f"(max abs {err:.3e})", flush=True)
@@ -278,15 +540,13 @@ def main() -> int:
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
 
-            spectrogram_cuda.launches = 0
-            pool.max_pool_3x3s2_cuda.launches = 0
+            reset_counts(wrappers)
             t0 = time.perf_counter()
             with contextlib.redirect_stderr(sys.stdout):
                 logits = compute_audio_feats(imdb, model, state, batch_size=BATCH)
             torch.cuda.synchronize()
             main_s = time.perf_counter() - t0
-            launches = {"spectrogram": spectrogram_cuda.launches,
-                        "max_pool_3x3s2": pool.max_pool_3x3s2_cuda.launches}
+            launches = read_counts(wrappers)
 
             t0 = time.perf_counter()
             plain = compute_audio_feats(imdb, model, state, batch_size=BATCH,
@@ -298,7 +558,8 @@ def main() -> int:
             check(all(l.shape == (1, 8) and np.all(np.isfinite(l))
                       for l in logits), "logits not finite [1, 8]")
             expected = {"spectrogram": len(chunks),
-                        "max_pool_3x3s2": 2 * len(chunks)}
+                        "max_pool_3x3s2": 2 * len(chunks),
+                        "max_pool_3x3s2_idx": 0, "max_pool_3x3s2_bwd": 0}
             print(f"  launches in the main run: {launches}, "
                   f"expected {expected}")
             check(launches == expected,
@@ -314,25 +575,41 @@ def main() -> int:
                   f"= {len(paths) / main_s:.2f} tracks/s (kernels), plain run "
                   f"{plain_s:.3f} s = {len(paths) / plain_s:.2f} tracks/s",
                   flush=True)
+            del model, state
+            torch.cuda.empty_cache()
+
+        with phase("k2-backward", walls):
+            k2_backward_phase(card, timings, errs)
+
+        with phase("train", walls):
+            train_counts = train_phase(card, wrappers)
+
+        with phase("distill", walls):
+            distill_counts = distill_phase(Path(tmp), wrappers)
 
     print("  phase walls (s): " + ", ".join(f"{k} {v:.2f}"
                                             for k, v in walls.items()))
     print(f"  {card}: kernel times summed over the main run's launch shapes "
           f"(ms, kernel / plain): " + ", ".join(
               f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in timings.items()))
+    source = "mcncrossmodalemotions_torch/csrc/"
+    replaces = {
+        "spectrogram": ("spectrogram.cu",
+                        "mcncrossmodalemotions_tpu/ops/pallas_spectrogram.py:117"),
+        "max_pool_3x3s2": ("max_pool_3x3s2.cu",
+                           "mcncrossmodalemotions_tpu/ops/pallas_pool.py:95"),
+        "max_pool_3x3s2_idx": ("max_pool_3x3s2.cu",
+                               "mcncrossmodalemotions_tpu/ops/pallas_pool.py:95"),
+        "max_pool_3x3s2_bwd": ("max_pool_3x3s2.cu",
+                               "mcncrossmodalemotions_tpu/ops/pallas_pool.py:144"),
+    }
     kernels = [
-        {"name": "spectrogram", "route": "cuda",
-         "source": "mcncrossmodalemotions_torch/csrc/spectrogram.cu",
-         "replaces": "mcncrossmodalemotions_tpu/ops/pallas_spectrogram.py:117",
-         "launches": launches["spectrogram"], "max_abs_err": k1_err,
-         "ms": timings["spectrogram"][0], "plain_ms": timings["spectrogram"][1]},
-        {"name": "max_pool_3x3s2", "route": "cuda",
-         "source": "mcncrossmodalemotions_torch/csrc/max_pool_3x3s2.cu",
-         "replaces": "mcncrossmodalemotions_tpu/ops/pallas_pool.py:95",
-         "launches": launches["max_pool_3x3s2"], "max_abs_err": k2_err,
-         "ms": timings["max_pool_3x3s2"][0],
-         "plain_ms": timings["max_pool_3x3s2"][1]},
-    ]
+        {"name": name, "route": "cuda", "source": source + src,
+         "replaces": rep,
+         "launches": launches[name] + train_counts[name] + distill_counts[name],
+         "max_abs_err": errs[name], "ms": timings[name][0],
+         "plain_ms": timings[name][1]}
+        for name, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

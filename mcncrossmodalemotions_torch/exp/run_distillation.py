@@ -1,0 +1,233 @@
+"""Student distillation training (``run_distillation.m``), offline mode.
+
+Port of ``mcncrossmodalemotions_tpu/exp/run_distillation.py``: trains the
+VGG-M speech student to predict the teacher's 8 emotion logits (cached in
+the imdb's ``wav_logits``) from audio alone. Defaults mirror
+run_distillation.m:71-89: 4 s crops, batch 64, 300 epochs, LR
+logspace(-4, -5), 'hot-cross-ent' loss at temperature 2, 'max' logit
+aggregation, mini-val subsampling with seed 0, mini-epochs, an experiment
+directory named from the config (the same name as the JAX module gives) with
+run metadata dumped alongside (:95-105, :227-240).
+
+On the card the host ships int16 crops; decode, spectrogram (the K1
+kernel), instance norm, the student (K2 forward-with-index and backward at
+pool1/pool2), the loss, the backward and the SGD update run on one
+device. Not ported yet, and refused with ``NotImplementedError``: the
+online (fused-teacher) mode, starting from the released weights
+(``from_scratch=False``), remat policies, speed/noise augmentation, the
+mu-law feed and fixedSegments. ``use_pallas_frontend`` only chose the JAX
+frontend's implementation; the port always runs the K1 wrapper, with the
+same function.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import platform
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mcncrossmodalemotions_tpu.data.imdb import EmoVoxImdb
+from mcncrossmodalemotions_tpu.utils.config import config_hash, to_dict
+from mcncrossmodalemotions_torch import EMOTIONS
+from mcncrossmodalemotions_torch.data.emovox import (
+    SET_HEARD_VAL,
+    SET_TRAIN,
+    SET_UNHEARD_VAL,
+    BatchConfig,
+    EmoVoxBatcher,
+)
+from mcncrossmodalemotions_torch.train.engine import (
+    TrainConfig,
+    Trainer,
+    logspace_lr,
+)
+from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillationConfig:
+    """run_distillation.m:71-89 defaults; the fields and defaults of the
+    JAX ``DistillationConfig``."""
+
+    teacher: str = "senet50-ferplus"
+    student: str = "emovoxceleb-student"
+    loss_type: str = "hot-cross-ent"
+    temperature: float = 2.0
+    num_seconds: float = 4.0
+    num_pred_emotions: int = 8
+    logit_aggregator: str = "max"
+    batch_size: int = 64
+    num_epochs: int = 300
+    lr_start_exp: float = -4.0
+    lr_stop_exp: float = -5.0
+    mini_val: float = 0.2        # fraction of val kept (rng seed 0, :141-146)
+    mini_epoch_ratio: float = 0.05  # epochSize fraction (:77,154)
+    weight_decay: float = 5e-4   # cnn_train_dag default
+    dropout: float = 0.0
+    seed: int = 0
+    data_root: str = "data/emovoxceleb"
+    out_root: str = "exps"
+    tiny_model: bool = False     # dev pattern
+    use_pallas_frontend: bool = False
+    remat_policy: Optional[str] = None
+    from_scratch: bool = True
+    pretrained_student: str = "emovoxceleb-student"
+    online_teacher: bool = False
+    frames_per_crop: int = 4
+    frame_size: int = 224
+    mulaw_feed: bool = False
+    speed_aug: bool = False
+    noise_dir: Optional[str] = None
+    noise_num: int = 0
+    noise_vol: float = 0.3
+
+    def exp_name(self) -> str:
+        """Experiment identity encoding (run_distillation.m:95-105) + hash;
+        the string the JAX ``exp_name()`` gives for the same config. Only
+        identity-defining fields are hashed, so a longer schedule resumes
+        the same directory."""
+        base = (
+            f"{self.teacher}-{self.student}-{self.loss_type}"
+            f"-{self.num_seconds:g}s-{self.num_pred_emotions}emo"
+            f"-{self.logit_aggregator}-T{self.temperature:g}"
+        )
+        identity = (self.teacher, self.student, self.loss_type,
+                    self.temperature, self.num_seconds,
+                    self.num_pred_emotions, self.logit_aggregator,
+                    self.dropout, self.seed, self.tiny_model,
+                    self.online_teacher, self.lr_start_exp,
+                    self.lr_stop_exp, self.weight_decay)
+        if not self.from_scratch:
+            identity += ("from-release", self.pretrained_student)
+        if self.speed_aug or self.noise_num > 0:
+            identity += ("speed" if self.speed_aug else "",
+                         self.noise_num, self.noise_vol,
+                         self.noise_dir or "")
+        if self.mulaw_feed:
+            identity += ("mulaw8",)
+        suffix = "-online" if self.online_teacher else ""
+        return f"{base}{suffix}-{config_hash(identity)}"
+
+
+def _refuse_unported(cfg: DistillationConfig, time_offsets) -> None:
+    refused = {
+        "online_teacher=True (the fused teacher step, train/distill.py)":
+            cfg.online_teacher,
+        "from_scratch=False (the released student weights cannot be loaded "
+        "into the port yet: the .mat importer imports flax)":
+            not cfg.from_scratch,
+        f"remat_policy={cfg.remat_policy!r}":
+            cfg.remat_policy not in (None, "none"),
+        "mulaw_feed=True": cfg.mulaw_feed,
+        "speed_aug=True": cfg.speed_aug,
+        "noise_num > 0 (noise-corpus augmentation)": cfg.noise_num > 0,
+        "time_offsets (fixedSegments)": time_offsets is not None,
+    }
+    for what, on in refused.items():
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch package yet")
+
+
+def mini_epoch_size(num_tracks: int, ratio: float, num_devices: int,
+                    batch_size: int):
+    """epochSize from miniEpochRatio (run_distillation.m:77,154), scaled by
+    the data-parallel width; None (= full epoch) once that reaches 1."""
+    scaled = ratio * num_devices
+    if scaled >= 1:
+        return None
+    return max(int(round(num_tracks * scaled)), batch_size)
+
+
+def split_imdb(imdb: EmoVoxImdb, mini_val: float, seed: int = 0):
+    """Train/val split from set ids, with mini-val subsampling (:137-146).
+    Returns (train_imdb, val_imdb, train_idx, val_idx)."""
+    train_idx = np.where(imdb.set_id == SET_TRAIN)[0]
+    val_idx = np.where(
+        (imdb.set_id == SET_UNHEARD_VAL) | (imdb.set_id == SET_HEARD_VAL))[0]
+    if 0 < mini_val < 1 and len(val_idx) > 1:
+        rng = np.random.RandomState(seed)
+        keep = max(int(round(len(val_idx) * mini_val)), 1)
+        val_idx = np.sort(rng.permutation(val_idx)[:keep])
+    return imdb.subset(train_idx), imdb.subset(val_idx), train_idx, val_idx
+
+
+def write_run_meta(exp_dir, cfg, **extra) -> str:
+    """Run-metadata dump (storeMetaInfo, run_distillation.m:227-240): twin
+    ``meta-<stamp>.json`` / ``.txt`` files with the full config, hostname,
+    timestamp and ``extra`` keys. Returns the stamp."""
+    exp_dir = Path(exp_dir)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    config = to_dict(cfg)
+    meta = {"config": config, "hostname": platform.node(),
+            "timestamp": stamp, **extra}
+    (exp_dir / f"meta-{stamp}.json").write_text(json.dumps(meta, indent=2))
+    (exp_dir / f"meta-{stamp}.txt").write_text(
+        "\n".join(f"{k}: {v!r}" for k, v in config.items()))
+    return stamp
+
+
+def run_distillation(cfg: DistillationConfig,
+                     imdb: Optional[EmoVoxImdb] = None,
+                     resume: bool = True, time_offsets=None,
+                     device: torch.device | str = "cuda"):
+    """Returns (final_state, history, exp_dir).
+
+    Offline mode on one ``device``: the teacher targets are the imdb's
+    cached ``wav_logits``. ``imdb`` None loads
+    ``cfg.data_root/emovoxceleb-imdb.npz``.
+    """
+    _refuse_unported(cfg, time_offsets)
+    if imdb is None:
+        imdb_path = Path(cfg.data_root) / "emovoxceleb-imdb.npz"
+        if not imdb_path.exists():
+            raise FileNotFoundError(
+                f"{imdb_path} not found — build it with the JAX package's "
+                "exp/fetch_emovoxceleb_imdb (or pass a synthetic imdb)")
+        imdb = EmoVoxImdb.load(imdb_path)
+
+    train_imdb, val_imdb, _, _ = split_imdb(imdb, cfg.mini_val, cfg.seed)
+    bcfg = BatchConfig(num_seconds=cfg.num_seconds, batch_size=cfg.batch_size,
+                       loss_type=cfg.loss_type,
+                       logit_aggregator=cfg.logit_aggregator,
+                       num_pred_emotions=cfg.num_pred_emotions)
+    train_batcher = EmoVoxBatcher(train_imdb, bcfg, train=True, seed=cfg.seed)
+    val_batcher = EmoVoxBatcher(val_imdb, bcfg, train=False, seed=cfg.seed)
+    epoch_size = mini_epoch_size(train_imdb.num_tracks, cfg.mini_epoch_ratio,
+                                 1, cfg.batch_size)
+
+    exp_dir = Path(cfg.out_root) / cfg.exp_name()
+    tcfg = TrainConfig(
+        num_epochs=cfg.num_epochs,
+        batch_size=cfg.batch_size,
+        epoch_size=epoch_size,  # engine cap; the batcher also subsamples
+        learning_rate=logspace_lr(cfg.lr_start_exp, cfg.lr_stop_exp,
+                                  cfg.num_epochs),
+        weight_decay=cfg.weight_decay,
+        seed=cfg.seed,
+        exp_dir=str(exp_dir),
+        resume=resume,
+    )
+    model = build_student(cfg.student, num_outputs=cfg.num_pred_emotions,
+                          dropout=cfg.dropout, tiny=cfg.tiny_model,
+                          loss_type=cfg.loss_type)
+    loss_fn = student_loss_fn(cfg.loss_type, temperature=cfg.temperature,
+                              num_classes=cfg.num_pred_emotions)
+    trainer = Trainer(model, loss_fn, tcfg,
+                      class_names=EMOTIONS[: cfg.num_pred_emotions],
+                      device=device)
+    write_run_meta(exp_dir, cfg,
+                   num_train_tracks=int(train_imdb.num_tracks),
+                   num_val_tracks=int(val_imdb.num_tracks))
+    state, history = trainer.fit(
+        lambda epoch: train_batcher.batches(epoch, epoch_size=epoch_size,
+                                            drop_remainder=True),
+        val_batches_fn=lambda epoch: val_batcher.batches(epoch))
+    return state, history, exp_dir

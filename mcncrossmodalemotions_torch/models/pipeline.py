@@ -2,11 +2,15 @@
 
 Port of ``mcncrossmodalemotions_tpu/models/pipeline.py``
 (``AudioStudentPipeline``): the frontend has no parameters and passes no
-gradient; the student is registered as ``net``, so its ``state_dict`` keys
-carry the ``net.`` prefix, as the JAX variables nest under ``'net'``.
+gradient (it runs under ``torch.no_grad()``, as the JAX frontend sits
+behind ``jax.lax.stop_gradient``); the student is registered as ``net``,
+so its ``state_dict`` keys carry the ``net.`` prefix, as the JAX variables
+nest under ``'net'``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -24,20 +28,38 @@ class AudioStudentPipeline(nn.Module):
     PCM or uint8 mu-law)."""
 
     def __init__(self, spec: SpecConfig = DEFAULT_SPEC, num_outputs: int = 8,
-                 fc6_features: int = 4096, fc7_features: int = 1024,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dropout_rate: float = 0.0, fc6_features: int = 4096,
+                 fc7_features: int = 1024, head_init_scale: float = 1e-4,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.spec = spec
         self.net = VGGMStudent(num_outputs=num_outputs,
                                fc6_features=fc6_features,
-                               fc7_features=fc7_features, dtype=dtype)
+                               fc7_features=fc7_features,
+                               dropout_rate=dropout_rate,
+                               head_init_scale=head_init_scale, dtype=dtype,
+                               generator=generator)
 
-    def frontend(self, x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The student's scratch init (``VGGMStudent.reset_parameters``)."""
+        self.net.reset_parameters(generator)
+
+    def frontend(self, x: torch.Tensor, valid_frames=None,
+                 use_kernels: bool = True) -> torch.Tensor:
         with torch.no_grad():
-            return waveform_to_input(x, self.spec, valid_frames=valid_frames)
+            return waveform_to_input(x, self.spec, valid_frames=valid_frames,
+                                     use_kernel=use_kernels)
 
-    def forward(self, x: torch.Tensor, valid_frames=None,
-                return_embedding: bool = False):
-        feats = self.frontend(x, valid_frames=valid_frames)
-        return self.net(feats, valid_frames=valid_frames,
-                        return_embedding=return_embedding)
+    def forward(self, x: torch.Tensor, train: bool = False, valid_frames=None,
+                return_embedding: bool = False,
+                pad_mask: Optional[torch.Tensor] = None, *,
+                use_kernels: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``use_kernels`` runs the spectrogram through K1 and pool1/pool2
+        through K2 on the card; False runs their plain versions."""
+        feats = self.frontend(x, valid_frames=valid_frames,
+                              use_kernels=use_kernels)
+        return self.net(feats, train=train, valid_frames=valid_frames,
+                        return_embedding=return_embedding, pad_mask=pad_mask,
+                        use_kernels=use_kernels, generator=generator)

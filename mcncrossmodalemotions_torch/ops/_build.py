@@ -54,31 +54,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
+def load(*names: str) -> ctypes.CDLL:
+    """Build each ``csrc/<name>.cu`` whose library is missing, then load
+    them; returns the last one's library.
 
+    The missing libraries are compiled at once, one ``nvcc`` process each.
     The compiler's output (``-Xptxas=-v``: registers, shared memory and
     spills per kernel) is kept beside the library as ``<lib>.log``.
     """
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        so = library_path(name)
-        build_seconds[name] = 0.0
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+        todo = [n for n in names if n not in _libs]
+        procs = {}
+        for name in todo:
+            so = library_path(name)
+            build_seconds[name] = 0.0
+            if not so.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+        failed = []
+        for name, (tmp, t0, proc) in procs.items():
+            out, _ = proc.communicate()
             build_seconds[name] = time.perf_counter() - t0
-            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            so = library_path(name)
+            so.with_suffix(".log").write_text(out)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)  # atomic: concurrent builds never race
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
-        return lib
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            else:
+                os.replace(tmp, so)  # atomic: concurrent builds never race
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in todo:
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return _libs[names[-1]]

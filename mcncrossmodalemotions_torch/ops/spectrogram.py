@@ -65,6 +65,9 @@ class SpecConfig:
         """Non-redundant rFFT bins actually computed."""
         return self.nfft // 2 + 1
 
+    def frames_per_second(self) -> float:
+        return self.sample_rate / self.hop_length  # 100
+
     def num_frames(self, num_samples: int) -> int:
         """Frames produced from ``num_samples`` (floor framing, no padding)."""
         if num_samples < self.win_length:
@@ -197,17 +200,17 @@ def instance_norm(spec: torch.Tensor, eps: float = 1e-8,
 
 
 def waveform_to_input(x: torch.Tensor, cfg: SpecConfig = DEFAULT_SPEC,
-                      valid_frames=None) -> torch.Tensor:
+                      valid_frames=None, use_kernel: bool = True) -> torch.Tensor:
     """Full frontend: [B, N] waveform -> [B, F, T, 1] normalised input.
 
-    Framing+DFT go through ``spectrogram_cuda``, which launches the fused
-    kernel for a CUDA tensor and runs this module's plain path for a CPU
-    tensor.
+    With ``use_kernel`` framing+DFT go through ``spectrogram_cuda``, which
+    launches the fused kernel for a CUDA tensor and runs this module's
+    plain path for a CPU tensor; False runs the plain path everywhere.
     """
     # imported here: spectrogram_kernel imports this module
     from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
         spectrogram_cuda,
     )
 
-    spec = spectrogram_cuda(x, cfg)
+    spec = spectrogram_cuda(x, cfg) if use_kernel else spectrogram(x, cfg)
     return instance_norm(spec, valid_frames=valid_frames)[..., None]

@@ -1,13 +1,17 @@
-"""zoo subpackage: ``build_student`` and the weight bridge."""
+"""zoo subpackage: ``build_student``, ``student_loss_fn`` and the weight
+bridge."""
 
 from mcncrossmodalemotions_torch.zoo.bridge import (
     random_student_variables,
+    student_params_from_flax,
     student_state_dict_from_flax,
 )
 from mcncrossmodalemotions_torch.zoo.registry import (
     STUDENT_MODELS,
     build_student,
+    student_loss_fn,
 )
 
 __all__ = ["STUDENT_MODELS", "build_student", "random_student_variables",
+           "student_loss_fn", "student_params_from_flax",
            "student_state_dict_from_flax"]

@@ -7,7 +7,13 @@ dicts (optionally under ``'net'``, as ``AudioStudentPipeline`` and
 - conv kernels HWIO -> OIHW (conv1 ``[7,7,1,96]``, fc6 ``[9,1,256,F6]``);
 - dense kernels ``[in, out]`` -> ``[out, in]``; biases as they are;
 - BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) ->
-  ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
+  ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``);
+- a student built with ``use_batchnorm=False`` has conv biases and no
+  BatchNorm (and may have no ``batch_stats`` at all).
+
+``student_params_from_flax`` maps a params-shaped tree alone (the JAX
+``TrainState.velocity``, or its ``params``) to the port's parameter names
+(``named_parameters``), the keys of the port's velocity.
 
 Every leaf must be consumed and every port key produced, so a layout
 change on either side fails loudly instead of loading half a model.
@@ -17,7 +23,7 @@ numpy alone, so both packages can be given the same weights.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -37,19 +43,19 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def student_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Map JAX ``VGGMStudent`` variables to the port's ``state_dict``.
-
-    Variables nested under ``'net'`` map to ``AudioStudentPipeline``'s keys
-    (``net.`` prefix); bare ones to ``VGGMStudent``'s. Raises ``KeyError``
-    on a missing or an unused leaf.
-    """
-    params, stats = variables["params"], variables["batch_stats"]
+def _map_student(params: Mapping,
+                 stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
+    """Port keys of the student for ``params`` (and ``stats``, the
+    running statistics; None maps the parameters alone). Variables nested
+    under ``'net'`` get the pipeline's ``net.`` prefix."""
     prefix = ""
     if set(params) == {"net"}:
-        params, stats, prefix = params["net"], stats["net"], "net."
+        params, prefix = params["net"], "net."
+        stats = None if stats is None else stats.get("net", {})
     leaves = {f"params/{k}": v for k, v in _flatten(params).items()}
-    leaves.update({f"batch_stats/{k}": v for k, v in _flatten(stats).items()})
+    if stats is not None:
+        leaves.update({f"batch_stats/{k}": v for k, v in _flatten(stats).items()})
+    use_bn = "bn1" in params
 
     def take(path: str) -> torch.Tensor:
         if path not in leaves:
@@ -60,17 +66,38 @@ def student_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     for i, conv in enumerate(_CONVS, 1):
         state[f"{conv}.weight"] = take(f"params/{conv}/kernel").permute(
             3, 2, 0, 1).contiguous()
+        if not use_bn:
+            state[f"{conv}.bias"] = take(f"params/{conv}/bias")
+            continue
         state[f"bn{i}.weight"] = take(f"params/bn{i}/scale")
         state[f"bn{i}.bias"] = take(f"params/bn{i}/bias")
-        state[f"bn{i}.running_mean"] = take(f"batch_stats/bn{i}/mean")
-        state[f"bn{i}.running_var"] = take(f"batch_stats/bn{i}/var")
-        state[f"bn{i}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        if stats is not None:
+            state[f"bn{i}.running_mean"] = take(f"batch_stats/bn{i}/mean")
+            state[f"bn{i}.running_var"] = take(f"batch_stats/bn{i}/var")
+            state[f"bn{i}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     for dense in _DENSES:
         state[f"{dense}.weight"] = take(f"params/{dense}/kernel").t().contiguous()
         state[f"{dense}.bias"] = take(f"params/{dense}/bias")
     if leaves:
         raise KeyError(f"student variables have unmapped leaves: {sorted(leaves)}")
     return {prefix + k: v for k, v in state.items()}
+
+
+def student_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map JAX ``VGGMStudent`` variables to the port's ``state_dict``.
+
+    Variables nested under ``'net'`` map to ``AudioStudentPipeline``'s keys
+    (``net.`` prefix); bare ones to ``VGGMStudent``'s. Raises ``KeyError``
+    on a missing or an unused leaf.
+    """
+    return _map_student(variables["params"], variables.get("batch_stats", {}))
+
+
+def student_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a params-shaped tree (no ``batch_stats``: the JAX velocity or
+    params) to the port's parameter names. Raises ``KeyError`` on a
+    missing or an unused leaf."""
+    return _map_student(tree, None)
 
 
 def random_student_variables(seed: int = 0, fc6: int = 4096, fc7: int = 1024,

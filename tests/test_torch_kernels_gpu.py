@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: every test skips without a CUDA device (decided inside the
 fixture, never at import). The file imports no jax, so it also runs on a
@@ -67,6 +67,46 @@ def test_pool_kernel_bitwise_equal(cuda, shape, dtype):
                                 else torch.int32))
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 11, 9, 4), (1, 33, 35, 8),
+                                   (2, 69, 37, 96), (1, 3, 3, 1), (2, 4, 6, 3)])
+def test_pool_with_index_matches_forward(cuda, shape, dtype):
+    """Bitwise the index-free forward's output, and the plain version's
+    index (finite post-ReLU input, zero ties)."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.relu(torch.randn(*shape, generator=gen)).to(dtype).to(cuda)
+    y, idx = pool.max_pool_3x3s2_idx_cuda(x)
+    ref_y, ref_idx = pool.max_pool_3x3s2_with_index(x.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(pool.max_pool_3x3s2_cuda(x)))
+    assert torch.equal(idx.cpu(), ref_idx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 11, 9, 4), (1, 33, 35, 8),
+                                   (2, 69, 37, 96), (1, 3, 3, 1), (2, 4, 6, 3)])
+def test_pool_backward_kernel_matches_plain(cuda, shape, dtype):
+    """dx through the K2 autograd Function (with-index forward + backward
+    kernel) is bitwise autograd of F.max_pool2d: the same winners, fp32
+    sums in the same window order, one rounding."""
+    gen = torch.Generator().manual_seed(sum(shape) + 1)
+    x = torch.relu(torch.randn(*shape, generator=gen)).to(dtype).to(cuda)
+    xg = x.clone().requires_grad_(True)
+    y = pool.max_pool_3x3s2_train(xg)
+    dy = torch.randn(y.shape, generator=gen).to(dtype).to(cuda)
+    before = pool.max_pool_3x3s2_bwd_cuda.launches
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    torch.cuda.synchronize()
+    assert pool.max_pool_3x3s2_bwd_cuda.launches == before + 1
+    ref = pool.max_pool_3x3s2_backward(x, dy)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert torch.equal(_bits(dx), _bits(ref.contiguous()))
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     x = torch.zeros(2, 9, 9, 4, device=cuda)
     with pytest.raises(ValueError):
@@ -75,6 +115,16 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
         pool.max_pool_3x3s2_cuda(x.half())
     with pytest.raises(ValueError):
         pool.max_pool_3x3s2_cuda(x[:, :2])
+    dy = torch.zeros(2, 4, 4, 4, device=cuda)
+    idx = torch.zeros(2, 4, 4, 4, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # dy is not the pool output of 9x8
+        pool.max_pool_3x3s2_bwd_cuda(dy, idx, 9, 8)
+    with pytest.raises(ValueError):  # index of the wrong dtype
+        pool.max_pool_3x3s2_bwd_cuda(dy, idx.long(), 9, 9)
+    with pytest.raises(ValueError):  # index on the CPU
+        pool.max_pool_3x3s2_bwd_cuda(dy, idx.cpu(), 9, 9)
+    with pytest.raises(TypeError):
+        pool.max_pool_3x3s2_bwd_cuda(dy.half(), idx, 9, 9)
     with pytest.raises(ValueError):
         spectrogram_kernel.spectrogram_cuda(torch.zeros(2, 399, device=cuda))
     with pytest.raises(TypeError):

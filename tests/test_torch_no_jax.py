@@ -2,8 +2,8 @@
 
 tests/conftest.py imports jax, so the check runs in a fresh interpreter:
 it imports every module of ``mcncrossmodalemotions_torch``, runs the tiny
-extraction slice and the tiny pipeline on the CPU, and then inspects
-``sys.modules``.
+extraction slice, the tiny pipeline, one tiny train step and two tiny
+``run_distillation`` epochs on the CPU, and then inspects ``sys.modules``.
 """
 
 import subprocess
@@ -18,6 +18,8 @@ SCRIPT = textwrap.dedent("""
     from pathlib import Path
 
     import torch
+
+    torch.set_num_threads(2)  # beside other test processes, a full pool spins
 
     import mcncrossmodalemotions_torch as pkg
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -44,6 +46,32 @@ SCRIPT = textwrap.dedent("""
     with torch.inference_mode():
         out = pipe(torch.randn(2, 16384, generator=torch.Generator().manual_seed(0)))
     assert out.shape == (2, 8) and bool(torch.isfinite(out).all())
+
+    from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
+    from mcncrossmodalemotions_torch.exp.run_distillation import (
+        DistillationConfig, run_distillation)
+    from mcncrossmodalemotions_torch.train.state import (
+        TrainState, make_train_step)
+    from mcncrossmodalemotions_torch.zoo import student_loss_fn
+
+    gen = torch.Generator().manual_seed(0)
+    state = TrainState.create(build_student(tiny=True), gen)
+    step = make_train_step(student_loss_fn(), pass_pad_mask=True)
+    batch = {"data": (torch.randn(2, 16384, generator=gen) * 3000).to(torch.int16),
+             "logit_target": torch.randn(2, 8, generator=gen),
+             "max_label": torch.tensor([1, 5], dtype=torch.int32),
+             "pad_mask": torch.ones(2)}
+    state, metrics = step(state, batch, 1e-3)
+    assert bool(torch.isfinite(metrics["loss"]))
+    with tempfile.TemporaryDirectory() as d:
+        imdb = build_synthetic_imdb(Path(d) / "wav", num_speakers=2,
+                                    tracks_per_speaker=3,
+                                    duration_range=(1.2, 1.6))
+        cfg = DistillationConfig(num_epochs=2, batch_size=2, num_seconds=1.0,
+                                 tiny_model=True, mini_epoch_ratio=1.0,
+                                 out_root=str(Path(d) / "exps"))
+        _, history, _ = run_distillation(cfg, imdb, device="cpu")
+    assert [h["epoch"] for h in history] == [1, 2]
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))

@@ -1,0 +1,166 @@
+"""The port's offline ``run_distillation`` and its engine, on the CPU.
+
+- ``DistillationConfig`` has the JAX dataclass's fields and defaults, and
+  ``exp_name()`` gives the JAX string for the same config;
+- a tiny run (tiny student, 1 s crops, batch 2) of 2 epochs on a synthetic
+  imdb writes checkpoints 1 and 2 and ``metrics.jsonl`` with a finite
+  loss; a second call with ``num_epochs=3`` resumes at epoch 3; a corrupt
+  latest checkpoint falls back to the one before it;
+- the engine's helpers (LR schedule, mini-epochs, split, class stats)
+  agree with the JAX ones.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from mcncrossmodalemotions_tpu.exp import run_distillation as jrd
+from mcncrossmodalemotions_tpu.train import engine as jengine
+from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
+from mcncrossmodalemotions_torch.exp import run_distillation as rd
+from mcncrossmodalemotions_torch.train import checkpoints as ckpt
+from mcncrossmodalemotions_torch.train import engine
+
+TINY_RUN = dict(batch_size=2, num_seconds=1.0, tiny_model=True,
+                mini_epoch_ratio=1.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The runs take about a second on two threads; with all cores, beside
+    other test processes, torch's thread pool spins and takes ~20x longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def imdb(tmp_path_factory):
+    return build_synthetic_imdb(tmp_path_factory.mktemp("rd") / "wav",
+                                num_speakers=3, tracks_per_speaker=4,
+                                duration_range=(1.2, 2.0))
+
+
+def test_config_fields_and_defaults_equal_jax():
+    jf = {f.name: f.default for f in dataclasses.fields(jrd.DistillationConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(rd.DistillationConfig)}
+    assert tf == jf
+
+
+@pytest.mark.parametrize("overrides", [
+    {},
+    dict(loss_type="euclidean", temperature=1.0, num_seconds=3.0, seed=2,
+         tiny_model=True, weight_decay=0.0, num_epochs=7),
+    dict(dropout=0.5, mulaw_feed=True, speed_aug=True, noise_num=3,
+         noise_dir="/n", from_scratch=False, online_teacher=True),
+])
+def test_exp_name_equals_jax(overrides):
+    assert (rd.DistillationConfig(**overrides).exp_name()
+            == jrd.DistillationConfig(**overrides).exp_name())
+
+
+def _run(imdb, out_root, num_epochs):
+    cfg = rd.DistillationConfig(num_epochs=num_epochs, out_root=str(out_root),
+                                **TINY_RUN)
+    return rd.run_distillation(cfg, imdb, device="cpu")
+
+
+def test_two_epochs_then_resume_at_three(imdb, tmp_path):
+    state, history, exp_dir = _run(imdb, tmp_path, 2)
+    assert [h["epoch"] for h in history] == [1, 2]
+    assert [e for e, _ in ckpt.list_checkpoints(exp_dir)] == [1, 2]
+    records = [json.loads(line) for line in
+               (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [1, 2]
+    for r in records:
+        assert np.isfinite(r["train"]["loss"]) and np.isfinite(r["val"]["loss"])
+        assert r["train"]["num_samples"] == 6  # 6 train tracks, batch 2
+        assert 0.0 <= r["train"]["feed_bound_frac"] <= 1.0
+    assert state.step == 6
+    assert len(list(exp_dir.glob("meta-*.json"))) >= 1
+    assert exp_dir.name == jrd.DistillationConfig(
+        num_epochs=2, out_root=str(tmp_path), **TINY_RUN).exp_name()
+
+    state, history, exp_dir2 = _run(imdb, tmp_path, 3)
+    assert exp_dir2 == exp_dir  # num_epochs is not part of the identity
+    assert [h["epoch"] for h in history] == [3]
+    assert state.step == 9
+    assert [e for e, _ in ckpt.list_checkpoints(exp_dir)] == [1, 2, 3]
+
+
+def test_corrupt_latest_checkpoint_falls_back(imdb, tmp_path):
+    _, _, exp_dir = _run(imdb, tmp_path, 2)
+    latest = ckpt.checkpoint_path(exp_dir, 2)
+    latest.write_bytes(latest.read_bytes()[:100])  # a truncated write
+    state, history, _ = _run(imdb, tmp_path, 3)
+    assert [h["epoch"] for h in history] == [2, 3]  # resumed from epoch 1
+    assert state.step == 9
+
+
+def test_checkpoint_round_trip_and_mismatch_raises(tmp_path):
+    torch.manual_seed(0)
+    model = torch.nn.Linear(3, 2)
+    state = engine.TrainState.create(model, torch.Generator().manual_seed(5))
+    state.velocity["weight"].fill_(0.25)
+    state.step = 4
+    ckpt.save_checkpoint(tmp_path, 1, state, {"val": {"classerror": 0.5}})
+    ckpt.save_checkpoint(tmp_path, 2, state, {"val": {"classerror": 0.25}})
+    draw = torch.rand(3, generator=state.generator)
+    other = engine.TrainState.create(torch.nn.Linear(3, 2), torch.Generator())
+    epoch, other = ckpt.load_latest(tmp_path, other)
+    assert epoch == 2 and other.step == 4
+    assert torch.equal(other.model.weight, model.weight)
+    assert torch.equal(other.velocity["weight"], state.velocity["weight"])
+    assert torch.equal(torch.rand(3, generator=other.generator), draw)
+    assert ckpt.find_best_epoch(tmp_path) == 2
+    assert ckpt.find_best_epoch(tmp_path, mode="max", prune=True) == 1
+    assert [e for e, _ in ckpt.list_checkpoints(tmp_path)] == [1]
+    wrong = engine.TrainState.create(torch.nn.Linear(4, 2), torch.Generator())
+    with pytest.raises(RuntimeError):  # a changed model is not "corrupt"
+        ckpt.load_latest(tmp_path, wrong)
+
+
+@pytest.mark.parametrize("field,value", [("online_teacher", True),
+                                         ("from_scratch", False),
+                                         ("remat_policy", "drop_conv1"),
+                                         ("mulaw_feed", True),
+                                         ("speed_aug", True),
+                                         ("noise_num", 2)])
+def test_unported_modes_raise(imdb, tmp_path, field, value):
+    cfg = rd.DistillationConfig(out_root=str(tmp_path), **{field: value})
+    with pytest.raises(NotImplementedError):
+        rd.run_distillation(cfg, imdb, device="cpu")
+
+
+def test_engine_helpers_match_jax(imdb):
+    for lr in (1e-3, (1e-2, 5e-3, 2e-3)):
+        for epoch in (1, 2, 5):
+            assert (engine.lr_for_epoch(engine.TrainConfig(learning_rate=lr), epoch)
+                    == jengine.lr_for_epoch(jengine.TrainConfig(learning_rate=lr),
+                                            epoch))
+    assert engine.logspace_lr(-4, -5, 7) == jengine.logspace_lr(-4, -5, 7)
+    for args in ((1000, 0.05, 1, 64), (100, 0.05, 1, 64), (100, 0.5, 4, 8)):
+        assert rd.mini_epoch_size(*args) == jrd.mini_epoch_size(*args)
+    for a, b in zip(rd.split_imdb(imdb, 0.5, 0), jrd.split_imdb(imdb, 0.5, 0)):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_array_equal(a.wav_paths, b.wav_paths)
+    result = {"loss": 1.5, "class_correct": np.array([2.0, 0, 1]),
+              "class_pop": np.array([4.0, 0, 2])}
+    names = ("a", "b", "c")
+    assert (engine.summarize_class_stats(result, names)
+            == jengine.summarize_class_stats(result, names))
+
+
+def test_metric_averager_weights_by_batch_size():
+    avg = engine.MetricAverager()
+    avg.update({"loss": torch.tensor(1.0), "class_pop": torch.tensor([1.0, 0])}, 2)
+    avg.update({"loss": torch.tensor(4.0), "class_pop": torch.tensor([0.0, 3])}, 1)
+    out = avg.result()
+    assert out["loss"] == pytest.approx(2.0)
+    np.testing.assert_array_equal(out["class_pop"], [1.0, 3.0])

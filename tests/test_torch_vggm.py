@@ -24,6 +24,7 @@ from mcncrossmodalemotions_torch.models.vggm import (
 from mcncrossmodalemotions_torch.zoo import (
     build_student,
     random_student_variables,
+    student_params_from_flax,
     student_state_dict_from_flax,
 )
 
@@ -84,6 +85,49 @@ def test_bridge_refuses_unmapped_and_missing_leaves():
     del v["batch_stats"]["bn3"]["var"]
     with pytest.raises(KeyError, match="bn3/var"):
         student_state_dict_from_flax(v)
+
+
+@pytest.mark.parametrize("nested", [False, True])
+def test_bridge_maps_a_params_only_tree_to_parameter_names(nested):
+    """A tree without batch_stats (the JAX TrainState.velocity) maps to the
+    port's parameter names, every leaf consumed."""
+    v = random_student_variables(seed=2, fc6=64, fc7=32)["params"]
+    tree = {"net": v} if nested else v
+    got = student_params_from_flax(tree)
+    model = build_student(tiny=True, with_frontend=nested)
+    assert sorted(got) == sorted(n for n, _ in model.named_parameters())
+    for name, p in model.named_parameters():
+        assert got[name].shape == p.shape, name
+    prefix = "net." if nested else ""
+    np.testing.assert_array_equal(got[prefix + "conv2.weight"].numpy(),
+                                  v["conv2"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(got[prefix + "bn4.bias"].numpy(),
+                                  v["bn4"]["bias"])
+
+
+def test_bridge_params_only_refuses_unmapped_and_missing_leaves():
+    v = random_student_variables(seed=0, fc6=64, fc7=32)["params"]
+    v["fc7"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="unmapped"):
+        student_params_from_flax(v)
+    v = random_student_variables(seed=0, fc6=64, fc7=32)["params"]
+    del v["bn2"]["scale"]
+    with pytest.raises(KeyError, match="bn2/scale"):
+        student_params_from_flax(v)
+    with pytest.raises(KeyError, match="unmapped"):  # stats are not params
+        student_params_from_flax(
+            dict(random_student_variables(seed=0, fc6=64, fc7=32)["params"],
+                 bn9={"mean": np.zeros(2)}))
+
+
+def test_bridge_maps_a_batchnorm_free_student():
+    jm = JaxVGGM(use_batchnorm=False, **TINY)
+    jv = jax.tree_util.tree_map(
+        lambda s: np.ones(s.shape, np.float32),
+        jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 512, 100, 1))))
+    assert "batch_stats" not in jv
+    tm = build_student(tiny=True, with_frontend=False, use_bnorm=False)
+    tm.load_state_dict(student_state_dict_from_flax(jv), strict=True)
 
 
 def _forward_pair(dtype_jax, dtype_torch, highest: bool):
