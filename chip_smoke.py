@@ -6,14 +6,16 @@
 Builds the port's CUDA kernels from ``mcncrossmodalemotions_torch/csrc``
 (one nvcc per source, started together -> ``build/kernels/``), holds each
 against its plain PyTorch version on the card, then drives the port's
-three main paths with the full-width VGG-M student: whole-clip feature
-extraction (``compute_audio_feats``, seeded weights, synthetic tracks in
-three duration buckets), the distillation train step at the headline
-shape, and offline ``run_distillation`` end to end; each path with and
-without the kernels where a comparison applies. Phases:
+four main paths, the first three with the full-width VGG-M student:
+whole-clip feature extraction (``compute_audio_feats``, seeded weights,
+synthetic tracks in three duration buckets), the distillation train step
+at the headline shape, offline ``run_distillation`` end to end, and the
+two Mosaic probe tools; each path with and without the kernels where a
+comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: nvcc seconds per kernel library.
+2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
+   probes).
 3. data: 126 synthetic wavs (``data.synthetic_track_imdb``), grouped as
    the extractor groups them; each chunk's shapes are the shapes the
    main run launches the kernels at.
@@ -21,10 +23,13 @@ without the kernels where a comparison applies. Phases:
    / max |plain|) <= 1e-4: at [64, 64384] (T=400, plus one row against a
    float64 numpy FFT within atol 5e-4), T=150 and T=1000, at each
    chunk's int16 feed and at the train step's int16 [128, 64384]; kernel
-   and plain times (CUDA events) at the last two.
+   and plain times (CUDA events) at the last two, beside ``torch.stft``
+   (cuFFT) on the same pre-emphasised rows, whose magnitudes are held to
+   the plain frontend's first nfft/2+1 bins within 1e-3 of the max.
 5. K2 3x3/2 max-pool kernel vs F.max_pool2d at each chunk's pool1 and
    pool2 input, bf16 and fp32, post-ReLU: bitwise equal; bf16 times.
-6. slice: per-track logits finite and [1, 8]; the main run launched K1
+6. slice: ``compute_audio_feats`` given CPU weights runs on the card by
+   default; per-track logits finite and [1, 8]; the main run launched K1
    once and K2 twice per chunk; kernel-on logits within 2e-2 *
    max|logit| of the plain run; tracks/s.
 7. k2-backward at the train step's pool1 [128,253,197,96] and pool2
@@ -49,20 +54,33 @@ without the kernels where a comparison applies. Phases:
    ``metrics.jsonl`` appear, losses finite, the exact kernel launch
    counts; a second call with ``num_epochs=3`` resumes at epoch 3;
    ``feed_bound_frac`` per epoch.
+10. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+    on the card: all 17 probes RUN with ``match=True``, launching
+    ``probe_gather`` 15 times and the other two probe kernels once each;
+    then every probe's kernel bitwise equal to its plain version (P9's
+    also exactly numpy's ``expect``), P12 again on small-integer inputs
+    where both candidate branches fire (their nonzero shares printed, each
+    above 0), and each probe's kernel, plain and library times.
 
-Prints one JSON line of kernel results (``launches``: counted over the
-three main runs, each read between a reset just before and just after it;
-``ms``/``plain_ms``: summed over the main runs' launch shapes, K1's at the
-int16 feed, whose decode both versions run, the with-index forward and
-the backward at the train step's), then, last, the device line
-``{"ok": true, "device": {...}}``. Exits non-zero, without the device
-line, when any phase fails or no CUDA device is present. Imports no jax.
+Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
+counted over the first three main runs, the probe kernels' over the
+probes run, each read between a reset just before and just after it;
+``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
+shapes, K1's at the int16 feed, whose decode both versions run, the
+with-index forward and the backward at the train step's, the probes' at
+the probes' own; ``bound_ms``: the least time for the same work, from the
+bytes each input and output must move and the operations done, at H100
+SXM peaks; K2's library call is its plain version), then, last, the
+device line ``{"ok": true, "device": {...}}``. Exits non-zero, without the
+device line, when any phase fails or no CUDA device is present. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -82,6 +100,12 @@ TRAIN_UPDATE_RTOL = 0.5       # conv1's 3-step update, relative L2: a
                               # tiny width on the CPU (0.087 unmutated)
 TRAIN_LR = 1e-4               # bench.py's lr
 TIMED_STEPS, WARMUP_STEPS = 10, 2
+STFT_REL_TOL = 1e-3           # cuFFT vs the fp32 DFT product: order only
+PROBE_ITERS = 200             # probe kernels take microseconds
+QUEUE_CYCLES = 100_000_000    # ~50 ms of device sleep ahead of timed calls
+N_PROBES = 17                 # P1-P11, P5b; P4r, P4s, P4b, P12, P1r
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -103,7 +127,11 @@ def phase(name: str, walls: dict):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, CUDA events around ``iters`` calls."""
+    """Mean device milliseconds per call, CUDA events around ``iters`` calls.
+
+    The calls are queued behind a device-side sleep, so they run back to
+    back on the card: a call shorter than the host's cost of issuing it
+    (the probe kernels) is timed on the device, not at the host's pace."""
     import torch
 
     for _ in range(warmup):
@@ -111,6 +139,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -119,11 +148,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn) -> tuple:
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (cuda_ms(plain_fn), cuda_ms(kernel_fn),
-                      cuda_ms(kernel_fn), cuda_ms(plain_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def turns_ms(*fns, iters: int = 20) -> list:
+    """Mean device ms per call of each fn, timed in turns: in order, then
+    in reverse (plain, kernel, kernel, plain for two)."""
+    first = [cuda_ms(f, iters) for f in fns]
+    second = [cuda_ms(f, iters) for f in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time an H100 could take to
+    move ``nbytes`` through device memory and do ``ops`` fp32 operations,
+    whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stft_call(xe, cfg):
+    """The library call that computes K1's magnitudes: ``torch.stft``
+    (cuFFT on the card) of the pre-emphasised [B, N] rows ``xe``, Hamming
+    window, ``center=False``, ``.abs()`` -> [B, nfft/2+1, T], the plain
+    frontend's first nfft/2+1 bins. torch.stft centres the window in each
+    nfft-sample frame, so the rows get (nfft - win) / 2 zeros on each side
+    to frame the samples K1 frames."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = (cfg.nfft - cfg.win_length) // 2
+    xp = F.pad(xe, (pad, cfg.nfft - cfg.win_length - pad))
+    window = torch.hamming_window(cfg.win_length, periodic=False,
+                                  dtype=xe.dtype, device=xe.device)
+    return lambda: torch.stft(xp, cfg.nfft, cfg.hop_length, cfg.win_length,
+                              window, center=False,
+                              return_complex=True).abs()
 
 
 def golden_row(x, cfg):
@@ -166,7 +224,23 @@ def read_counts(wrappers) -> dict:
     return {k: w.launches for k, w in wrappers.items()}
 
 
-def k2_backward_phase(card: str, timings: dict, errs: dict) -> None:
+def add_timing(timings: dict, work: dict, name: str, ms: list,
+               nbytes: float, ops: float) -> str:
+    """Add one launch shape's (kernel, plain[, library]) ms and its work;
+    a kernel whose plain version is its library call passes two times.
+    Returns the shape's bound and its share, for the shape's line."""
+    k, p = ms[0], ms[1]
+    lib = ms[2] if len(ms) > 2 else p
+    for i, v in enumerate((k, p, lib)):
+        timings[name][i] += v
+    work[name][0] += nbytes
+    work[name][1] += ops
+    bound, by = bound_ms(nbytes, ops)
+    return f"bound {bound:.5f} ms ({by}), {bound / k:.1%} of it"
+
+
+def k2_backward_phase(card: str, timings: dict, errs: dict,
+                      work: dict) -> None:
     """K2 with-index forward and backward vs their plain versions at the
     train step's pool inputs (phase 7)."""
     import torch
@@ -204,23 +278,24 @@ def k2_backward_phase(card: str, timings: dict, errs: dict) -> None:
                   "to autograd of F.max_pool2d")
             if dtype == torch.bfloat16:  # the train step's dtype
                 nchw = x.permute(0, 3, 1, 2)
-                k, p = paired_ms(lambda: pool.max_pool_3x3s2_idx_cuda(x),
-                                 lambda: F.max_pool2d(nchw, 3, 2,
-                                                      return_indices=True))
-                timings["max_pool_3x3s2_idx"][0] += k
-                timings["max_pool_3x3s2_idx"][1] += p
+                p, k = turns_ms(lambda: F.max_pool2d(nchw, 3, 2,
+                                                     return_indices=True),
+                                lambda: pool.max_pool_3x3s2_idx_cuda(x))
+                b = add_timing(timings, work, "max_pool_3x3s2_idx", [k, p],
+                               2 * x.numel() + 3 * y.numel(), 8 * y.numel())
                 print(f"  {card}: K2 with-index {label} {shape} bf16: kernel "
-                      f"{k:.4f} ms, plain (max_pool2d_with_indices) {p:.4f} ms")
+                      f"{k:.4f} ms, plain (max_pool2d_with_indices) {p:.4f} "
+                      f"ms; {b}")
                 xg = x.detach().requires_grad_(True)
                 yg = F.max_pool2d(xg.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
-                k, p = paired_ms(
-                    lambda: pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3]),
-                    lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True))
-                timings["max_pool_3x3s2_bwd"][0] += k
-                timings["max_pool_3x3s2_bwd"][1] += p
+                p, k = turns_ms(
+                    lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True),
+                    lambda: pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3]))
+                b = add_timing(timings, work, "max_pool_3x3s2_bwd", [k, p],
+                               3 * dy.numel() + 2 * dx.numel(), 4 * dx.numel())
                 print(f"  {card}: K2 backward {label} {shape} bf16: kernel "
                       f"{k:.4f} ms, plain (max_pool2d_with_indices_backward) "
-                      f"{p:.4f} ms", flush=True)
+                      f"{p:.4f} ms; {b}", flush=True)
                 del xg, yg
             del x, y, y_ref, idx, dy, dx, ref
             torch.cuda.empty_cache()
@@ -308,8 +383,9 @@ def train_phase(card: str, wrappers: dict) -> dict:
           f"{TRAIN_UPDATE_RTOL})")
     check(rel <= TRAIN_LOSS_RTOL, "kernel-on train losses disagree with plain")
     check(upd <= TRAIN_UPDATE_RTOL, "kernel-on conv1 update disagrees with plain")
-    want = {"spectrogram": 3, "max_pool_3x3s2": 0, "max_pool_3x3s2_idx": 6,
-            "max_pool_3x3s2_bwd": 6}
+    want = {k: 0 for k in wrappers} | {"spectrogram": 3,
+                                       "max_pool_3x3s2_idx": 6,
+                                       "max_pool_3x3s2_bwd": 6}
     check(k["counts"] == want, f"train launches {k['counts']}, expected {want}")
     check(not any(p["counts"].values()), f"plain steps launched {p['counts']}")
     return k["counts"]
@@ -357,9 +433,10 @@ def distill_phase(root: Path, wrappers: dict) -> dict:
           "metrics.jsonl lacks the two epochs")
     n_val = history[0]["val"]["num_samples"]
     val_batches = -(-n_val // 64)
-    want = {"spectrogram": 2 * (2 + val_batches),
-            "max_pool_3x3s2": 2 * 2 * val_batches,
-            "max_pool_3x3s2_idx": 2 * 2 * 2, "max_pool_3x3s2_bwd": 2 * 2 * 2}
+    want = {k: 0 for k in wrappers} | {
+        "spectrogram": 2 * (2 + val_batches),
+        "max_pool_3x3s2": 2 * 2 * val_batches,
+        "max_pool_3x3s2_idx": 2 * 2 * 2, "max_pool_3x3s2_bwd": 2 * 2 * 2}
     check(counts == want, f"distill launches {counts}, expected {want}")
     _, history, _ = run_distillation(DistillationConfig(num_epochs=3, **kw),
                                      imdb, device="cuda")
@@ -368,6 +445,109 @@ def distill_phase(root: Path, wrappers: dict) -> dict:
     check([h["epoch"] for h in history] == [3], "resume did not start at epoch 3")
     check([e for e, _ in list_checkpoints(exp_dir)] == [1, 2, 3],
           "checkpoint 3 missing")
+    return counts
+
+
+def probe_work(probe) -> tuple:
+    """(bytes, operations) a probe's kernel needs: each input element it
+    reads (a gather reads only the rows its index names) and each output
+    element once."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.ops import probes
+
+    if probe.kernel is probes.probe_gather:
+        x, index, axis = probe.args
+        n_out = index.values.numel()
+        rows = x.numel() // x.shape[axis]
+        used = len(np.unique(index.values.cpu().numpy()))
+        return (used * rows * x.element_size() + 4 * n_out
+                + 4 * rows * n_out, 0)
+    if probe.kernel is probes.probe_select_matmul:
+        (m, k), n = probe.args[0].shape, probe.args[1].shape[1]
+        return 4 * (m * k + k * n + m * n), 2 * m * k * n
+    # probe_col_candidates: 2 compares, 1 and and 2 adds per output
+    x, y, dy = probe.args
+    return 4 * (2 * x.numel() + y.numel() + dy.numel()), 5 * x.numel()
+
+
+def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
+                 work: dict) -> dict:
+    """Both probe tools on the card, then each probe kernel against its
+    plain version and timed (phase 10); returns the tools' launch counts."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.ops import probes
+    from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
+
+    dev = torch.device("cuda")
+    reset_counts(wrappers)
+    results = {**probe_mosaic.main(dev), **probe_mosaic2.main(dev)}
+    counts = read_counts(wrappers)
+    failed = [n for n, (ran, ok) in results.items() if not (ran and ok)]
+    print(f"  probes: {len(results)} run, launches {counts}", flush=True)
+    check(len(results) == N_PROBES and not failed,
+          f"probes that failed or did not match numpy: {failed}")
+    want = {k: 0 for k in wrappers} | {"probe_gather": N_PROBES - 2,
+                                       "probe_select_matmul": 1,
+                                       "probe_col_candidates": 1}
+    check(counts == want, f"probe launches {counts}, expected {want}")
+
+    library = {probes.probe_gather: lambda x, index, axis: torch.index_select(
+                   x, axis, index.values),
+               probes.probe_select_matmul: torch.matmul}
+    for p in probe_mosaic.make_probes(dev) + probe_mosaic2.make_probes(dev):
+        name = p.kernel.__name__
+        got, ref = p.run(), p.run(plain=True)
+        torch.cuda.synchronize()
+        same = got.shape == ref.shape and torch.equal(bits(got), bits(ref))
+        err = (got - ref).abs().max().item()
+        errs[name] = max(errs[name], err)
+        exact = np.array_equal(got.cpu().numpy(), p.expect)
+        fns = [lambda: p.run(plain=True), lambda: p.run()]
+        if p.kernel in library:
+            fns.append(lambda: library[p.kernel](*p.args))
+        ms = turns_ms(*fns, iters=PROBE_ITERS)
+        b = add_timing(timings, work, name, [ms[1], ms[0], *ms[2:]],
+                       *probe_work(p))
+        print(f"  {card}: {p.name} ({name}): kernel "
+              f"{'bitwise equal to' if same else 'DIFFERENT from'} plain, "
+              f"{'exactly' if exact else 'not exactly'} numpy's expect; "
+              f"kernel {ms[1]:.5f} ms, plain {ms[0]:.5f} ms"
+              + (f", library {ms[2]:.5f} ms" if len(ms) > 2 else "")
+              + f"; {b}", flush=True)
+        check(same, f"{p.name}: kernel not bitwise equal to its plain version")
+        if p.kernel is probes.probe_select_matmul:
+            check(exact, f"{p.name}: kernel not exactly numpy's expect")
+
+    # P12's own inputs are independent normals, so x == y never holds and
+    # its expect is all zeros; small integers make both branches fire.
+    t, w, c, wh = probe_mosaic2.T, probe_mosaic2.W, probe_mosaic2.C, probe_mosaic2.WH
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randint(0, 3, (t, w, c), device=dev, generator=gen).float()
+    y = torch.randint(0, 3, (t, wh, c), device=dev, generator=gen).float()
+    dy = torch.randn(t, wh, c, device=dev, generator=gen)
+    got = probes.probe_col_candidates(x, y, dy)
+    ref = probes.col_candidates(x, y, dy)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(got), bits(ref))
+    even = (torch.arange(w, device=dev) % 2 == 0).view(1, w, 1)
+    shares = []  # per branch: the share of outputs it adds a nonzero to
+    for k2 in (0, 1):
+        yc = torch.repeat_interleave(y[:, 1 - k2:], 2, dim=1)[:, :w]
+        dyc = torch.repeat_interleave(dy[:, 1 - k2:], 2, dim=1)[:, :w]
+        fired = (x == yc) & (dyc != 0)
+        if k2:
+            fired = fired & even
+        shares.append(fired.float().mean().item())
+    nonzero = (got != 0).float().mean().item()
+    print(f"  P12 on small-integer inputs: kernel "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} plain; "
+          f"nonzero shares: branch k2=0 {shares[0]:.4f}, k2=1 {shares[1]:.4f}, "
+          f"output {nonzero:.4f}", flush=True)
+    check(same, "P12 on ties: kernel not bitwise equal to its plain version")
+    check(min(shares) > 0 and nonzero > 0, "P12 on ties: a branch never fired")
     return counts
 
 
@@ -389,9 +569,10 @@ def main() -> int:
         AudioFeatureExtractor,
         compute_audio_feats,
     )
-    from mcncrossmodalemotions_torch.ops import _build, pool
+    from mcncrossmodalemotions_torch.ops import _build, pool, probes
     from mcncrossmodalemotions_torch.ops.spectrogram import (
         DEFAULT_SPEC,
+        preemphasis,
         spectrogram,
     )
     from mcncrossmodalemotions_torch.ops.spectrogram_kernel import spectrogram_cuda
@@ -408,7 +589,10 @@ def main() -> int:
     wrappers = {"spectrogram": spectrogram_cuda,
                 "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
                 "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
-                "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda}
+                "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda,
+                "probe_gather": probes.probe_gather,
+                "probe_select_matmul": probes.probe_select_matmul,
+                "probe_col_candidates": probes.probe_col_candidates}
 
     with phase("device", walls):
         smi = subprocess.run(
@@ -425,7 +609,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build", walls):
-        libs = ("spectrogram", "max_pool_3x3s2")
+        libs = ("spectrogram", "max_pool_3x3s2", "probes")
         _build.load(*libs)  # one nvcc each, all started together
         for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
@@ -451,7 +635,8 @@ def main() -> int:
                   f"{chunks}")
             check(len({b for _, _, b in chunks}) >= 3, "fewer than three buckets")
 
-        timings = {k: [0.0, 0.0] for k in wrappers}
+        timings = {k: [0.0, 0.0, 0.0] for k in wrappers}  # kernel, plain, library
+        work = {k: [0.0, 0.0] for k in wrappers}  # bytes, operations
         errs = {k: 0.0 for k in wrappers}
         with phase("k1", walls):
             bench_n = cfg.crop_samples(400)
@@ -487,12 +672,28 @@ def main() -> int:
                     print(f"  K1 {label} row 0 vs float64 FFT: max abs {gerr:.3e}")
                     check(gerr <= K1_GOLDEN_ATOL, f"K1 golden: {gerr:.3e}")
                 if timed:
-                    k, p = paired_ms(lambda: spectrogram_cuda(x, cfg),
-                                     lambda: spectrogram(x, cfg))
-                    timings["spectrogram"][0] += k
-                    timings["spectrogram"][1] += p
+                    stft = stft_call(preemphasis(x, cfg.preemph), cfg)
+                    mag = stft()
+                    half = ref[:, :cfg.num_rbins]
+                    srel = ((mag - half).abs().max() / half.abs().max()).item()
+                    print(f"  K1 {label}: torch.stft magnitudes vs plain: max "
+                          f"rel {srel:.3e}")
+                    check(mag.shape == half.shape and srel <= STFT_REL_TOL,
+                          f"torch.stft {label}: {tuple(mag.shape)}, rel {srel:.3e}")
+                    p, k, lib = turns_ms(lambda: spectrogram(x, cfg),
+                                         lambda: spectrogram_cuda(x, cfg), stft)
+                    frames = rows * cfg.num_frames(n)
+                    nbytes = 2 * x.numel() + 4 * got.numel()
+                    b = add_timing(timings, work, "spectrogram", [k, p, lib],
+                                   nbytes, frames * cfg.win_length * 2
+                                   * cfg.num_rbins * 2)  # the DFT product
+                    fft, fft_by = bound_ms(  # 5 N log2 N a frame
+                        nbytes, frames * 5 * cfg.nfft * math.log2(cfg.nfft))
                     print(f"  {card}: K1 {label} {tuple(x.shape)} int16: "
-                          f"kernel {k:.4f} ms, plain {p:.4f} ms")
+                          f"kernel {k:.4f} ms, plain {p:.4f} ms, torch.stft "
+                          f"(pre-emphasised f32 rows) {lib:.4f} ms; {b}; "
+                          f"with an FFT's operations {fft:.5f} ms ({fft_by})")
+                    del stft, mag, half
             del x, got, ref
 
         with phase("k2", walls):
@@ -518,21 +719,23 @@ def main() -> int:
                         check(same, f"K2 bucket {bucket} {label} {dtype}: "
                               "not bitwise equal")
                         if dtype == torch.bfloat16:  # the slice's dtype
-                            k, p = paired_ms(
-                                lambda: pool.max_pool_3x3s2_cuda(x),
-                                lambda: pool.max_pool_3x3s2(x))
-                            timings["max_pool_3x3s2"][0] += k
-                            timings["max_pool_3x3s2"][1] += p
+                            p, k = turns_ms(lambda: pool.max_pool_3x3s2(x),
+                                            lambda: pool.max_pool_3x3s2_cuda(x))
+                            b = add_timing(timings, work, "max_pool_3x3s2",
+                                           [k, p], 2 * (x.numel() + got.numel()),
+                                           8 * got.numel())
                             print(f"  {card}: K2 bucket {bucket} {label} "
                                   f"{shape} bf16: kernel {k:.4f} ms, "
-                                  f"plain {p:.4f} ms")
+                                  f"plain {p:.4f} ms; {b}")
                         del x, got, ref
             torch.cuda.empty_cache()
 
         with phase("slice", walls):
-            model = build_student(with_frontend=False)  # full width, bf16
-            state = {k: v.to(dev) for k, v in student_state_dict_from_flax(
-                random_student_variables(seed=SEED)).items()}
+            # full width, bf16; weights on the host: the extractor moves
+            # them to the card, its default device
+            model = build_student(with_frontend=False)
+            state = student_state_dict_from_flax(
+                random_student_variables(seed=SEED))
 
             t0 = time.perf_counter()
             compute_audio_feats(imdb, model, state, batch_size=BATCH,
@@ -557,9 +760,8 @@ def main() -> int:
             check(len(logits) == len(paths), "missing tracks")
             check(all(l.shape == (1, 8) and np.all(np.isfinite(l))
                       for l in logits), "logits not finite [1, 8]")
-            expected = {"spectrogram": len(chunks),
-                        "max_pool_3x3s2": 2 * len(chunks),
-                        "max_pool_3x3s2_idx": 0, "max_pool_3x3s2_bwd": 0}
+            expected = {k: 0 for k in wrappers} | {
+                "spectrogram": len(chunks), "max_pool_3x3s2": 2 * len(chunks)}
             print(f"  launches in the main run: {launches}, "
                   f"expected {expected}")
             check(launches == expected,
@@ -579,7 +781,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         with phase("k2-backward", walls):
-            k2_backward_phase(card, timings, errs)
+            k2_backward_phase(card, timings, errs, work)
 
         with phase("train", walls):
             train_counts = train_phase(card, wrappers)
@@ -587,12 +789,17 @@ def main() -> int:
         with phase("distill", walls):
             distill_counts = distill_phase(Path(tmp), wrappers)
 
+        with phase("probes", walls):
+            probe_counts = probes_phase(card, wrappers, timings, errs, work)
+
     print("  phase walls (s): " + ", ".join(f"{k} {v:.2f}"
                                             for k, v in walls.items()))
-    print(f"  {card}: kernel times summed over the main run's launch shapes "
-          f"(ms, kernel / plain): " + ", ".join(
-              f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in timings.items()))
+    print(f"  {card}: kernel times summed over the main runs' launch shapes "
+          f"(ms, kernel / plain / library): " + ", ".join(
+              f"{k} {v[0]:.5f} / {v[1]:.5f} / {v[2]:.5f}"
+              for k, v in timings.items()))
     source = "mcncrossmodalemotions_torch/csrc/"
+    probe_tools = "tools/probe_mosaic.py:39"
     replaces = {
         "spectrogram": ("spectrogram.cu",
                         "mcncrossmodalemotions_tpu/ops/pallas_spectrogram.py:117"),
@@ -602,14 +809,30 @@ def main() -> int:
                                "mcncrossmodalemotions_tpu/ops/pallas_pool.py:95"),
         "max_pool_3x3s2_bwd": ("max_pool_3x3s2.cu",
                                "mcncrossmodalemotions_tpu/ops/pallas_pool.py:144"),
+        "probe_gather": ("probes.cu", f"{probe_tools}, "
+                         "tools/probe_mosaic2.py:32,111"),
+        "probe_select_matmul": ("probes.cu", f"{probe_tools} (P9)"),
+        "probe_col_candidates": ("probes.cu", "tools/probe_mosaic2.py:32 (P12)"),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": source + src,
-         "replaces": rep,
-         "launches": launches[name] + train_counts[name] + distill_counts[name],
-         "max_abs_err": errs[name], "ms": timings[name][0],
-         "plain_ms": timings[name][1]}
-        for name, (src, rep) in replaces.items()]
+    library = {"spectrogram": "torch.stft", "probe_gather": "index_select",
+               "probe_select_matmul": "torch.matmul"}
+    library |= dict.fromkeys(("max_pool_3x3s2", "max_pool_3x3s2_idx",
+                              "max_pool_3x3s2_bwd"), "its plain version")
+    kernels = []
+    for name, (src, rep) in replaces.items():
+        bound, bound_by = bound_ms(*work[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source + src,
+            "replaces": rep,
+            "launches": (launches[name] + train_counts[name]
+                         + distill_counts[name] + probe_counts[name]),
+            "max_abs_err": errs[name], "ms": timings[name][0],
+            "plain_ms": timings[name][1], "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": timings[name][2] if name in library else None})
+        print(f"  {card}: {name}: {timings[name][0]:.5f} ms against a bound "
+              f"of {bound:.5f} ms ({bound_by}; {bound / timings[name][0]:.1%} "
+              f"of it), library call: {library.get(name)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

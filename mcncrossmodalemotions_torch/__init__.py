@@ -1,20 +1,21 @@
 """PyTorch/CUDA port of the cross-modal emotion framework for NVIDIA Hopper.
 
 A second package beside ``mcncrossmodalemotions_tpu`` (the JAX reference,
-kept unchanged). It imports ``torch`` and numpy and never ``jax`` or
-``flax``: from the JAX package it uses only the numpy/ctypes host modules
-(``data.audio``, ``data.native``, ``data.imdb``, ``data.external``,
-``utils.logging``, and ``config_hash``/``to_dict`` of ``utils.config``),
-whose imports reach no jax.
+kept unchanged). It imports ``torch``, numpy and scipy, never ``jax`` or
+``flax``, and nothing of the JAX package: what it needs from that
+package's host modules it keeps as its own copies (``data.audio``,
+``data.native``, ``data.imdb``, ``data.external``, ``utils.config``,
+``utils.logging``), held equal to the originals by CPU tests.
 
 Layer map of the ported slices (student audio-feature extraction; the
-student's offline distillation training):
+student's offline distillation training; the Mosaic lowering probes):
 
 - ``ops``     spectrogram frontend (plain PyTorch) and the kernels
               written by hand for Hopper in ``csrc/``: the fused
-              spectrogram (``ops/spectrogram_kernel.py``) and the 3x3/2
+              spectrogram (``ops/spectrogram_kernel.py``), the 3x3/2
               max pool with its with-index forward and backward
-              (``ops/pool.py``), built at first use by ``ops/_build.py``.
+              (``ops/pool.py``) and the probe kernels (``ops/probes.py``),
+              built at first use by ``ops/_build.py``.
 - ``models``  VGG-M student (eval and train mode) and the
               waveform->logits pipeline.
 - ``losses``  distillation / classification losses and metrics.
@@ -22,9 +23,12 @@ student's offline distillation training):
               Flax-variables -> ``state_dict`` weight bridge.
 - ``train``   train state and MatConvNet SGD step, checkpoints, the
               epoch engine with its threaded host feed.
-- ``data``    synthetic-track helper and the EmoVoxCeleb batcher.
+- ``data``    wav I/O, the native reader's bindings, imdb manifests,
+              synthetic tracks and the EmoVoxCeleb batcher.
+- ``utils``   config hashing, ETA and metrics logs.
 - ``exp``     bucketed whole-clip feature extraction and offline
               ``run_distillation``.
+- ``tools``   the Mosaic lowering probes as Hopper probes.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
 """Host-side dataset helpers of the port.
 
-The JAX package's ``data.audio``, ``data.native``, ``data.imdb`` and
-``data.external`` modules are numpy/ctypes only and import no jax; the
-port reuses them (``tests/test_torch_no_jax.py`` imports every module of
-the port and holds it to that). Scripts that drive the port take what they
-need from here and name only this package.
+``audio``, ``native``, ``imdb`` and ``external`` are the port's own copies
+of what it uses from the JAX package's host modules of the same names
+(numpy and ctypes only; ``tests/test_torch_host_copies.py`` holds each
+equal to its original). The port imports nothing of the JAX package.
+Scripts that drive the port take what they need from here.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ from typing import Sequence
 
 import numpy as np
 
-from mcncrossmodalemotions_tpu.data.external import build_synthetic_track_imdb
-from mcncrossmodalemotions_tpu.data.imdb import TrackImdb
+from mcncrossmodalemotions_torch.data.external import build_synthetic_track_imdb
+from mcncrossmodalemotions_torch.data.imdb import TrackImdb
 
 __all__ = ["TrackImdb", "synthetic_track_imdb"]
 

@@ -29,25 +29,27 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from mcncrossmodalemotions_tpu.data.audio import (
+from mcncrossmodalemotions_torch import EMOTIONS
+from mcncrossmodalemotions_torch.data.audio import (
     pack_pcm16,
     read_wav,
     resample_to,
     wav_info,
     write_wav,
 )
-from mcncrossmodalemotions_tpu.data.imdb import EmoVoxImdb
-from mcncrossmodalemotions_torch import EMOTIONS
+from mcncrossmodalemotions_torch.data.imdb import (
+    SET_HEARD_VAL,
+    SET_TRAIN,
+    SET_UNHEARD_VAL,
+    EmoVoxImdb,
+)
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, SpecConfig
 
-# Restated from the JAX package (data/emovox.py, data/imdb.py); a CPU test
-# holds them equal.
+# Restated from the JAX package's data/emovox.py; a CPU test holds them
+# equal.
 MAX_CLIP_SECONDS = 19.9  # getBatchEmoVoxCeleb.m:84-88
 LOGIT_FPS = 25.0  # video frame rate (time2idx, :210-214)
 LOGIT_STRIDE = 6  # teacher logits every 6th frame
-SET_TRAIN = 1  # set conventions (generateBaseImdb.m:47-64)
-SET_UNHEARD_VAL = 2
-SET_HEARD_VAL = 3
 
 
 def _not_ported(what: str) -> NotImplementedError:

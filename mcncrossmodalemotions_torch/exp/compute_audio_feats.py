@@ -9,9 +9,10 @@ and the same bucketing:
 - waveform reads run two chunks ahead of the device, through the native
   C++ reader (fused int16 packing) or the Python path for off-rate files;
   the int16 rows go to the device through pinned memory;
-- on the device: decode, spectrogram (the K1 kernel on the card), masked
-  instance norm over the full clip, a centre crop to the bucket, and the
-  student (whose pool1/pool2 run the K2 kernel) with every frame valid.
+- on the device (the card unless the caller passes ``device="cpu"``):
+  decode, spectrogram (the K1 kernel on the card), masked instance norm
+  over the full clip, a centre crop to the bucket, and the student (whose
+  pool1/pool2 run the K2 kernel) with every frame valid.
 
 ``model_name='random'`` gives gaussian logits (the null baseline,
 compute_audio_feats.m:95-99). Results are cached at ``feat_path`` with the
@@ -31,15 +32,14 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from mcncrossmodalemotions_tpu.data import native as native_ds
-from mcncrossmodalemotions_tpu.data.audio import (
+from mcncrossmodalemotions_torch.data import native as native_ds
+from mcncrossmodalemotions_torch.data.audio import (
     pack_pcm16,
     read_wav,
     resample_to,
     wav_info,
 )
-from mcncrossmodalemotions_tpu.data.imdb import float_tracks, object_array
-from mcncrossmodalemotions_tpu.utils.logging import Eta
+from mcncrossmodalemotions_torch.data.imdb import float_tracks, object_array
 from mcncrossmodalemotions_torch.ops.spectrogram import (
     DEFAULT_SPEC,
     SpecConfig,
@@ -47,6 +47,8 @@ from mcncrossmodalemotions_torch.ops.spectrogram import (
     spectrogram,
 )
 from mcncrossmodalemotions_torch.ops.spectrogram_kernel import spectrogram_cuda
+from mcncrossmodalemotions_torch.utils.device import resolve_device
+from mcncrossmodalemotions_torch.utils.logging import Eta
 
 # Restated from the JAX package (its modules import jax); a CPU test holds
 # them equal.
@@ -97,11 +99,13 @@ class AudioFeatureExtractor:
     """Batched bucketed student inference with a threaded host pipeline.
 
     ``model`` is a bare ``VGGMStudent``; ``state`` its ``state_dict``
-    (``zoo/bridge.py``), on the device the extraction runs on. With
-    ``use_kernels`` (the default) the spectrogram and pool1/pool2 go
-    through their kernels for CUDA tensors; False runs their plain
-    versions (the comparison run). Rows ship as PCM16, half the
-    host-to-device bytes of fp32; per-track peak normalisation is neutral,
+    (``zoo/bridge.py``) on any device. Both are moved to ``device``, the
+    card unless the caller asks for ``"cpu"``; without a CUDA device the
+    default raises rather than running on the CPU. With ``use_kernels``
+    (the default) the spectrogram and pool1/pool2 go through their
+    kernels on the card; False runs their plain versions (the comparison
+    run). On the CPU both run the plain versions. Rows ship as PCM16, half
+    the host-to-device bytes of fp32; per-track peak normalisation is neutral,
     since the spectrogram is linear in the waveform and instance norm
     divides any per-track scale back out. ``readers`` records which host
     reader each chunk took: ``native-packed``, ``native`` or ``python``.
@@ -113,6 +117,7 @@ class AudioFeatureExtractor:
     batch_size: int = 64
     use_kernels: bool = True
     num_threads: int = 8
+    device: torch.device | str = "cuda"
     readers: set = dataclasses.field(default_factory=set)
 
     # -- host side ----------------------------------------------------------
@@ -202,7 +207,9 @@ class AudioFeatureExtractor:
         from concurrent.futures import ThreadPoolExecutor
 
         cfg = self.spec
-        device = next(iter(self.state.values())).device
+        device = resolve_device(self.device, "feature extraction")
+        self.model.to(device)
+        state = {k: v.to(device) for k, v in self.state.items()}
         eta = Eta(len(wav_paths), "audio-feats", log_every=200) if verbose else None
         out: List[Optional[np.ndarray]] = [None] * len(wav_paths)
         with ThreadPoolExecutor(self.num_threads) as pool, torch.inference_mode():
@@ -229,7 +236,7 @@ class AudioFeatureExtractor:
                 valid = torch.tensor([c[2][0] for c in chunk], device=device)
                 specs = (spectrogram_cuda(x, cfg) if self.use_kernels
                          else spectrogram(x, cfg))
-                logits = _bucket_forward(self.model, self.state, specs, bucket,
+                logits = _bucket_forward(self.model, state, specs, bucket,
                                          valid, self.use_kernels)
                 logits = logits.cpu().numpy()
                 for (idx, _, _), row_logits in zip(chunk, logits):
@@ -252,9 +259,13 @@ def compute_audio_feats(imdb, model: Optional[nn.Module] = None,
                         limit: Optional[int] = None,
                         clobber: bool = False,
                         use_kernels: bool = True,
-                        verbose: bool = True) -> List[np.ndarray]:
+                        verbose: bool = True,
+                        device: torch.device | str = "cuda") -> List[np.ndarray]:
     """Per-track student logits for a TrackImdb/EmoVoxImdb.
 
+    The model and ``state`` (on any device) run on ``device``: the card by
+    default, the CPU only when the caller passes ``device="cpu"``; without
+    a CUDA device the default raises.
     ``model_name='random'`` emits gaussian logits. Results are cached at
     ``feat_path``; ``clobber`` recomputes and overwrites. ``limit`` (a dev
     run) neither reads nor writes the cache.
@@ -274,7 +285,8 @@ def compute_audio_feats(imdb, model: Optional[nn.Module] = None,
         if model is None or state is None:
             raise ValueError(f"model {model_name!r} needs a model and its state")
         extractor = AudioFeatureExtractor(model, state, batch_size=batch_size,
-                                          use_kernels=use_kernels)
+                                          use_kernels=use_kernels,
+                                          device=device)
         logits = extractor.track_logits(paths, verbose=verbose)
     if feat_path and not limit:
         _save_feat_cache(feat_path, logits, model_name)

@@ -74,15 +74,13 @@ def main(argv: Sequence[str] = ()) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
-    dev = torch.device("cuda")
     modes = {"kernels": True, "plain": False}
     tables: List[str] = []
     with tempfile.TemporaryDirectory() as tmp:
         imdb = synthetic_track_imdb(Path(tmp))
         n = len(imdb.wav_paths)
         model = build_student(with_frontend=False)  # full width, bf16
-        state = {k: v.to(dev) for k, v in student_state_dict_from_flax(
-            random_student_variables(seed=0)).items()}
+        state = student_state_dict_from_flax(random_student_variables(seed=0))
 
         def run(use_kernels: bool) -> float:
             t0 = time.perf_counter()

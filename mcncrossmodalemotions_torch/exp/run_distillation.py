@@ -32,21 +32,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mcncrossmodalemotions_tpu.data.imdb import EmoVoxImdb
-from mcncrossmodalemotions_tpu.utils.config import config_hash, to_dict
 from mcncrossmodalemotions_torch import EMOTIONS
-from mcncrossmodalemotions_torch.data.emovox import (
+from mcncrossmodalemotions_torch.data.emovox import BatchConfig, EmoVoxBatcher
+from mcncrossmodalemotions_torch.data.imdb import (
     SET_HEARD_VAL,
     SET_TRAIN,
     SET_UNHEARD_VAL,
-    BatchConfig,
-    EmoVoxBatcher,
+    EmoVoxImdb,
 )
 from mcncrossmodalemotions_torch.train.engine import (
     TrainConfig,
     Trainer,
     logspace_lr,
 )
+from mcncrossmodalemotions_torch.utils.config import config_hash, to_dict
 from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
 
 

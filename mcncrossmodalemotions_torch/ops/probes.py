@@ -1,0 +1,213 @@
+"""The Hopper probe kernels (``csrc/probes.cu``) and their plain versions.
+
+Replace the TPU kernels of the Mosaic lowering probes:
+``tools/probe_mosaic.py`` (P1-P11, ``pcall`` :38-42) and
+``tools/probe_mosaic2.py`` (P4r, P4s, P4b, P12 through ``pcall`` :31-35,
+P1r through its inline ``pl.pallas_call`` :111-113). The source note in
+``csrc/probes.cu`` says why three kernels cover all seventeen probes and
+what bounds them. Each wrapper runs its plain version for a CPU tensor and
+its kernel for a CUDA tensor (or raises); each launch adds one to the
+wrapper's ``launches``:
+
+- ``probe_gather(x, index, axis)``: ``x`` gathered along ``axis`` by an
+  ``IndexMap`` (``index_map`` checks the indices on the host and puts them
+  on the device once), f32 out; plain: ``torch.index_select``;
+- ``probe_select_matmul(a, b)``: fp32 FFMA product (P9), never TF32;
+  plain: an fp32 einsum;
+- ``probe_col_candidates(x, y, dy)``: the pool gradient's column-candidate
+  expansion (P12); plain: the probe's masked sum.
+
+The plain versions take the wrappers' arguments.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mcncrossmodalemotions_torch.ops import _build
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+class IndexMap(NamedTuple):
+    """Gather indices on a device, made by ``index_map``."""
+
+    values: torch.Tensor  # int32 [n_out], each in [0, n_in)
+    n_in: int             # the length of the gathered axis
+
+
+def index_map(idx, n_in: int, device: torch.device | str) -> IndexMap:
+    """Check 1-D integer ``idx`` against ``[0, n_in)`` on the host, then
+    copy it to ``device`` as int32, once for every launch that uses it."""
+    idx = np.asarray(idx)
+    if idx.ndim != 1 or idx.size == 0 or not np.issubdtype(idx.dtype, np.integer):
+        raise ValueError(f"index_map expects a non-empty 1-D integer array, "
+                         f"got {idx.dtype} {idx.shape}")
+    if idx.min() < 0 or idx.max() >= n_in:
+        raise IndexError(f"index_map: indices [{idx.min()}, {idx.max()}] "
+                         f"outside [0, {n_in})")
+    return IndexMap(torch.from_numpy(idx.astype(np.int32)).to(device), n_in)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("probes")
+    ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, argtypes in (
+            ("probe_gather_f32", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
+            ("probe_gather_bf16", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
+            ("probe_select_matmul_f32", [ptr, cll, ptr, ptr] + [cint] * 3 + [ptr]),
+            ("probe_col_candidates_f32", [ptr] * 4 + [cint] * 4 + [ptr])):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.restype = cint
+            fn.argtypes = argtypes
+    return lib
+
+
+def _on_cpu(x: torch.Tensor, who: str) -> bool:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {x.device}")
+    return x.device.type == "cpu"
+
+
+def _same_device(who: str, *tensors: torch.Tensor) -> None:
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{who}: operands on different devices "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _run(name: str, x: torch.Tensor, args) -> None:
+    with torch.cuda.device(x.device):
+        err = getattr(_lib(), name)(
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"(shape {tuple(x.shape)}, {x.dtype})")
+
+
+# -- P1-P8, P10, P11, P4r, P4s, P4b, P1r -----------------------------------
+def gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
+    """Plain version of ``probe_gather``."""
+    return torch.index_select(x, axis, index.values).float()
+
+
+def probe_gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
+    """``x`` (f32 or bf16) gathered along ``axis`` by ``index``, as f32:
+    ``out[..., j, ...] = x[..., index[j], ...]``.
+
+    CPU: the plain version. CUDA: ``x`` contiguous, ``index`` on its
+    device; the kernel reads ``x`` as ``[outer, n_in, inner]``.
+    """
+    axis = axis % x.dim()
+    if x.shape[axis] != index.n_in:
+        raise ValueError(f"probe_gather: axis {axis} of {tuple(x.shape)} is "
+                         f"not the index map's {index.n_in}")
+    _same_device("probe_gather", x, index.values)
+    if _on_cpu(x, "probe_gather"):
+        return gather(x, index, axis)
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"probe_gather: unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("probe_gather expects a contiguous tensor")
+    outer = int(np.prod(x.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    n_out = index.values.numel()
+    out = torch.empty((*x.shape[:axis], n_out, *x.shape[axis + 1:]),
+                      dtype=torch.float32, device=x.device)
+    _run(f"probe_gather_{_SUFFIX[x.dtype]}", x,
+         (x.data_ptr(), index.values.data_ptr(), out.data_ptr(), outer,
+          index.n_in, n_out, inner))
+    probe_gather.launches += 1
+    return out
+
+
+# -- P9 ----------------------------------------------------------------------
+def select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``probe_select_matmul``: an fp32 einsum (full fp32
+    on the card while ``torch.backends.cuda.matmul.allow_tf32`` is False)."""
+    return torch.einsum("mk,kn->mn", a.float(), b.float())
+
+
+def probe_select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[m, k] @ [k, n] in fp32, by fp32 FFMA on the CUDA cores.
+
+    CPU: the plain version. CUDA: both f32 on one device, ``a`` with unit
+    column stride (a row-strided view such as ``x[:, :k]`` is taken as it
+    is), ``b`` contiguous.
+    """
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"probe_select_matmul: cannot multiply "
+                         f"{tuple(a.shape)} by {tuple(b.shape)}")
+    _same_device("probe_select_matmul", a, b)
+    if _on_cpu(a, "probe_select_matmul"):
+        return select_matmul(a, b)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"probe_select_matmul: f32 only, got {a.dtype}, "
+                        f"{b.dtype}")
+    if a.stride(1) != 1 or not b.is_contiguous():
+        raise ValueError("probe_select_matmul expects a with unit column "
+                         "stride and a contiguous b")
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _run("probe_select_matmul_f32", a,
+         (a.data_ptr(), a.stride(0), b.data_ptr(), c.data_ptr(), m, k, n))
+    probe_select_matmul.launches += 1
+    return c
+
+
+# -- P12 ---------------------------------------------------------------------
+def col_candidates(x: torch.Tensor, y: torch.Tensor,
+                   dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``probe_col_candidates``: the probe's k12 body."""
+    w = x.shape[1]
+    col_even = (torch.arange(w, device=x.device) % 2 == 0).view(1, w, 1)
+    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    grad = torch.zeros_like(x)
+    for k2 in (0, 1):
+        yc = torch.repeat_interleave(y[:, 1 - k2:], 2, dim=1)[:, :w]
+        dyc = torch.repeat_interleave(dy[:, 1 - k2:], 2, dim=1)[:, :w]
+        m = x == yc
+        if k2:
+            m = m & col_even
+        grad = grad + torch.where(m, dyc, zero)
+    return grad
+
+
+def probe_col_candidates(x: torch.Tensor, y: torch.Tensor,
+                         dy: torch.Tensor) -> torch.Tensor:
+    """P12's expansion: ``x`` [T, W, C], ``y`` and ``dy`` [T, Wh, C] with
+    ``2 * (Wh - 1) >= W`` -> [T, W, C]: for k2 in {0, 1}, ``dy`` at the
+    candidate column ``w // 2 + 1 - k2`` where ``x`` equals ``y`` there
+    (for k2 = 1 only at even ``w``), summed.
+
+    CPU: the plain version. CUDA: all three contiguous f32 on one device.
+    """
+    if (x.dim() != 3 or y.shape != dy.shape or y.dim() != 3
+            or y.shape[0] != x.shape[0] or y.shape[2] != x.shape[2]
+            or 2 * (y.shape[1] - 1) < x.shape[1]):
+        raise ValueError(f"probe_col_candidates: x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, dy {tuple(dy.shape)} are not "
+                         "[T, W, C] and [T, Wh, C] with 2 (Wh - 1) >= W")
+    _same_device("probe_col_candidates", x, y, dy)
+    if _on_cpu(x, "probe_col_candidates"):
+        return col_candidates(x, y, dy)
+    if {x.dtype, y.dtype, dy.dtype} != {torch.float32}:
+        raise TypeError("probe_col_candidates: f32 only")
+    if not (x.is_contiguous() and y.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("probe_col_candidates expects contiguous tensors")
+    t, w, c = x.shape
+    out = torch.empty_like(x)
+    _run("probe_col_candidates_f32", x,
+         (x.data_ptr(), y.data_ptr(), dy.data_ptr(), out.data_ptr(), t, w,
+          y.shape[1], c))
+    probe_col_candidates.launches += 1
+    return out
+
+
+probe_gather.launches = 0
+probe_select_matmul.launches = 0
+probe_col_candidates.launches = 0

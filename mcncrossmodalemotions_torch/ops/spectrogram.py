@@ -26,7 +26,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from mcncrossmodalemotions_tpu.data.audio import MULAW_MU
+from mcncrossmodalemotions_torch.data.audio import MULAW_MU
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from mcncrossmodalemotions_tpu.utils.logging import MetricsLogger
 from mcncrossmodalemotions_torch.train import checkpoints as ckpt_lib
 from mcncrossmodalemotions_torch.train.state import (
     LossFn,
@@ -41,6 +40,7 @@ from mcncrossmodalemotions_torch.train.state import (
     make_eval_step,
     make_train_step,
 )
+from mcncrossmodalemotions_torch.utils.logging import MetricsLogger
 
 
 @dataclasses.dataclass(frozen=True)

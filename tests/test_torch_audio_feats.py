@@ -59,7 +59,8 @@ def test_extractor_matches_jax(slice_setup):
         ref = jfeats.AudioFeatureExtractor(jm, variables, batch_size=3,
                                            use_pallas=False).track_logits(
             paths, verbose=False)
-    extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3)
+    extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
+                                             device="cpu")
     got = extractor.track_logits(paths, verbose=False)
     assert len({tfeats.AudioFeatureExtractor(model, state)._meta(p)[1]
                 for p in paths}) == 2
@@ -82,10 +83,12 @@ def test_extractor_plain_and_wrapper_paths_agree_on_cpu(slice_setup):
     imdb, _, model, state = slice_setup
     paths = [str(p) for p in imdb.wav_paths]
     counts = (spectrogram_cuda.launches, max_pool_3x3s2_cuda.launches)
-    a = tfeats.AudioFeatureExtractor(model, state, batch_size=4).track_logits(
+    a = tfeats.AudioFeatureExtractor(model, state, batch_size=4,
+                                     device="cpu").track_logits(
         paths, verbose=False)
     b = tfeats.AudioFeatureExtractor(model, state, batch_size=4,
-                                     use_kernels=False).track_logits(
+                                     use_kernels=False,
+                                     device="cpu").track_logits(
         paths, verbose=False)
     assert (spectrogram_cuda.launches, max_pool_3x3s2_cuda.launches) == counts
     for x, y in zip(a, b):
@@ -102,7 +105,8 @@ def test_extractor_feeds_the_frontend_int16(slice_setup, monkeypatch):
         return tfeats.spectrogram(x, cfg)
 
     monkeypatch.setattr(tfeats, "spectrogram_cuda", spy)
-    extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3)
+    extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
+                                             device="cpu")
     extractor.track_logits([str(p) for p in imdb.wav_paths], verbose=False)
     assert dtypes and set(dtypes) == {torch.int16}
     assert extractor.readers
@@ -112,7 +116,7 @@ def test_feature_cache_roundtrip_and_identity(slice_setup, tmp_path):
     imdb, _, model, state = slice_setup
     feat_path = str(tmp_path / "feats.npz")
     a = tfeats.compute_audio_feats(imdb, model, state, feat_path=feat_path,
-                                   batch_size=4, verbose=False)
+                                   batch_size=4, verbose=False, device="cpu")
     # a second call returns the cache, even with another model's weights
     other = {k: torch.zeros_like(v) for k, v in state.items()}
     b = tfeats.compute_audio_feats(imdb, model, other, feat_path=feat_path,
@@ -129,3 +133,41 @@ def test_feature_cache_roundtrip_and_identity(slice_setup, tmp_path):
                                    feat_path=feat_path)
     with pytest.raises(ValueError, match="needs a model"):
         tfeats.compute_audio_feats(imdb, feat_path=None)
+
+
+def test_compute_audio_feats_on_the_cpu_when_asked(slice_setup):
+    """device="cpu": the extractor's logits bit for bit, and the JAX
+    package's within the parity tolerance."""
+    imdb, variables, model, state = slice_setup
+    paths = [str(p) for p in imdb.wav_paths]
+    got = tfeats.compute_audio_feats(imdb, model, state, batch_size=3,
+                                     verbose=False, device="cpu")
+    direct = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
+                                          device="cpu").track_logits(
+        paths, verbose=False)
+    jm = JaxVGGM(fc6_features=64, fc7_features=32, dtype=np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = jfeats.AudioFeatureExtractor(jm, variables, batch_size=3,
+                                           use_pallas=False).track_logits(
+            paths, verbose=False)
+    scale = max(np.abs(r).max() for r in ref)
+    for g, d, r in zip(got, direct, ref):
+        np.testing.assert_array_equal(g, d)
+        assert np.abs(g - r).max() <= 1e-4 * scale
+
+
+def test_extraction_defaults_to_the_card(slice_setup, monkeypatch):
+    """The default device is CUDA; without a card it raises instead of
+    running on the CPU."""
+    import inspect
+
+    imdb, _, model, state = slice_setup
+    assert inspect.signature(tfeats.compute_audio_feats).parameters[
+        "device"].default == "cuda"
+    assert tfeats.AudioFeatureExtractor(model, state).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        tfeats.compute_audio_feats(imdb, model, state, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfeats.AudioFeatureExtractor(model, state).track_logits(
+            [str(p) for p in imdb.wav_paths], verbose=False)

@@ -7,6 +7,9 @@
 - The profiler's device busy time is the union of the device intervals.
 - ``data.synthetic_track_imdb``'s defaults (the smoke's traffic) span the
   100-, 400- and 1000-frame buckets.
+- The library call timed beside K1 (``torch.stft``) frames K1's samples
+  and gives the plain frontend's magnitudes; the bound and the probes'
+  byte counts are what the shapes say.
 """
 
 import shutil
@@ -26,6 +29,12 @@ from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
 )
 from mcncrossmodalemotions_torch.exp.profile_extraction import busy_us
 from mcncrossmodalemotions_torch.models import vggm
+from mcncrossmodalemotions_torch.ops.spectrogram import (
+    DEFAULT_SPEC,
+    preemphasis,
+    spectrogram,
+)
+from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -81,3 +90,37 @@ def test_synthetic_imdb_defaults_span_the_smoke_buckets(tmp_path):
     assert len(imdb.wav_paths) == 6 * 3
     assert sorted({probe._meta(str(p))[1:3] for p in imdb.wav_paths}) == [
         (100, 200), (400, 500), (1000, 1100)]
+
+
+@pytest.mark.parametrize("frames", [1, 37, 400])
+def test_stft_call_gives_the_plain_frontends_magnitudes(frames):
+    """Misframed by the window's centring (56 samples), the magnitudes
+    would differ by far more than fp32 order."""
+    cfg = DEFAULT_SPEC
+    gen = torch.Generator().manual_seed(frames)
+    x = (torch.randn(2, cfg.crop_samples(frames), generator=gen) * 8000).round()
+    x = x.to(torch.int16)
+    mag = chip_smoke.stft_call(preemphasis(x, cfg.preemph), cfg)()
+    ref = spectrogram(x, cfg)[:, :cfg.num_rbins]
+    assert mag.shape == ref.shape == (2, cfg.num_rbins, frames)
+    assert (mag - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    assert chip_smoke.bound_ms(3.35e9, 0) == (1.0, "bytes")
+    assert chip_smoke.bound_ms(3.35e9, 134e9) == (2.0, "operations")
+
+
+def test_probe_work_counts_the_probes_bytes():
+    cpu = torch.device("cpu")
+    work = {p.name.split()[0]: chip_smoke.probe_work(p)
+            for p in probe_mosaic.make_probes(cpu) + probe_mosaic2.make_probes(cpu)}
+    # P1: half of x2's 256 columns read, 256 int32 indices, [16, 256] out
+    assert work["P1"] == (4 * 16 * 128 + 4 * 256 + 4 * 16 * 256, 0)
+    assert work["P9"] == (4 * (16 * 128 + 128 * 256 + 16 * 256),
+                          2 * 16 * 128 * 256)
+    # P4b reads bf16, 2 bytes an element, in 99 of the 100 candidate
+    # columns: the repeat cut to 197 drops the last
+    assert work["P4b"] == (2 * 16 * 99 * 96 + 4 * 197 + 4 * 16 * 197 * 96, 0)
+    assert work["P12"] == (4 * (2 * 16 * 197 * 96 + 2 * 16 * 100 * 96),
+                           5 * 16 * 197 * 96)

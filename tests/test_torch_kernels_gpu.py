@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from mcncrossmodalemotions_torch.ops import pool, spectrogram_kernel
+from mcncrossmodalemotions_torch.ops import pool, probes, spectrogram_kernel
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, spectrogram
+from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +131,101 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         spectrogram_kernel.spectrogram_cuda(torch.zeros(2, 800, device=cuda,
                                                         dtype=torch.float64))
+
+
+@pytest.mark.parametrize("tool", [probe_mosaic, probe_mosaic2])
+def test_probe_kernels_match_plain_at_the_probe_shapes(cuda, tool):
+    """Each probe's kernel bitwise equal to its plain version on the card,
+    and every probe of the tool RUNS with match=True."""
+    for p in tool.make_probes(cuda):
+        got, ref = p.run(), p.run(plain=True)
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype == torch.float32, p.name
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), p.name
+    results = tool.main(cuda)
+    assert results and all(ran and ok for ran, ok in results.values()), results
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [((3, 7, 5), 1), ((5, 33), 1),
+                                        ((13, 9), 0), ((2, 3, 31), 2)])
+def test_probe_gather_odd_shapes(cuda, shape, axis, dtype):
+    """Odd n_in and inner, a gather along every position of the axis."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=gen).to(dtype).to(cuda)
+    n_in = shape[axis]
+    idx = np.random.RandomState(n_in).randint(0, n_in, 2 * n_in + 1)
+    index = probes.index_map(idx, n_in, cuda)
+    before = probes.probe_gather.launches
+    got = probes.probe_gather(x, index, axis)
+    torch.cuda.synchronize()
+    assert probes.probe_gather.launches == before + 1
+    ref = probes.gather(x, index, axis)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_probe_select_matmul_is_exact_fp32(cuda):
+    """arange(4096) through a 0/1 selection matrix: fp32 FFMA is exact
+    where TF32 would round every value above 2048."""
+    x = torch.arange(16 * 256, dtype=torch.float32, device=cuda).view(16, 256)
+    sel = np.zeros((128, 256), np.float32)
+    sel[np.repeat(np.arange(128), 2), np.arange(256)] = 1.0
+    got = probes.probe_select_matmul(x[:, :128], torch.from_numpy(sel).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  x[:, :128].cpu().numpy() @ sel)
+
+
+@pytest.mark.parametrize("w,wh", [(197, 100), (196, 99), (9, 6)])
+def test_probe_col_candidates_on_ties(cuda, w, wh):
+    """Small-integer inputs, where both candidate branches fire."""
+    gen = torch.Generator().manual_seed(w)
+    x = torch.randint(0, 3, (4, w, 5), generator=gen).float().to(cuda)
+    y = torch.randint(0, 3, (4, wh, 5), generator=gen).float().to(cuda)
+    dy = torch.randn(4, wh, 5, generator=gen).to(cuda)
+    got = probes.probe_col_candidates(x, y, dy)
+    ref = probes.col_candidates(x, y, dy)
+    torch.cuda.synchronize()
+    assert (got != 0).any()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_probe_wrappers_refuse_what_they_cannot_take(cuda):
+    x = torch.zeros(4, 6, device=cuda)
+    index = probes.index_map([0, 5], 6, cuda)
+    with pytest.raises(ValueError):  # the index map is for another length
+        probes.probe_gather(x, index, 0)
+    with pytest.raises(ValueError):  # not contiguous
+        probes.probe_gather(x.t().contiguous().t(), index, 1)
+    with pytest.raises(TypeError):
+        probes.probe_gather(x.half(), index, 1)
+    with pytest.raises(ValueError):  # operands on different devices
+        probes.probe_gather(x, probes.index_map([0, 5], 6, "cpu"), 1)
+    with pytest.raises(TypeError):
+        probes.probe_select_matmul(x.double(), x.t().double())
+    with pytest.raises(ValueError):
+        probes.probe_col_candidates(torch.zeros(2, 9, 3, device=cuda),
+                                    torch.zeros(2, 5, 3, device=cuda),
+                                    torch.zeros(2, 5, 3, device=cuda))
+
+
+def test_extraction_runs_on_the_card_from_host_weights(cuda, tmp_path):
+    """compute_audio_feats with CPU weights and no device runs on the card."""
+    from mcncrossmodalemotions_torch.data import synthetic_track_imdb
+    from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        compute_audio_feats,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        build_student,
+        random_student_variables,
+        student_state_dict_from_flax,
+    )
+
+    imdb = synthetic_track_imdb(tmp_path, durations=(1.2,), tracks_per_class=1)
+    state = student_state_dict_from_flax(
+        random_student_variables(seed=0, fc6=64, fc7=32))
+    before = spectrogram_kernel.spectrogram_cuda.launches
+    logits = compute_audio_feats(imdb, build_student(tiny=True, with_frontend=False),
+                                 state, batch_size=3, verbose=False)
+    assert spectrogram_kernel.spectrogram_cuda.launches == before + 2
+    assert len(logits) == 6 and all(np.isfinite(l).all() for l in logits)

@@ -1,17 +1,25 @@
-"""The port imports no jax, flax or optax, not even indirectly.
+"""The port imports no jax, flax or optax and nothing of the JAX package,
+not even indirectly.
 
-tests/conftest.py imports jax, so the check runs in a fresh interpreter:
-it imports every module of ``mcncrossmodalemotions_torch``, runs the tiny
-extraction slice, the tiny pipeline, one tiny train step and two tiny
-``run_distillation`` epochs on the CPU, and then inspects ``sys.modules``.
+tests/conftest.py imports jax, so the runtime check runs in a fresh
+interpreter: it imports every module of ``mcncrossmodalemotions_torch``,
+runs the tiny extraction slice, the tiny pipeline, one tiny train step, two
+tiny ``run_distillation`` epochs and both probe tools on the CPU, and then
+inspects ``sys.modules``. The static check parses the port's sources and
+``chip_smoke.py`` and refuses any import statement that names those
+packages (comments and docstrings may name them).
 """
 
+import ast
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mcncrossmodalemotions_tpu")
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
@@ -37,7 +45,8 @@ SCRIPT = textwrap.dedent("""
                                     tracks_per_class=1)
         logits = compute_audio_feats(
             imdb, build_student(tiny=True, with_frontend=False),
-            student_state_dict_from_flax(v), batch_size=3, verbose=False)
+            student_state_dict_from_flax(v), batch_size=3, verbose=False,
+            device="cpu")
     assert len(logits) == 6 and all(l.shape == (1, 8) for l in logits)
     pipe = build_student(tiny=True).eval()
     pipe.load_state_dict(student_state_dict_from_flax(
@@ -73,11 +82,16 @@ SCRIPT = textwrap.dedent("""
         _, history, _ = run_distillation(cfg, imdb, device="cpu")
     assert [h["epoch"] for h in history] == [1, 2]
 
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+    from mcncrossmodalemotions_torch.tools import (
+        exit_code, probe_mosaic, probe_mosaic2)
+    results = {**probe_mosaic.main(device="cpu"),
+               **probe_mosaic2.main(device="cpu")}
+    assert len(results) == 17 and exit_code(results) == 0, results
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
     assert not leaked, leaked
     print("NO_JAX_OK")
-""")
+""").replace("FORBIDDEN", repr(FORBIDDEN))
 
 
 def test_torch_package_imports_no_jax():
@@ -85,3 +99,23 @@ def test_torch_package_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
+
+
+def _port_sources():
+    return sorted((REPO / "mcncrossmodalemotions_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_statement_names_jax_or_the_jax_package(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
