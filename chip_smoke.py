@@ -69,8 +69,9 @@ probes run, each read between a reset just before and just after it;
 shapes, K1's at the int16 feed, whose decode both versions run, the
 with-index forward and the backward at the train step's, the probes' at
 the probes' own; ``bound_ms``: the least time for the same work, from the
-bytes each input and output must move and the operations done, at H100
-SXM peaks; K2's library call is its plain version), then, last, the
+bytes each input and output must move and the operations the function
+needs (K1's: an FFT's, not the DFT product it computes), at H100 SXM
+peaks; K2's library call is its plain version), then, last, the
 device line ``{"ok": true, "device": {...}}``. Exits non-zero, without the
 device line, when any phase fails or no CUDA device is present. Imports
 nothing of JAX or of the JAX package.
@@ -163,6 +164,14 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spectrogram_ops(frames: int, cfg) -> tuple:
+    """(least, as K1 does them): K1's operations over ``frames`` frames.
+    The least is an FFT's 5 N log2 N a frame (N = nfft); K1 computes the
+    DFT as a product, 2 x win x 2 (nfft/2+1) a frame."""
+    fft = frames * 5 * cfg.nfft * math.log2(cfg.nfft)
+    return fft, frames * 2 * cfg.win_length * 2 * cfg.num_rbins
 
 
 def stft_call(xe, cfg):
@@ -682,17 +691,16 @@ def main() -> int:
                           f"torch.stft {label}: {tuple(mag.shape)}, rel {srel:.3e}")
                     p, k, lib = turns_ms(lambda: spectrogram(x, cfg),
                                          lambda: spectrogram_cuda(x, cfg), stft)
-                    frames = rows * cfg.num_frames(n)
                     nbytes = 2 * x.numel() + 4 * got.numel()
+                    ops, dft_ops = spectrogram_ops(rows * cfg.num_frames(n), cfg)
                     b = add_timing(timings, work, "spectrogram", [k, p, lib],
-                                   nbytes, frames * cfg.win_length * 2
-                                   * cfg.num_rbins * 2)  # the DFT product
-                    fft, fft_by = bound_ms(  # 5 N log2 N a frame
-                        nbytes, frames * 5 * cfg.nfft * math.log2(cfg.nfft))
+                                   nbytes, ops)
+                    dft, dft_by = bound_ms(nbytes, dft_ops)
                     print(f"  {card}: K1 {label} {tuple(x.shape)} int16: "
                           f"kernel {k:.4f} ms, plain {p:.4f} ms, torch.stft "
                           f"(pre-emphasised f32 rows) {lib:.4f} ms; {b}; "
-                          f"with an FFT's operations {fft:.5f} ms ({fft_by})")
+                          f"with the DFT product's operations, as K1 does "
+                          f"them, {dft:.5f} ms ({dft_by})")
                     del stft, mag, half
             del x, got, ref
 

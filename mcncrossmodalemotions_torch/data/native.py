@@ -79,19 +79,17 @@ def packed_reads_available() -> bool:
 
 
 def read_crops_packed(paths: Sequence[str], starts: Sequence[int],
-                      num_samples: int, fmt: str = "int16",
-                      num_threads: int = 8) -> np.ndarray:
-    """Threaded segment reads fused with the device-feed quantisation:
-    ``fmt='int16'`` -> [count, n] int16 (``data.audio.pack_pcm16`` of the
-    float read, bit for bit); ``'mulaw8'`` -> [count, n] uint8 mu-law."""
+                      num_samples: int, num_threads: int = 8) -> np.ndarray:
+    """Threaded segment reads fused with the device-feed quantisation ->
+    [count, n] int16 (``data.audio.pack_pcm16`` of the float read, bit for
+    bit). The library's mu-law mode is not bound: the port feeds PCM16."""
     lib = _load()
     if lib is None or not hasattr(lib, "ds_read_crops_packed"):
         raise RuntimeError("native packed reads not built (make -C native)")
-    mode = {"int16": 0, "mulaw8": 1}[fmt]
     count, c_paths, c_starts = _c_args(paths, starts)
-    out = np.zeros((count, num_samples), np.int16 if mode == 0 else np.uint8)
+    out = np.zeros((count, num_samples), np.int16)
     failures = lib.ds_read_crops_packed(
-        c_paths, c_starts, num_samples, count, num_threads, mode,
+        c_paths, c_starts, num_samples, count, num_threads, 0,  # mode 0: int16
         out.ctypes.data_as(ctypes.c_void_p))
     if failures:
         raise IOError(f"ds_read_crops_packed: {failures}/{count} files failed")

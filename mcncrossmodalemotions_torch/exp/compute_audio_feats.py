@@ -83,7 +83,7 @@ def _bucket_forward(model: nn.Module, state: Mapping[str, torch.Tensor],
     return functional_call(
         model, dict(state), (cropped[..., None],),
         {"valid_frames": torch.full_like(valid, bucket),
-         "use_kernels": use_kernels})
+         "use_kernels": use_kernels}, strict=True)
 
 
 def _native_ok() -> bool:
@@ -99,9 +99,12 @@ class AudioFeatureExtractor:
     """Batched bucketed student inference with a threaded host pipeline.
 
     ``model`` is a bare ``VGGMStudent``; ``state`` its ``state_dict``
-    (``zoo/bridge.py``) on any device. Both are moved to ``device``, the
-    card unless the caller asks for ``"cpu"``; without a CUDA device the
-    default raises rather than running on the CPU. With ``use_kernels``
+    (``zoo/bridge.py``) on any device. ``state`` is copied to ``device``,
+    the card unless the caller asks for ``"cpu"``; without a CUDA device
+    the default raises rather than running on the CPU. The forward is a
+    ``functional_call`` with ``state`` for every parameter and buffer, so
+    ``model``'s own tensors are never read and it stays where the caller
+    keeps it. With ``use_kernels``
     (the default) the spectrogram and pool1/pool2 go through their
     kernels on the card; False runs their plain versions (the comparison
     run). On the CPU both run the plain versions. Rows ship as PCM16, half
@@ -168,7 +171,7 @@ class AudioFeatureExtractor:
             if packed:
                 fast_fut = pool.submit(
                     native_ds.read_crops_packed, fast, [0] * len(fast),
-                    need, "int16", self.num_threads)
+                    need, self.num_threads)
             else:
                 fast_fut = pool.submit(
                     native_ds.read_crops, fast, [0] * len(fast), need,
@@ -208,7 +211,6 @@ class AudioFeatureExtractor:
 
         cfg = self.spec
         device = resolve_device(self.device, "feature extraction")
-        self.model.to(device)
         state = {k: v.to(device) for k, v in self.state.items()}
         eta = Eta(len(wav_paths), "audio-feats", log_every=200) if verbose else None
         out: List[Optional[np.ndarray]] = [None] * len(wav_paths)

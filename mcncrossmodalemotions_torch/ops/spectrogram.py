@@ -128,7 +128,8 @@ def decode_pcm(x: torch.Tensor) -> torch.Tensor:
     """Decode the compact feed formats on the device; floats pass through.
 
     - int16: PCM16, dequantised with the audioread convention;
-    - uint8: mu-law (mu=255) companded rows (``data/audio.pack_mulaw8``).
+    - uint8: mu-law (mu=255) companded rows, as the JAX package's
+      ``mcncrossmodalemotions_tpu/data/audio.py::pack_mulaw8`` packs them.
     """
     if x.dtype == torch.int16:
         return x.to(torch.float32) / 32768.0

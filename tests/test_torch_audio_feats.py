@@ -156,6 +156,24 @@ def test_compute_audio_feats_on_the_cpu_when_asked(slice_setup):
         assert np.abs(g - r).max() <= 1e-4 * scale
 
 
+def test_extractor_reads_only_the_state(slice_setup):
+    """The forward takes every tensor from ``state``: a model whose own
+    tensors have no data gives the same logits, and is not moved."""
+    imdb, _, model, state = slice_setup
+    paths = [str(p) for p in imdb.wav_paths]
+    hollow = build_student(tiny=True, with_frontend=False,
+                           dtype=torch.float32).to("meta")
+    got = tfeats.AudioFeatureExtractor(hollow, state, batch_size=3,
+                                       device="cpu").track_logits(
+        paths, verbose=False)
+    ref = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
+                                       device="cpu").track_logits(
+        paths, verbose=False)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    assert all(p.device.type == "meta" for p in hollow.parameters())
+
+
 def test_extraction_defaults_to_the_card(slice_setup, monkeypatch):
     """The default device is CUDA; without a card it raises instead of
     running on the CPU."""

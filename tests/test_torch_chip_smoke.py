@@ -111,6 +111,20 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert chip_smoke.bound_ms(3.35e9, 134e9) == (2.0, "operations")
 
 
+def test_k1_bound_counts_an_ffts_operations():
+    """K1's least work is an FFT a frame, so at the train crop its bound
+    is the bytes it moves; the DFT product K1 does would be bound by its
+    operations instead."""
+    cfg = DEFAULT_SPEC
+    rows, frames = 128, 400
+    fft, dft = chip_smoke.spectrogram_ops(rows * frames, cfg)
+    assert fft == rows * frames * 5 * 512 * 9
+    assert dft == rows * frames * 2 * 400 * 2 * 257
+    nbytes = 2 * rows * cfg.crop_samples(frames) + 4 * rows * 512 * frames
+    assert chip_smoke.bound_ms(nbytes, fft)[1] == "bytes"
+    assert chip_smoke.bound_ms(nbytes, dft)[1] == "operations"
+
+
 def test_probe_work_counts_the_probes_bytes():
     cpu = torch.device("cpu")
     work = {p.name.split()[0]: chip_smoke.probe_work(p)

@@ -205,7 +205,7 @@ def test_native_reader_equals_the_jax_bindings_and_python(tracks):
         np.testing.assert_array_equal(row, np.pad(ref, (0, n - len(ref))))
     assert native.packed_reads_available() == jnative.packed_reads_available()
     if native.packed_reads_available():
-        packed = native.read_crops_packed(paths, starts, n, "int16", 2)
+        packed = native.read_crops_packed(paths, starts, n, 2)
         np.testing.assert_array_equal(
             packed, jnative.read_crops_packed(paths, starts, n, "int16", 2))
         np.testing.assert_array_equal(packed, audio.pack_pcm16(got))
