@@ -19,9 +19,10 @@ comparison applies. Phases:
 3. data: 126 synthetic wavs (``data.synthetic_track_imdb``), grouped as
    the extractor groups them; each chunk's shapes are the shapes the
    main run launches the kernels at.
-4. K1 spectrogram kernel vs the plain frontend, max rel error (max |diff|
-   / max |plain|) <= 1e-4: at [64, 64384] (T=400, plus one row against a
-   float64 numpy FFT within atol 5e-4), T=150 and T=1000, at each
+4. K1 spectrogram kernel (a real FFT a frame) vs the plain frontend, max
+   rel error (max |diff| / max |plain|) <= 1e-4: at [64, 64384] (T=400,
+   plus one row against a float64 numpy FFT within atol 5e-4), T=150,
+   T=1000, T=1 and T=33 (one frame past two 16-frame tiles, int16), at each
    chunk's int16 feed and at the train step's int16 [128, 64384]; kernel
    and plain times (CUDA events) at the last two, beside ``torch.stft``
    (cuFFT) on the same pre-emphasised rows, whose magnitudes are held to
@@ -58,19 +59,22 @@ comparison applies. Phases:
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
-    also exactly numpy's ``expect``), P12 again on small-integer inputs
-    where both candidate branches fire (their nonzero shares printed, each
-    above 0), and each probe's kernel, plain and library times.
+    also exactly numpy's ``expect``), P9 again on random inputs with a row
+    stride, at the probe's shape and a ragged one, within 1e-5 of |a| @
+    |b| of float64 (its split along K sums in another order), P12 again
+    on small-integer inputs where both candidate branches fire (their
+    nonzero shares printed, each above 0), and each probe's kernel, plain
+    and library times.
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the first three main runs, the probe kernels' over the
 probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
-shapes, K1's at the int16 feed, whose decode both versions run, the
-with-index forward and the backward at the train step's, the probes' at
-the probes' own; ``bound_ms``: the least time for the same work, from the
-bytes each input and output must move and the operations the function
-needs (K1's: an FFT's, not the DFT product it computes), at H100 SXM
+shapes, K1's at the int16 feed, which the kernel reads as it is and the
+plain version decodes, the with-index forward and the backward at the
+train step's, the probes' at the probes' own; ``bound_ms``: the least
+time for the same work, from the bytes each input and output must move
+and the operations the function needs (K1's: an FFT's), at H100 SXM
 peaks; K2's library call is its plain version), then, last, the
 device line ``{"ok": true, "device": {...}}``. Exits non-zero, without the
 device line, when any phase fails or no CUDA device is present. Imports
@@ -102,6 +106,8 @@ TRAIN_UPDATE_RTOL = 0.5       # conv1's 3-step update, relative L2: a
 TRAIN_LR = 1e-4               # bench.py's lr
 TIMED_STEPS, WARMUP_STEPS = 10, 2
 STFT_REL_TOL = 1e-3           # cuFFT vs the fp32 DFT product: order only
+P9_RTOL = 1e-5                # of |a| @ |b|: P9 sums K in 8 slices, then
+                              # the slices, another order than one chain
 PROBE_ITERS = 200             # probe kernels take microseconds
 QUEUE_CYCLES = 100_000_000    # ~50 ms of device sleep ahead of timed calls
 N_PROBES = 17                 # P1-P11, P5b; P4r, P4s, P4b, P12, P1r
@@ -167,9 +173,10 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 
 def spectrogram_ops(frames: int, cfg) -> tuple:
-    """(least, as K1 does them): K1's operations over ``frames`` frames.
-    The least is an FFT's 5 N log2 N a frame (N = nfft); K1 computes the
-    DFT as a product, 2 x win x 2 (nfft/2+1) a frame."""
+    """(least, as a DFT product): K1's function's operations over
+    ``frames`` frames. The least is an FFT's 5 N log2 N a frame (N =
+    nfft), which K1 does; the DFT computed as a product, 2 x win x 2
+    (nfft/2+1) a frame, is printed beside it for comparison."""
     fft = frames * 5 * cfg.nfft * math.log2(cfg.nfft)
     return fft, frames * 2 * cfg.win_length * 2 * cfg.num_rbins
 
@@ -530,10 +537,23 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
         if p.kernel is probes.probe_select_matmul:
             check(exact, f"{p.name}: kernel not exactly numpy's expect")
 
+    gen = torch.Generator(device=dev)
+    for m, k, n in ((16, 128, 256), (5, 37, 70)):  # the probe's, ragged
+        gen.manual_seed(SEED)
+        a = torch.randn(m, k + 3, device=dev, generator=gen)[:, :k]
+        b = torch.randn(k, n, device=dev, generator=gen)
+        got = probes.probe_select_matmul(a, b).double()
+        a, b = a.double(), b.double()
+        err = ((got - a @ b).abs() / (a.abs() @ b.abs())).max().item()
+        print(f"  P9 on random [{m},{k}] (row stride {k + 3}) @ [{k},{n}]: "
+              f"max |c - c64| / (|a| @ |b|) {err:.3e} (gate {P9_RTOL})",
+              flush=True)
+        check(err <= P9_RTOL, f"P9 random {m}x{k}x{n}: {err:.3e} > {P9_RTOL}")
+
     # P12's own inputs are independent normals, so x == y never holds and
     # its expect is all zeros; small integers make both branches fire.
     t, w, c, wh = probe_mosaic2.T, probe_mosaic2.W, probe_mosaic2.C, probe_mosaic2.WH
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen.manual_seed(SEED)
     x = torch.randint(0, 3, (t, w, c), device=dev, generator=gen).float()
     y = torch.randint(0, 3, (t, wh, c), device=dev, generator=gen).float()
     dy = torch.randn(t, wh, c, device=dev, generator=gen)
@@ -623,7 +643,8 @@ def main() -> int:
         for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
                     print(f"  {lib}: {line.strip()}")
             print(f"  {lib}: nvcc {_build.build_seconds[lib]:.2f} s", flush=True)
 
@@ -653,7 +674,11 @@ def main() -> int:
                      ("ragged tile", BATCH, cfg.crop_samples(150),
                       torch.float32, False),
                      ("t_pad=1000", BATCH, cfg.crop_samples(1000),
-                      torch.float32, False)]
+                      torch.float32, False),
+                     ("one frame", BATCH, cfg.crop_samples(1), torch.float32,
+                      False),
+                     ("ragged FT tile", BATCH, cfg.crop_samples(33),
+                      torch.int16, False)]
             cases += [(f"slice t_pad={t_pad}", rows, cfg.crop_samples(t_pad),
                        torch.int16, True) for rows, t_pad, _ in chunks]
             cases.append(("train crop", TRAIN_BATCH, bench_n, torch.int16, True))
@@ -699,8 +724,8 @@ def main() -> int:
                     print(f"  {card}: K1 {label} {tuple(x.shape)} int16: "
                           f"kernel {k:.4f} ms, plain {p:.4f} ms, torch.stft "
                           f"(pre-emphasised f32 rows) {lib:.4f} ms; {b}; "
-                          f"with the DFT product's operations, as K1 does "
-                          f"them, {dft:.5f} ms ({dft_by})")
+                          f"with a DFT product's operations the bound would "
+                          f"be {dft:.5f} ms ({dft_by})")
                     del stft, mag, half
             del x, got, ref
 

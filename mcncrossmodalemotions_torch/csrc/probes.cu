@@ -21,8 +21,15 @@
 // - probe_select_matmul (P9): c = a @ b in fp32 FFMA on the CUDA cores,
 //   never TF32 tensor cores: the probe's input is arange(4096), and TF32's
 //   11-bit significand would round every value above 2048. With a 0/1
-//   selection matrix each output is one exact product plus exact zeros.
-//   One thread per output, threads consecutive along n.
+//   selection matrix each output is one exact product plus exact zeros,
+//   so any summation order is exact there. Its bound is launch latency:
+//   at the probe's [16, 128] @ [128, 256] the bytes take 0.05 us. One
+//   FFMA chain per output would make each thread wait out k = 128
+//   dependent FFMAs, so K is split: a block takes one row of
+//   a and 32 consecutive columns (lanes, so loads of b are coalesced
+//   along n), each of its 8 warps sums one eighth of K into shared
+//   memory, and warp 0 adds the 8 partials in a fixed order: a chain of
+//   k/8 FFMAs and 7 adds, and 128 blocks at the probe's shape.
 // - probe_col_candidates (P12): the body of the probe's k12, the pool
 //   gradient's column-candidate expansion: for k2 in {0, 1} the candidate
 //   window column of input column w is w / 2 + 1 - k2 (repeat y[:, 1-k2:]
@@ -32,8 +39,9 @@
 //
 // What bounds them on the card: launch cost. At the probes' shapes (P1
 // moves 32 KB, P12 about 6 MB) the bytes take well under a microsecond at
-// 3.35 TB/s, so a launch (a few microseconds) is the time; the designs are
-// the simplest correct ones, and making them fast is not their purpose.
+// 3.35 TB/s, so a launch (a few microseconds) is the time. The gather and
+// P12 are the simplest correct designs; P9's split keeps its dependent
+// chain short enough to hide behind the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,18 +77,38 @@ gather_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   }
 }
 
+constexpr int MM_COLS = 32;                 // output columns a block, one a lane
+constexpr int MM_SPLIT = THREADS / MM_COLS;  // warps, each one slice of K
+constexpr int MAX_GRID_Y = 65535;
+
+// Block (x, y): columns [32 x, 32 x + 32) of rows y, y + gridDim.y, ...;
+// thread (j, s) sums p in [s chunk, (s + 1) chunk) for column j.
 __global__ void __launch_bounds__(THREADS)
 select_matmul_kernel(const float* __restrict__ a, long long lda,
-                     const float* __restrict__ b, float* __restrict__ c, int k,
-                     int n, long long total) {
-  for (long long o = (long long)blockIdx.x * THREADS + threadIdx.x; o < total;
-       o += (long long)gridDim.x * THREADS) {
-    const long long row = o / n;
-    const int col = (int)(o % n);
+                     const float* __restrict__ b, float* __restrict__ c, int m,
+                     int k, int n) {
+  __shared__ float part[MM_SPLIT][MM_COLS];
+  const int j = threadIdx.x, s = threadIdx.y;
+  const int col = blockIdx.x * MM_COLS + j;
+  const int chunk = (k + MM_SPLIT - 1) / MM_SPLIT;
+  const int p0 = s * chunk, p1 = min(k, p0 + chunk);
+  for (long long row = blockIdx.y; row < m; row += gridDim.y) {
     const float* ar = a + row * lda;
     float acc = 0.0f;
-    for (int p = 0; p < k; ++p) acc = fmaf(ar[p], b[(long long)p * n + col], acc);
-    c[o] = acc;
+    if (col < n) {
+#pragma unroll 4
+      for (int p = p0; p < p1; ++p)
+        acc = fmaf(ar[p], b[(long long)p * n + col], acc);
+    }
+    part[s][j] = acc;
+    __syncthreads();
+    if (s == 0 && col < n) {
+      float sum = part[0][j];
+#pragma unroll
+      for (int q = 1; q < MM_SPLIT; ++q) sum += part[q][j];
+      c[row * n + col] = sum;
+    }
+    __syncthreads();  // part is rewritten for the next row
   }
 }
 
@@ -142,9 +170,9 @@ extern "C" int probe_select_matmul_f32(const float* a, long long lda,
                                        const float* b, float* c, int m, int k,
                                        int n, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || lda < k) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)m * n;
-  select_matmul_kernel<<<blocks_for(total), THREADS, 0,
-                         (cudaStream_t)stream>>>(a, lda, b, c, k, n, total);
+  const dim3 grid((n + MM_COLS - 1) / MM_COLS, m < MAX_GRID_Y ? m : MAX_GRID_Y);
+  select_matmul_kernel<<<grid, dim3(MM_COLS, MM_SPLIT), 0,
+                         (cudaStream_t)stream>>>(a, lda, b, c, m, k, n);
   return (int)cudaGetLastError();
 }
 

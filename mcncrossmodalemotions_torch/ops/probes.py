@@ -12,8 +12,8 @@ wrapper's ``launches``:
 - ``probe_gather(x, index, axis)``: ``x`` gathered along ``axis`` by an
   ``IndexMap`` (``index_map`` checks the indices on the host and puts them
   on the device once), f32 out; plain: ``torch.index_select``;
-- ``probe_select_matmul(a, b)``: fp32 FFMA product (P9), never TF32;
-  plain: an fp32 einsum;
+- ``probe_select_matmul(a, b)``: fp32 FFMA product (P9), never TF32, K
+  split across a block's warps; plain: an fp32 einsum;
 - ``probe_col_candidates(x, y, dy)``: the pool gradient's column-candidate
   expansion (P12); plain: the probe's masked sum.
 

@@ -115,7 +115,7 @@ _device_dft: Dict[Tuple[torch.device, int, int], torch.Tensor] = {}
 
 def dft_matrix(cfg: SpecConfig, device: torch.device) -> torch.Tensor:
     """The windowed [win_length, cos | sin] DFT matrix on ``device``,
-    copied there once per device (read-only; the kernel reads it too)."""
+    copied there once per device (read-only)."""
     key = (torch.device(device), cfg.win_length, cfg.nfft)
     if key not in _device_dft:
         cos_m, sin_m = dft_matrices_np(cfg.win_length, cfg.nfft)

@@ -113,8 +113,8 @@ def test_bound_is_the_larger_of_bytes_and_operations():
 
 def test_k1_bound_counts_an_ffts_operations():
     """K1's least work is an FFT a frame, so at the train crop its bound
-    is the bytes it moves; the DFT product K1 does would be bound by its
-    operations instead."""
+    is the bytes it moves; a DFT computed as a product would be bound by
+    its operations instead."""
     cfg = DEFAULT_SPEC
     rows, frames = 128, 400
     fft, dft = chip_smoke.spectrogram_ops(rows * frames, cfg)

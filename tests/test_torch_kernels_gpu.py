@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from mcncrossmodalemotions_torch.ops import pool, probes, spectrogram_kernel
-from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, spectrogram
+from mcncrossmodalemotions_torch.ops.spectrogram import (
+    DEFAULT_SPEC,
+    SpecConfig,
+    spectrogram,
+)
 from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
 
 pytestmark = pytest.mark.gpu
@@ -49,6 +53,56 @@ def test_spectrogram_kernel_matches_plain(cuda, frames, dtype):
     ref = spectrogram(x)
     assert got.shape == ref.shape == (3, 512, frames)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("batch", [3, 42])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("frames", [1, 31, 32, 33, 400, 1100])
+def test_spectrogram_kernel_at_tile_edges(cuda, frames, dtype, batch):
+    """The FFT kernel's tile of 16 frames: one frame, two tiles but one,
+    two tiles, one frame past them, the train crop and the longest bucket;
+    both feeds the kernel reads as they are."""
+    gen = torch.Generator().manual_seed(frames + batch)
+    x = torch.randn(batch, DEFAULT_SPEC.crop_samples(frames), generator=gen) * 0.2
+    if dtype == torch.int16:
+        x = (x * 32767).round().clamp(-32768, 32767).to(torch.int16)
+    x = x.to(cuda)
+    got = spectrogram_kernel.spectrogram_cuda(x)
+    ref = spectrogram(x)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (batch, 512, frames)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cfg", [SpecConfig(hop_ms=20.0),
+                                 SpecConfig(window_ms=32.0)])
+def test_spectrogram_kernel_with_a_longer_span(cuda, cfg):
+    """A longer hop or window: the tile's span outgrows the loads the
+    kernel issues in one go and takes its second loop."""
+    gen = torch.Generator().manual_seed(cfg.hop_length + cfg.win_length)
+    x = torch.randn(3, cfg.win_length + 39 * cfg.hop_length, generator=gen)
+    got = spectrogram_kernel.spectrogram_cuda(x.to(cuda), cfg)
+    ref = spectrogram(x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (3, 512, 40)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_spectrogram_int16_feed_is_read_without_a_float_copy(cuda):
+    """The int16 rows go to the kernel as they are: the call allocates the
+    output and nothing the size of a float32 copy of the waveform."""
+    x = torch.randint(-8000, 8000, (42, DEFAULT_SPEC.crop_samples(1100)),
+                      dtype=torch.int16, device=cuda)
+    spectrogram_kernel.spectrogram_cuda(x)  # tables on the device, library built
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = spectrogram_kernel.spectrogram_cuda.launches
+    out = spectrogram_kernel.spectrogram_cuda(x)
+    torch.cuda.synchronize()
+    assert spectrogram_kernel.spectrogram_cuda.launches == before + 1
+    grown = torch.cuda.max_memory_allocated() - base
+    assert out.numel() * 4 <= grown < out.numel() * 4 + x.numel() * 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -131,6 +185,9 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         spectrogram_kernel.spectrogram_cuda(torch.zeros(2, 800, device=cuda,
                                                         dtype=torch.float64))
+    with pytest.raises(ValueError):  # the kernel's FFT is 512 points
+        spectrogram_kernel.spectrogram_cuda(torch.zeros(2, 1200, device=cuda),
+                                            SpecConfig(nfft=1024))
 
 
 @pytest.mark.parametrize("tool", [probe_mosaic, probe_mosaic2])
@@ -174,6 +231,23 @@ def test_probe_select_matmul_is_exact_fp32(cuda):
     got = probes.probe_select_matmul(x[:, :128], torch.from_numpy(sel).to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   x[:, :128].cpu().numpy() @ sel)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 128, 256), (5, 37, 70)])
+def test_probe_select_matmul_random_against_float64(cuda, m, k, n):
+    """General inputs, a row stride on a, ragged m, k and n. The kernel
+    splits K across 8 warps and adds the partials, another order than one
+    FFMA chain, so it is held to float64 within 1e-5 of |a| @ |b|, the
+    scale of fp32's rounding bound (a chain of k/8 + 7 roundings)."""
+    gen = torch.Generator().manual_seed(m * k * n)
+    a = torch.randn(m, k + 3, generator=gen)[:, :k]
+    b = torch.randn(k, n, generator=gen)
+    before = probes.probe_select_matmul.launches
+    got = probes.probe_select_matmul(a.to(cuda), b.to(cuda)).cpu().double()
+    assert probes.probe_select_matmul.launches == before + 1
+    ref = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    assert ((got - ref).abs() <= 1e-5 * scale).all()
 
 
 @pytest.mark.parametrize("w,wh", [(197, 100), (196, 99), (9, 6)])

@@ -40,12 +40,14 @@ def golden_spectrogram(x: np.ndarray, cfg=DEFAULT_SPEC) -> np.ndarray:
     return np.swapaxes(mag, -1, -2)
 
 
-@pytest.mark.parametrize("frames", [256, 150])
+@pytest.mark.parametrize("frames", [256, 150, 33])
 def test_spectrogram_matches_jax_and_pallas(frames):
-    """T=256 is a whole number of Pallas tiles, T=150 is not."""
+    """T=256 is a whole number of Pallas tiles, T=150 is not; T=33 is one
+    frame past two tiles of the CUDA kernel (16 frames). On a CPU tensor
+    the kernel's wrapper runs the plain frontend."""
     rng = np.random.RandomState(frames)
     x = rng.randn(1, DEFAULT_SPEC.crop_samples(frames)).astype(np.float32)
-    got = spectrogram(torch.from_numpy(x)).numpy()
+    got = spectrogram_kernel.spectrogram_cuda(torch.from_numpy(x)).numpy()
     pallas = np.asarray(spectrogram_pallas(jnp.asarray(x), interpret=True))
     plain = np.asarray(jspec.spectrogram(jnp.asarray(x)))
     assert got.shape == pallas.shape == plain.shape == (1, 512, frames)
