@@ -34,11 +34,13 @@ comparison applies. Phases:
    once and K2 twice per chunk; kernel-on logits within 2e-2 *
    max|logit| of the plain run; tracks/s.
 7. k2-backward at the train step's pool1 [128,253,197,96] and pool2
-   [128,61,47,256] inputs, bf16 and fp32, post-ReLU, random dy: the
-   with-index forward bitwise equal to the index-free one, and dx of the
-   backward kernel bitwise equal to autograd of F.max_pool2d (same
-   winners, fp32 sums in the same window order); bf16 times of both
-   kernels against the plain with-indices forward and backward.
+   [128,61,47,256] inputs, post-ReLU in bf16 and fp32 and tie-heavy
+   (small integers) in bf16, random dy: the with-index forward's y
+   bitwise equal to the index-free one's, its idx equal to the plain
+   version's in-window code, and dx of the backward kernel bitwise equal
+   to autograd of F.max_pool2d (same winners, fp32 sums in the same
+   window order); bf16 post-ReLU times of both kernels against the plain
+   with-indices forward and backward.
 8. train: the full-width pipeline at int16 [128, 64384], hot-cross-ent at
    T=2, weight decay 0 (``bench.py``'s train step), from one seeded init:
    3 steps with the kernels, then 3 plain. Losses finite and within 1e-2
@@ -267,32 +269,53 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     for label, shape in pool_inputs(TRAIN_BATCH, 400, 512).items():
-        for dtype in (torch.bfloat16, torch.float32):
+        # post-ReLU in both dtypes, then small integers cast to bf16: ties
+        # in nearly every window, where only the first maximum in row-major
+        # window order gives the plain version's idx
+        for kind, dtype in (("post-ReLU", torch.bfloat16),
+                            ("post-ReLU", torch.float32),
+                            ("tie-heavy", torch.bfloat16)):
             gen.manual_seed(SEED)
-            x = torch.relu(torch.randn(shape, device=dev, generator=gen)).to(dtype)
+            if kind == "tie-heavy":
+                x = torch.randint(0, 3, shape, device=dev, generator=gen).to(dtype)
+            else:
+                x = torch.relu(torch.randn(shape, device=dev,
+                                           generator=gen)).to(dtype)
             y, idx = pool.max_pool_3x3s2_idx_cuda(x)
             dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
             dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3])
-            y_ref = pool.max_pool_3x3s2_cuda(x)
-            same_y = torch.equal(bits(y), bits(y_ref))
+            y_free = pool.max_pool_3x3s2_cuda(x)
+            ref_y, ref_idx = pool.max_pool_3x3s2_with_index(x)
+            ref_y = ref_y.contiguous()
+            same_y = torch.equal(bits(y), bits(ref_y))
+            same_free = torch.equal(bits(y), bits(y_free))
             errs["max_pool_3x3s2_idx"] = max(
                 errs["max_pool_3x3s2_idx"],
-                (y.float() - y_ref.float()).abs().max().item())
+                (y.float() - ref_y.float()).abs().max().item())
+            same_idx = torch.equal(idx, ref_idx)
             ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
             torch.cuda.synchronize()
             same_dx = torch.equal(bits(dx), bits(ref))
             same_mask = torch.equal(dx != 0, ref != 0)
             err = (dx.float() - ref.float()).abs().max().item()
             errs["max_pool_3x3s2_bwd"] = max(errs["max_pool_3x3s2_bwd"], err)
-            print(f"  K2 backward {label} {shape} {dtype}: with-index y "
-                  f"{'bitwise equal' if same_y else 'DIFFERENT'}; dx "
-                  f"{'bitwise equal' if same_dx else 'DIFFERENT'} (winner "
-                  f"mask {'identical' if same_mask else 'DIFFERENT'}, max abs "
-                  f"{err:.3e})", flush=True)
-            check(same_y, f"K2 with-index {label} {dtype}: y not bitwise equal")
-            check(same_dx, f"K2 backward {label} {dtype}: dx not bitwise equal "
-                  "to autograd of F.max_pool2d")
-            if dtype == torch.bfloat16:  # the train step's dtype
+            print(f"  K2 backward {label} {shape} {dtype} {kind}: with-index y "
+                  f"{'bitwise equal' if same_y else 'DIFFERENT'} to F.max_pool2d "
+                  f"and {'bitwise equal' if same_free else 'DIFFERENT'} to the "
+                  f"index-free kernel's, idx "
+                  f"{'equal to' if same_idx else 'DIFFERENT from'} the plain "
+                  f"code; dx {'bitwise equal' if same_dx else 'DIFFERENT'} "
+                  f"(winner mask {'identical' if same_mask else 'DIFFERENT'}, "
+                  f"max abs {err:.3e})", flush=True)
+            check(same_y, f"K2 with-index {label} {dtype} {kind}: y not "
+                  "bitwise equal to F.max_pool2d")
+            check(same_free, f"K2 with-index {label} {dtype} {kind}: y not "
+                  "bitwise equal to the index-free kernel's")
+            check(same_idx, f"K2 with-index {label} {dtype} {kind}: idx not "
+                  "the plain version's code")
+            check(same_dx, f"K2 backward {label} {dtype} {kind}: dx not "
+                  "bitwise equal to autograd of F.max_pool2d")
+            if kind == "post-ReLU" and dtype == torch.bfloat16:  # timed
                 nchw = x.permute(0, 3, 1, 2)
                 p, k = turns_ms(lambda: F.max_pool2d(nchw, 3, 2,
                                                      return_indices=True),
@@ -313,7 +336,7 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
                       f"{k:.4f} ms, plain (max_pool2d_with_indices_backward) "
                       f"{p:.4f} ms; {b}", flush=True)
                 del xg, yg
-            del x, y, y_ref, idx, dy, dx, ref
+            del x, y, y_free, ref_y, ref_idx, idx, dy, dx, ref
             torch.cuda.empty_cache()
 
 

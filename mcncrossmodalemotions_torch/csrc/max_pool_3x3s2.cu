@@ -9,22 +9,56 @@
 // sublane access badly; on Hopper a thread simply reads its window.
 //
 // Forward. What bounds it on the card: device-memory bytes. It does 8
-// compares per output and reads each input element about 2.25 times, of
-// which L1/L2 serve the overlap (window 3, stride 2), so the floor is one
-// read of x plus one write of y. Design: one thread per output element,
-// threads consecutive along C, so each of the 9 window reads of a warp is
-// one contiguous, coalesced run of C values; a grid-stride loop covers any
-// size. The with-index variant also writes one uint8 per output: the
-// winner's position in its window, dy * 3 + dx (0..8).
+// compares per output; the least traffic is one read of x and one write
+// of y (and of idx): at the train step's pool1 in bf16 1.22 GB in and
+// 0.45 GB out, 0.50 ms at 3.35 TB/s. The first design (one thread per
+// output element, 9 scalar 2-byte loads and a 64-bit index decode each)
+// issued 9 load instructions per 2 bytes of output and reached a third of
+// that bound. This design, the register walk:
+// - A thread owns (b, oj, one channel vector) and a strip of output rows.
+//   A channel vector is 16 bytes (8 bf16 or 4 fp32): loads of x and stores
+//   of y are 16 bytes a lane, idx stores 8 (bf16) or 4 (fp32) bytes.
+// - Rows first, then down the rows: for each input row the maximum over
+//   columns 2oj, 2oj+1, 2oj+2 with its column, then rows 2oi, 2oi+1,
+//   2oi+2 combined in that order by the same rule. Row 2oi+2's result is
+//   carried as row 0 of output row oi+1 (its code offset 6 becomes 0), so
+//   a thread loads and reduces each input row once; only a strip's first
+//   row is read again, by the strip above (1 row in 2S+1). Column 2oj+2 is
+//   also column 0 of the neighbouring lane group's window: L1 serves it.
+// - The strip length S is chosen so that the grid holds about two full
+//   waves of threads on 132 SMs, within 4..16 output rows: at the train
+//   step's pool1 the cap of 16 leaves about 4.4 waves.
+// - A thread decodes (b, oj, vector) once, in 32-bit; per row it only
+//   advances its pointers (64-bit only for base pointers).
+// - The columns and codes of the with-index walk are packed (4 bits a
+//   column, a byte a code): with an int each, the bf16 walk held 91
+//   registers, two blocks an SM, and reached 73% of its bound at pool1
+//   against 83-88% without the index; packed, 80 registers and 79%.
+// - Where C x the element size is not a multiple of 16 bytes, or a base
+//   pointer is not 16-byte aligned, the launcher takes the same kernel
+//   one element a lane. The model's pools (C = 96, 256, fresh tensors)
+//   always take 16 bytes.
+// Measured against it on an H100 (in turns, one card): the same walk fed
+// from shared memory, each input row's band of 2 x 21 + 1 columns copied
+// by one cp.async.bulk into a ring of 6 slots under mbarriers. It read
+// no fewer bytes from device memory and paid a __syncthreads a row and
+// 50 KB of shared memory a block: 0.4% faster at pool1 with the index,
+// 7% slower at pool2 and 6.5% slower over the extraction shapes. Unrolling
+// the walk by two rows (more loads in flight) raised the registers and
+// lost 24% at pool1.
 //
 // Semantics are PyTorch's max_pool2d (and XLA's reduce_window max):
 // running max from -inf in row-major window order, replaced when a value
-// is strictly greater or is NaN. Max is exact, so the output is bitwise
-// equal to F.max_pool2d in bf16 and in fp32, ties and signed zeros
-// included. Tie rule: the FIRST maximum in row-major window order wins,
-// which is also what XLA's SelectAndScatter with `ge` picks. For NaN the
-// rule is PyTorch's (the last NaN of the window wins); XLA's `ge` differs
-// there.
+// is strictly greater or is NaN. Rows first, then down the rows, with the
+// same rule at both levels, picks the same winner: the FIRST maximum in
+// row-major window order wins a tie (also XLA's SelectAndScatter with
+// `ge`), the last NaN of the window wins (PyTorch's rule; XLA's `ge`
+// differs there), +0 and -0 keep their order, and an all -inf window
+// gives code 0. Taking the maximum down the columns first (the TPU
+// kernel's order) gives the same value but another winner under ties.
+// Compares are element by element: fmaxf and __hmax make NaNs canonical,
+// may return either signed zero, and lose the winner. Max is exact, so
+// the output is bitwise equal to F.max_pool2d in bf16 and in fp32.
 //
 // Backward. dx[b, i, j, c] = sum over the at most 2x2 windows (oi, oj)
 // that cover (i, j) of dy[b, oi, oj, c] where the window's stored argmax
@@ -47,10 +81,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr long long MAX_BLOCKS = 132LL * 64;  // grid-stride beyond this
+constexpr int MIN_STRIP = 4, MAX_STRIP = 16;  // output rows a thread walks
+constexpr long long FILL = 132LL * 2048 * 2;  // two waves of 132 full SMs
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -58,43 +97,156 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  // exact for every bf16 value and -inf; NaN is stored as 0x7FC0, the NaN
-  // that F.max_pool2d's float -> bf16 store gives (measured on the card;
-  // __float2bfloat16 would give 0x7FFF). Sums round to nearest even, as
+  // the backward's sums: exact for every bf16 value and -inf; a NaN sum is
+  // stored as 0x7FC0, the NaN of PyTorch's float -> bf16 store
+  // (__float2bfloat16 would give 0x7FFF). Sums round to nearest even, as
   // PyTorch's float -> bf16 conversion does.
   *p = isnan(v) ? __ushort_as_bfloat16((unsigned short)0x7FC0)
                 : __float2bfloat16(v);
 }
 
-// `idx` is null for the index-free forward.
-template <typename T>
+// V elements of T from (or to) one aligned V * sizeof(T)-byte unit, as
+// 32-bit words; a 2-byte unit (one bf16) in the low half of word 0.
+template <int BYTES>
+__device__ __forceinline__ void load_words(const void* p, uint32_t* u) {
+  if constexpr (BYTES == 16) {
+    const uint4 r = *static_cast<const uint4*>(p);
+    u[0] = r.x, u[1] = r.y, u[2] = r.z, u[3] = r.w;
+  } else if constexpr (BYTES == 4) {
+    u[0] = *static_cast<const uint32_t*>(p);
+  } else {
+    u[0] = *static_cast<const unsigned short*>(p);
+  }
+}
+
+template <int BYTES>
+__device__ __forceinline__ void store_words(void* p, const uint32_t* u) {
+  if constexpr (BYTES == 16) {
+    *static_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else if constexpr (BYTES == 8) {
+    *static_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+  } else if constexpr (BYTES == 4) {
+    *static_cast<uint32_t*>(p) = u[0];
+  } else if constexpr (BYTES == 2) {
+    *static_cast<unsigned short*>(p) = (unsigned short)u[0];
+  } else {
+    *static_cast<uint8_t*>(p) = (uint8_t)u[0];
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  constexpr int BYTES = V * (int)sizeof(T);
+  uint32_t u[(BYTES + 3) / 4];
+  load_words<BYTES>(p, u);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      v[i] = __uint_as_float(u[i]);
+    } else {  // bf16: the high half of a float, exactly
+      v[i] = __uint_as_float(i & 1 ? u[i / 2] & 0xFFFF0000u : u[i / 2] << 16);
+    }
+  }
+}
+
+// y's V elements, each the winner's own bits: every m is an input element
+// moved through a float register (bf16 as its high half), never computed.
+// F.max_pool2d on the card also returns the winning NaN's payload (a bf16
+// NaN 0xFFFF comes out as 0xFFFF), so no NaN is made canonical here.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&m)[V]) {
+  constexpr int BYTES = V * (int)sizeof(T);
+  uint32_t u[(BYTES + 3) / 4];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      u[i] = __float_as_uint(m[i]);
+    } else {
+      const uint32_t half = __float_as_uint(m[i]) >> 16;
+      if (i & 1) u[i / 2] |= half << 16;
+      else u[i / 2] = half;
+    }
+  }
+  store_words<BYTES>(p, u);
+}
+
+// The replace rule of the running max: strictly greater, or NaN.
+__device__ __forceinline__ bool wins(float v, float m) {
+  return v > m || isnan(v);
+}
+
+// One input row of a window column triple: per element the maximum over
+// columns 0, 1, 2 (p, p + c, p + 2c), and its column in `cols`, 4 bits an
+// element (V <= 8), so that the with-index walk keeps three rows' columns
+// in three registers.
+template <typename T, int V>
+__device__ __forceinline__ void reduce_row(const T* p, int c, float (&m)[V],
+                                           uint32_t& cols) {
+  float a[V], b[V];
+  load_vec<T, V>(p, m);
+  load_vec<T, V>(p + c, a);
+  load_vec<T, V>(p + 2 * c, b);
+  cols = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    uint32_t col = 0;
+    if (wins(a[i], m[i])) m[i] = a[i], col = 1;
+    if (wins(b[i], m[i])) m[i] = b[i], col = 2;
+    cols |= col << (4 * i);
+  }
+}
+
+// Output row from the carried row 0 (top) and rows 1 and 2, then row 2
+// becomes the next output row's row 0. Codes 3 * row + col, one byte each.
+template <typename T, int V, bool IDX>
+__device__ __forceinline__ void emit(float (&top)[V], uint32_t& top_cols,
+                                     const float (&mid)[V], uint32_t mid_cols,
+                                     const float (&bot)[V], uint32_t bot_cols,
+                                     T* y, uint8_t* idx) {
+  float m[V];
+  uint32_t code[(V + 3) / 4] = {};
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    uint32_t k = (top_cols >> (4 * i)) & 0xF;
+    m[i] = top[i];
+    if (wins(mid[i], m[i])) m[i] = mid[i], k = 3 + ((mid_cols >> (4 * i)) & 0xF);
+    if (wins(bot[i], m[i])) m[i] = bot[i], k = 6 + ((bot_cols >> (4 * i)) & 0xF);
+    code[i / 4] |= k << (8 * (i % 4));
+    top[i] = bot[i];
+  }
+  top_cols = bot_cols;
+  store_vec<T, V>(y, m);
+  if constexpr (IDX) store_words<V>(idx, code);
+}
+
+// The register walk: one thread per (b, oj, vector) column and strip of
+// output rows; V elements a vector. `columns` = batch * wo * (c / V).
+template <typename T, int V, bool IDX>
 __global__ void __launch_bounds__(THREADS)
-pool_kernel(const T* __restrict__ x, T* __restrict__ y,
-            uint8_t* __restrict__ idx, int h, int w, int c, int ho, int wo,
-            long long total) {
-  for (long long o = (long long)blockIdx.x * THREADS + threadIdx.x; o < total;
-       o += (long long)gridDim.x * THREADS) {
-    const int ch = (int)(o % c);
-    long long r = o / c;
-    const int oj = (int)(r % wo);
-    r /= wo;
-    const int oi = (int)(r % ho);
-    const long long b = r / ho;
-    const T* base = x + ((b * h + 2 * oi) * w + 2 * oj) * c + ch;
-    float m = -__int_as_float(0x7f800000);  // -inf
-    int arg = 0;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float v = to_float(base[((long long)dy * w + dx) * c]);
-        if (v > m || isnan(v)) {
-          m = v;
-          arg = dy * 3 + dx;
-        }
-      }
-    store(y + o, m);
-    if (idx != nullptr) idx[o] = (uint8_t)arg;
+pool_walk_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 uint8_t* __restrict__ idx, int h, int w, int c, int ho,
+                 int wo, int strip, int columns) {
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+  if (col >= columns) return;
+  const int nv = c / V;
+  const int t = col / nv, vec = col - t * nv;
+  const int b = t / wo, oj = t - b * wo;
+  const int oi0 = blockIdx.y * strip, rows = min(strip, ho - oi0);
+  const long long row_in = (long long)w * c, row_out = (long long)wo * c;
+  const T* p = x + ((long long)b * h + 2 * oi0) * row_in + 2LL * oj * c + vec * V;
+  const long long o = ((long long)b * ho + oi0) * row_out + (long long)oj * c + vec * V;
+  T* q = y + o;
+  uint8_t* a = IDX ? idx + o : nullptr;
+  float top[V], mid[V], bot[V];
+  uint32_t top_cols, mid_cols, bot_cols;
+  reduce_row<T, V>(p, c, top, top_cols);
+  for (int k = 0; k < rows; ++k) {
+    reduce_row<T, V>(p + row_in, c, mid, mid_cols);
+    reduce_row<T, V>(p + 2 * row_in, c, bot, bot_cols);
+    emit<T, V, IDX>(top, top_cols, mid, mid_cols, bot, bot_cols, q, a);
+    p += 2 * row_in;
+    q += row_out;
+    if constexpr (IDX) a += row_out;
   }
 }
 
@@ -153,17 +305,45 @@ pool_bwd_kernel(const T* __restrict__ dy, const uint8_t* __restrict__ idx,
   }
 }
 
-template <typename T>
-int launch(const T* x, T* y, uint8_t* idx, int batch, int h, int w, int c,
-           void* stream) {
-  if (batch <= 0 || h < 3 || w < 3 || c <= 0) return (int)cudaErrorInvalidValue;
-  const int ho = (h - 3) / 2 + 1, wo = (w - 3) / 2 + 1;
-  const long long total = (long long)batch * ho * wo * c;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  pool_kernel<T><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, y, idx, h, w, c, ho, wo, total);
+// Output rows a thread walks: about FILL threads over the whole grid,
+// within [MIN_STRIP, MAX_STRIP] and at most 65535 strips.
+int strip_rows(long long columns, int ho) {
+  long long s = columns * ho / FILL;
+  s = s < MIN_STRIP ? MIN_STRIP : s > MAX_STRIP ? MAX_STRIP : s;
+  s = s > ho ? ho : s;
+  const long long least = (ho + 65534) / 65535;
+  return (int)(s < least ? least : s);
+}
+
+// A thread's 32-bit column index covers the grid: a launch of 2^31 or
+// more columns (a y of 2^31 channel vectors) is refused.
+template <typename T, int V, bool IDX>
+int launch_walk(const T* x, T* y, uint8_t* idx, int batch, int h, int w,
+                int c, int ho, int wo, cudaStream_t stream) {
+  const long long columns = (long long)batch * wo * (c / V);
+  if (columns > INT_MAX - THREADS) return (int)cudaErrorInvalidValue;
+  const int strip = strip_rows(columns, ho);
+  const dim3 grid((unsigned)((columns + THREADS - 1) / THREADS),
+                  (unsigned)((ho + strip - 1) / strip));
+  pool_walk_kernel<T, V, IDX><<<grid, THREADS, 0, stream>>>(
+      x, y, idx, h, w, c, ho, wo, strip, (int)columns);
   return (int)cudaGetLastError();
+}
+
+// 16-byte vectors where c fills them and every base pointer is aligned to
+// 16 bytes, else the same walk one element a lane.
+template <typename T, bool IDX>
+int launch(const T* x, T* y, uint8_t* idx, int batch, int h, int w, int c,
+           void* stream_) {
+  if (batch <= 0 || h < 3 || w < 3 || c <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = (cudaStream_t)stream_;
+  const int ho = (h - 3) / 2 + 1, wo = (w - 3) / 2 + 1;
+  constexpr int WIDE = 16 / (int)sizeof(T);
+  const bool wide = c % WIDE == 0 && ((uintptr_t)x | (uintptr_t)y) % 16 == 0 &&
+                    (!IDX || (uintptr_t)idx % WIDE == 0);
+  if (wide)
+    return launch_walk<T, WIDE, IDX>(x, y, idx, batch, h, w, c, ho, wo, stream);
+  return launch_walk<T, 1, IDX>(x, y, idx, batch, h, w, c, ho, wo, stream);
 }
 
 template <typename T>
@@ -188,28 +368,28 @@ int launch_bwd(const T* dy, const uint8_t* idx, T* dx, int batch, int h,
 // (0 = success).
 extern "C" int max_pool_3x3s2_f32(const float* x, float* y, int batch, int h,
                                   int w, int c, void* stream) {
-  return launch<float>(x, y, nullptr, batch, h, w, c, stream);
+  return launch<float, false>(x, y, nullptr, batch, h, w, c, stream);
 }
 
 extern "C" int max_pool_3x3s2_bf16(const void* x, void* y, int batch, int h,
                                    int w, int c, void* stream) {
-  return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
-                               static_cast<__nv_bfloat16*>(y), nullptr, batch,
-                               h, w, c, stream);
+  return launch<__nv_bfloat16, false>(static_cast<const __nv_bfloat16*>(x),
+                                      static_cast<__nv_bfloat16*>(y), nullptr,
+                                      batch, h, w, c, stream);
 }
 
 extern "C" int max_pool_3x3s2_idx_f32(const float* x, float* y, uint8_t* idx,
                                       int batch, int h, int w, int c,
                                       void* stream) {
-  return launch<float>(x, y, idx, batch, h, w, c, stream);
+  return launch<float, true>(x, y, idx, batch, h, w, c, stream);
 }
 
 extern "C" int max_pool_3x3s2_idx_bf16(const void* x, void* y, uint8_t* idx,
                                        int batch, int h, int w, int c,
                                        void* stream) {
-  return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
-                               static_cast<__nv_bfloat16*>(y), idx, batch, h,
-                               w, c, stream);
+  return launch<__nv_bfloat16, true>(static_cast<const __nv_bfloat16*>(x),
+                                     static_cast<__nv_bfloat16*>(y), idx,
+                                     batch, h, w, c, stream);
 }
 
 extern "C" int max_pool_3x3s2_bwd_f32(const float* dy, const uint8_t* idx,

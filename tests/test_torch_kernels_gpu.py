@@ -162,6 +162,107 @@ def test_pool_backward_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(_bits(dx), _bits(ref.contiguous()))
 
 
+def _pool_matches_plain(x):
+    """Both forwards against the plain version on the card: y bitwise (the
+    index-free one too), idx exactly."""
+    y, idx = pool.max_pool_3x3s2_idx_cuda(x)
+    y_free = pool.max_pool_3x3s2_cuda(x)
+    ref_y, ref_idx = pool.max_pool_3x3s2_with_index(x)
+    torch.cuda.synchronize()
+    assert y.shape == ref_y.shape and idx.dtype == torch.uint8
+    assert torch.equal(_bits(y), _bits(ref_y.contiguous()))
+    assert torch.equal(_bits(y_free), _bits(y))
+    assert torch.equal(idx, ref_idx.contiguous())
+
+
+def _pool_input(kind, shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "ints":  # ties everywhere
+        return torch.randint(0, 3, shape, generator=gen).to(dtype)
+    return torch.relu(torch.randn(*shape, generator=gen)).to(dtype)
+
+
+@pytest.mark.parametrize("kind", ["relu", "ints"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 253, 197, 96), (2, 61, 47, 256)])
+def test_pool_forward_at_the_train_shapes(cuda, shape, dtype, kind):
+    """pool1 and pool2 of the train step at batch 2, 16-byte vectors."""
+    _pool_matches_plain(_pool_input(kind, shape, dtype, shape[1]).to(cuda))
+
+
+@pytest.mark.parametrize("dtype,shape,offset", [
+    (torch.bfloat16, (2, 17, 19, 12), 0),  # 24 bytes a pixel: one element
+    (torch.float32, (2, 17, 19, 6), 0),    # 24 bytes: one element
+    (torch.bfloat16, (2, 9, 11, 8), 1),    # base 2 bytes off: one element
+    (torch.bfloat16, (2, 9, 11, 8), 4),    # base 8 bytes off: one element
+    (torch.float32, (2, 9, 11, 4), 1),     # base 4 bytes off
+    (torch.float32, (2, 9, 11, 4), 2)])    # base 8 bytes off
+def test_pool_forward_narrow_paths(cuda, dtype, shape, offset):
+    """One element a lane: C x the element size not a multiple of 16
+    bytes, or a base off 16-byte alignment (a view into a flat buffer)."""
+    x = _pool_input("ints", shape, dtype, sum(shape) + offset)
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+    view = buf[offset:].view(shape)
+    view.copy_(x.to(cuda))
+    assert view.data_ptr() % 16 == offset * view.element_size() % 16
+    _pool_matches_plain(view)
+
+
+def test_pool_forward_on_a_sliced_odd_image(cuda):
+    """x[1:] of a (3, 5, 5, 3) bf16 tensor: not 16-byte aligned, C=3."""
+    x = _pool_input("ints", (3, 5, 5, 3), torch.bfloat16, 3).to(cuda)
+    assert x[1:].data_ptr() % 16 != 0
+    _pool_matches_plain(x[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [17, 18, 19, 20])
+def test_pool_forward_at_strip_boundaries(cuda, h, dtype):
+    """At these sizes a thread walks 4 output rows: ho = 8 ends on a whole
+    strip, ho = 9 one row past it."""
+    _pool_matches_plain(_pool_input("ints", (2, h, 21, 16), dtype, h).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_forward_special_values_in_shared_rows_and_halo(cuda, dtype):
+    """NaN, -0.0 and -inf in the rows two windows share (even rows) and
+    the halo columns two lanes share (even columns)."""
+    nan, inf = float("nan"), float("inf")
+    x = _pool_input("ints", (2, 21, 23, 16), torch.float32, 7)
+    x[:, 2::4, 4::4, 0] = nan                  # NaN in shared rows and halo
+    x[:, 1, 1, 3] = x[:, 2, 2, 3] = nan        # two NaNs a window: the last wins
+    gen = torch.Generator().manual_seed(8)
+    zeros = torch.where(torch.rand(2, 21, 23, generator=gen) < 0.5, -0.0, 0.0)
+    x[..., 1] = zeros                          # ties between signed zeros
+    x[::2, ::2, ::2, 2] = -0.0
+    x[:, :3, :3, 5] = -inf                     # an all -inf window: code 0
+    x[:, 2::4, :, 5] = -inf                    # whole -inf shared rows
+    x[:, :, 2::4, 6] = -inf                    # whole -inf halo columns
+    x = x.to(dtype).to(cuda)
+    # NaNs of three payloads in channel 7, set by their bits: the card's
+    # F.max_pool2d returns the winning NaN's own bits, and so must K2
+    payloads = ((0x7FC0, -1, 0x7F81) if dtype == torch.bfloat16
+                else (0x7FC00000, -0x3FFFFF, 0x7F800001))
+    for k, p in enumerate(payloads):
+        _bits(x)[:, k::3, 2 * k::3, 7] = p
+    _pool_matches_plain(x)
+
+
+@pytest.mark.parametrize("kind", ["relu", "ints"])
+def test_pool_backward_at_pool1_from_the_new_index(cuda, kind):
+    """dx of the backward kernel fed the with-index forward's idx, at the
+    train step's pool1 at batch 2, bitwise autograd of F.max_pool2d."""
+    x = _pool_input(kind, (2, 253, 197, 96), torch.bfloat16, 11).to(cuda)
+    xg = x.clone().requires_grad_(True)
+    y = pool.max_pool_3x3s2_train(xg)
+    gen = torch.Generator().manual_seed(12)
+    dy = torch.randn(y.shape, generator=gen).to(torch.bfloat16).to(cuda)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    ref = pool.max_pool_3x3s2_backward(x, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dx), _bits(ref.contiguous()))
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     x = torch.zeros(2, 9, 9, 4, device=cuda)
     with pytest.raises(ValueError):
