@@ -35,12 +35,14 @@ comparison applies. Phases:
    max|logit| of the plain run; tracks/s.
 7. k2-backward at the train step's pool1 [128,253,197,96] and pool2
    [128,61,47,256] inputs, post-ReLU in bf16 and fp32 and tie-heavy
-   (small integers) in bf16, random dy: the with-index forward's y
-   bitwise equal to the index-free one's, its idx equal to the plain
-   version's in-window code, and dx of the backward kernel bitwise equal
-   to autograd of F.max_pool2d (same winners, fp32 sums in the same
-   window order); bf16 post-ReLU times of both kernels against the plain
-   with-indices forward and backward.
+   (small integers) in bf16, then even H and W [16,254,198,96] post-ReLU
+   in bf16 and fp32 and a narrow C=12 [16,61,47,12] tie-heavy bf16 input
+   (one element a lane), random dy: the with-index forward's y bitwise
+   equal to F.max_pool2d's and the index-free one's, its idx equal to the
+   plain version's in-window code, and dx of the backward kernel bitwise
+   equal to autograd of F.max_pool2d (same winners, fp32 sums in the same
+   window order); bf16 post-ReLU times of both kernels at pool1 and pool2
+   against the plain with-indices forward and backward.
 8. train: the full-width pipeline at int16 [128, 64384], hot-cross-ent at
    T=2, weight decay 0 (``bench.py``'s train step), from one seeded init:
    3 steps with the kernels, then 3 plain. Losses finite and within 1e-2
@@ -66,7 +68,9 @@ comparison applies. Phases:
     |b| of float64 (its split along K sums in another order), P12 again
     on small-integer inputs where both candidate branches fire (their
     nonzero shares printed, each above 0), and each probe's kernel, plain
-    and library times.
+    and library times, each beside its bound and the launch floor (a
+    one-element ``probe_gather`` timed the same way: the least a launch
+    takes on the card).
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the first three main runs, the probe kernels' over the
@@ -113,6 +117,9 @@ P9_RTOL = 1e-5                # of |a| @ |b|: P9 sums K in 8 slices, then
 PROBE_ITERS = 200             # probe kernels take microseconds
 QUEUE_CYCLES = 100_000_000    # ~50 ms of device sleep ahead of timed calls
 N_PROBES = 17                 # P1-P11, P5b; P4r, P4s, P4b, P12, P1r
+EVEN_POOL = (16, 254, 198, 96)  # k2-backward: even H and W, 16-byte vectors
+NARROW_POOL = (16, 61, 47, 12)  # k2-backward: 24 bytes a bf16 pixel, one
+                                # element a lane
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 
@@ -268,76 +275,82 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    for label, shape in pool_inputs(TRAIN_BATCH, 400, 512).items():
-        # post-ReLU in both dtypes, then small integers cast to bf16: ties
-        # in nearly every window, where only the first maximum in row-major
-        # window order gives the plain version's idx
-        for kind, dtype in (("post-ReLU", torch.bfloat16),
-                            ("post-ReLU", torch.float32),
-                            ("tie-heavy", torch.bfloat16)):
-            gen.manual_seed(SEED)
-            if kind == "tie-heavy":
-                x = torch.randint(0, 3, shape, device=dev, generator=gen).to(dtype)
-            else:
-                x = torch.relu(torch.randn(shape, device=dev,
-                                           generator=gen)).to(dtype)
-            y, idx = pool.max_pool_3x3s2_idx_cuda(x)
-            dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
-            dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3])
-            y_free = pool.max_pool_3x3s2_cuda(x)
-            ref_y, ref_idx = pool.max_pool_3x3s2_with_index(x)
-            ref_y = ref_y.contiguous()
-            same_y = torch.equal(bits(y), bits(ref_y))
-            same_free = torch.equal(bits(y), bits(y_free))
-            errs["max_pool_3x3s2_idx"] = max(
-                errs["max_pool_3x3s2_idx"],
-                (y.float() - ref_y.float()).abs().max().item())
-            same_idx = torch.equal(idx, ref_idx)
-            ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
-            torch.cuda.synchronize()
-            same_dx = torch.equal(bits(dx), bits(ref))
-            same_mask = torch.equal(dx != 0, ref != 0)
-            err = (dx.float() - ref.float()).abs().max().item()
-            errs["max_pool_3x3s2_bwd"] = max(errs["max_pool_3x3s2_bwd"], err)
-            print(f"  K2 backward {label} {shape} {dtype} {kind}: with-index y "
-                  f"{'bitwise equal' if same_y else 'DIFFERENT'} to F.max_pool2d "
-                  f"and {'bitwise equal' if same_free else 'DIFFERENT'} to the "
-                  f"index-free kernel's, idx "
-                  f"{'equal to' if same_idx else 'DIFFERENT from'} the plain "
-                  f"code; dx {'bitwise equal' if same_dx else 'DIFFERENT'} "
-                  f"(winner mask {'identical' if same_mask else 'DIFFERENT'}, "
-                  f"max abs {err:.3e})", flush=True)
-            check(same_y, f"K2 with-index {label} {dtype} {kind}: y not "
-                  "bitwise equal to F.max_pool2d")
-            check(same_free, f"K2 with-index {label} {dtype} {kind}: y not "
-                  "bitwise equal to the index-free kernel's")
-            check(same_idx, f"K2 with-index {label} {dtype} {kind}: idx not "
-                  "the plain version's code")
-            check(same_dx, f"K2 backward {label} {dtype} {kind}: dx not "
-                  "bitwise equal to autograd of F.max_pool2d")
-            if kind == "post-ReLU" and dtype == torch.bfloat16:  # timed
-                nchw = x.permute(0, 3, 1, 2)
-                p, k = turns_ms(lambda: F.max_pool2d(nchw, 3, 2,
-                                                     return_indices=True),
-                                lambda: pool.max_pool_3x3s2_idx_cuda(x))
-                b = add_timing(timings, work, "max_pool_3x3s2_idx", [k, p],
-                               2 * x.numel() + 3 * y.numel(), 8 * y.numel())
-                print(f"  {card}: K2 with-index {label} {shape} bf16: kernel "
-                      f"{k:.4f} ms, plain (max_pool2d_with_indices) {p:.4f} "
-                      f"ms; {b}")
-                xg = x.detach().requires_grad_(True)
-                yg = F.max_pool2d(xg.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
-                p, k = turns_ms(
-                    lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True),
-                    lambda: pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3]))
-                b = add_timing(timings, work, "max_pool_3x3s2_bwd", [k, p],
-                               3 * dy.numel() + 2 * dx.numel(), 4 * dx.numel())
-                print(f"  {card}: K2 backward {label} {shape} bf16: kernel "
-                      f"{k:.4f} ms, plain (max_pool2d_with_indices_backward) "
-                      f"{p:.4f} ms; {b}", flush=True)
-                del xg, yg
-            del x, y, y_free, ref_y, ref_idx, idx, dy, dx, ref
-            torch.cuda.empty_cache()
+    # post-ReLU in both dtypes, then small integers cast to bf16: ties in
+    # nearly every window, where only the first maximum in row-major window
+    # order gives the plain version's idx
+    cases = [(label, shape, kind, dtype)
+             for label, shape in pool_inputs(TRAIN_BATCH, 400, 512).items()
+             for kind, dtype in (("post-ReLU", torch.bfloat16),
+                                 ("post-ReLU", torch.float32),
+                                 ("tie-heavy", torch.bfloat16))]
+    cases += [("even H and W", EVEN_POOL, "post-ReLU", torch.bfloat16),
+              ("even H and W", EVEN_POOL, "post-ReLU", torch.float32),
+              ("narrow", NARROW_POOL, "tie-heavy", torch.bfloat16)]
+    for label, shape, kind, dtype in cases:
+        gen.manual_seed(SEED)
+        if kind == "tie-heavy":
+            x = torch.randint(0, 3, shape, device=dev, generator=gen).to(dtype)
+        else:
+            x = torch.relu(torch.randn(shape, device=dev,
+                                       generator=gen)).to(dtype)
+        y, idx = pool.max_pool_3x3s2_idx_cuda(x)
+        dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
+        dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3])
+        y_free = pool.max_pool_3x3s2_cuda(x)
+        ref_y, ref_idx = pool.max_pool_3x3s2_with_index(x)
+        ref_y = ref_y.contiguous()
+        same_y = torch.equal(bits(y), bits(ref_y))
+        same_free = torch.equal(bits(y), bits(y_free))
+        errs["max_pool_3x3s2_idx"] = max(
+            errs["max_pool_3x3s2_idx"],
+            (y.float() - ref_y.float()).abs().max().item())
+        same_idx = torch.equal(idx, ref_idx)
+        ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
+        torch.cuda.synchronize()
+        same_dx = torch.equal(bits(dx), bits(ref))
+        same_mask = torch.equal(dx != 0, ref != 0)
+        err = (dx.float() - ref.float()).abs().max().item()
+        errs["max_pool_3x3s2_bwd"] = max(errs["max_pool_3x3s2_bwd"], err)
+        print(f"  K2 backward {label} {shape} {dtype} {kind}: with-index y "
+              f"{'bitwise equal' if same_y else 'DIFFERENT'} to F.max_pool2d "
+              f"and {'bitwise equal' if same_free else 'DIFFERENT'} to the "
+              f"index-free kernel's, idx "
+              f"{'equal to' if same_idx else 'DIFFERENT from'} the plain "
+              f"code; dx {'bitwise equal' if same_dx else 'DIFFERENT'} "
+              f"(winner mask {'identical' if same_mask else 'DIFFERENT'}, "
+              f"max abs {err:.3e})", flush=True)
+        check(same_y, f"K2 with-index {label} {dtype} {kind}: y not "
+              "bitwise equal to F.max_pool2d")
+        check(same_free, f"K2 with-index {label} {dtype} {kind}: y not "
+              "bitwise equal to the index-free kernel's")
+        check(same_idx, f"K2 with-index {label} {dtype} {kind}: idx not "
+              "the plain version's code")
+        check(same_dx, f"K2 backward {label} {dtype} {kind}: dx not "
+              "bitwise equal to autograd of F.max_pool2d")
+        if label in ("pool1", "pool2") and kind == "post-ReLU" \
+                and dtype == torch.bfloat16:  # timed
+            nchw = x.permute(0, 3, 1, 2)
+            p, k = turns_ms(lambda: F.max_pool2d(nchw, 3, 2,
+                                                 return_indices=True),
+                            lambda: pool.max_pool_3x3s2_idx_cuda(x))
+            b = add_timing(timings, work, "max_pool_3x3s2_idx", [k, p],
+                           2 * x.numel() + 3 * y.numel(), 8 * y.numel())
+            print(f"  {card}: K2 with-index {label} {shape} bf16: kernel "
+                  f"{k:.4f} ms, plain (max_pool2d_with_indices) {p:.4f} "
+                  f"ms; {b}")
+            xg = x.detach().requires_grad_(True)
+            yg = F.max_pool2d(xg.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+            p, k = turns_ms(
+                lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True),
+                lambda: pool.max_pool_3x3s2_bwd_cuda(dy, idx, *shape[1:3]))
+            b = add_timing(timings, work, "max_pool_3x3s2_bwd", [k, p],
+                           3 * dy.numel() + 2 * dx.numel(), 4 * dx.numel())
+            print(f"  {card}: K2 backward {label} {shape} bf16: kernel "
+                  f"{k:.4f} ms, plain (max_pool2d_with_indices_backward) "
+                  f"{p:.4f} ms; {b}", flush=True)
+            del xg, yg
+        del x, y, y_free, ref_y, ref_idx, idx, dy, dx, ref
+        torch.cuda.empty_cache()
 
 
 def train_phase(card: str, wrappers: dict) -> dict:
@@ -533,6 +546,10 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
                                        "probe_col_candidates": 1}
     check(counts == want, f"probe launches {counts}, expected {want}")
 
+    one, one_index = torch.zeros(1, device=dev), probes.index_map([0], 1, dev)
+    floor = cuda_ms(lambda: probes.probe_gather(one, one_index, 0), PROBE_ITERS)
+    print(f"  {card}: launch floor (a one-element probe_gather, queued): "
+          f"{floor:.5f} ms", flush=True)
     library = {probes.probe_gather: lambda x, index, axis: torch.index_select(
                    x, axis, index.values),
                probes.probe_select_matmul: torch.matmul}
@@ -550,6 +567,9 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
         ms = turns_ms(*fns, iters=PROBE_ITERS)
         b = add_timing(timings, work, name, [ms[1], ms[0], *ms[2:]],
                        *probe_work(p))
+        least = max(bound_ms(*probe_work(p))[0], floor)
+        b += (f"; launch floor {floor:.5f} ms, {least / ms[1]:.1%} of "
+              f"max(bound, floor)")
         print(f"  {card}: {p.name} ({name}): kernel "
               f"{'bitwise equal to' if same else 'DIFFERENT from'} plain, "
               f"{'exactly' if exact else 'not exactly'} numpy's expect; "

@@ -64,18 +64,47 @@
 // that cover (i, j) of dy[b, oi, oj, c] where the window's stored argmax
 // is (i - 2 oi, j - 2 oj). What bounds it: bytes again. At pool1 with
 // B=128 in bf16 it reads dy (303 MB) and the index (152 MB) and writes dx
-// (1.23 GB): a floor of about 0.5 ms at 3.35 TB/s. Design: a gather over
-// the windows that cover each input element instead of a scatter from
-// each window: no atomics, no memset of dx, deterministic. One thread per
-// input column (b, j, c), threads consecutive along C, walks down the
-// rows: each output row's index and dy are loaded once for the up to
-// three input rows they serve, and the loads of several rows are in
-// flight at once (the first version, one thread per input element with
-// two dependent loads each, waited on memory latency: 8.8 ms at pool1).
-// It accumulates in fp32 in a fixed order (oi ascending, then oj) from +0
-// and rounds once to the output type, which is the order and precision of
-// PyTorch's max_pool2d backward, so dx is bitwise equal to autograd of
-// F.max_pool2d given the same winners.
+// (1.23 GB): 0.50 ms at 3.35 TB/s. It gathers over the windows that cover
+// each input element instead of scattering from each window: no atomics,
+// no memset of dx, deterministic. The first design, one thread per input
+// element with two dependent loads, waited on latency (8.8 ms at pool1);
+// the second, one thread per scalar input column (b, j, c) down all the
+// rows, made 1- and 2-byte loads and 64-byte warp stores, loaded each dy
+// and code once for each of the three columns its window covers, and
+// decoded its column with 64-bit divisions in a grid-stride loop: 0.908
+// ms, 55% of the bound. This design, the strip walk:
+// - A thread owns (b, window column oj in 0..wo, one 16-byte channel
+//   vector) and a strip of output rows, chosen as the forward's. Per
+//   output row it loads dy (16 bytes) and the codes (8 bytes in bf16, 4 in
+//   fp32) of windows oj-1 and oj, and stores input rows 2k and 2k+1 of
+//   columns 2oj and 2oj+1 as 16-byte stores. Row 2k+2's shares are carried
+//   into the next output row; a strip below the first reads the row above
+//   it once to seed them (1 row in 17 at pool1). Window oj-1's vectors are
+//   also read by the neighbouring lane group, as its window oj.
+//   The lane oj = wo writes the last column(s) (in window wo-1 alone, or
+//   in none for an even width).
+// - Registers decide the rest. dy stays in registers as loaded (bf16
+//   pairs in 32-bit words), each element widened when used: as float
+//   arrays the bf16 walk held 102 registers and took 5% longer. Left to
+//   itself ptxas then gives it 97, two blocks an SM; __launch_bounds__
+//   asks for three (80, no spills), which took pool1 from 74% to 79% of
+//   its bound. Four (64) gave 78.7%.
+// - The launcher takes the same template one element a lane where C x the
+//   element size is not a multiple of 16 bytes, dy or dx is not 16-byte
+//   aligned, or idx is not aligned to the vector's V bytes.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, each step against the
+// one before it in turns in one call: 0.635 ms at pool1 (79% of its
+// bound) and 0.095 at pool2 (80%); the column walk took 0.908 and 0.156.
+// Two window columns a thread (three dy and code loads for two windows
+// instead of four) took 155 registers, one block an SM, and 0.765 ms at
+// pool1, slower than one column's 0.702 in the same call.
+// The rule is autograd of F.max_pool2d on the card: its channels-last
+// backward sums in fp32 from +0 over the windows that cover an element,
+// oi ascending, then oj, and rounds once (__float2bfloat16 for bf16), but
+// copies dy as it is to an element that one window alone covers (its row
+// and its column each odd, 0, or 2ho or 2wo): -0.0 and NaN bits stay.
+// The walk follows both, so dx is bitwise equal to it given the same
+// winners.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,35 +116,25 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long long MAX_BLOCKS = 132LL * 64;  // grid-stride beyond this
 constexpr int MIN_STRIP = 4, MAX_STRIP = 16;  // output rows a thread walks
 constexpr long long FILL = 132LL * 2048 * 2;  // two waves of 132 full SMs
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  // the backward's sums: exact for every bf16 value and -inf; a NaN sum is
-  // stored as 0x7FC0, the NaN of PyTorch's float -> bf16 store
-  // (__float2bfloat16 would give 0x7FFF). Sums round to nearest even, as
-  // PyTorch's float -> bf16 conversion does.
-  *p = isnan(v) ? __ushort_as_bfloat16((unsigned short)0x7FC0)
-                : __float2bfloat16(v);
-}
-
-// V elements of T from (or to) one aligned V * sizeof(T)-byte unit, as
-// 32-bit words; a 2-byte unit (one bf16) in the low half of word 0.
+// One aligned unit of BYTES bytes from (or to) 32-bit words; a unit of 1
+// or 2 bytes (a code, a bf16) in the low bits of word 0.
 template <int BYTES>
 __device__ __forceinline__ void load_words(const void* p, uint32_t* u) {
   if constexpr (BYTES == 16) {
     const uint4 r = *static_cast<const uint4*>(p);
     u[0] = r.x, u[1] = r.y, u[2] = r.z, u[3] = r.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 r = *static_cast<const uint2*>(p);
+    u[0] = r.x, u[1] = r.y;
   } else if constexpr (BYTES == 4) {
     u[0] = *static_cast<const uint32_t*>(p);
-  } else {
+  } else if constexpr (BYTES == 2) {
     u[0] = *static_cast<const unsigned short*>(p);
+  } else {
+    u[0] = *static_cast<const uint8_t*>(p);
   }
 }
 
@@ -134,19 +153,21 @@ __device__ __forceinline__ void store_words(void* p, const uint32_t* u) {
   }
 }
 
+// Element i of V elements of T held as 32-bit words (bf16: the high half
+// of a float, exactly).
+template <typename T>
+__device__ __forceinline__ float element(const uint32_t* u, int i) {
+  if constexpr (std::is_same<T, float>::value) return __uint_as_float(u[i]);
+  else return __uint_as_float(i & 1 ? u[i / 2] & 0xFFFF0000u : u[i / 2] << 16);
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
   constexpr int BYTES = V * (int)sizeof(T);
   uint32_t u[(BYTES + 3) / 4];
   load_words<BYTES>(p, u);
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    if constexpr (std::is_same<T, float>::value) {
-      v[i] = __uint_as_float(u[i]);
-    } else {  // bf16: the high half of a float, exactly
-      v[i] = __uint_as_float(i & 1 ? u[i / 2] & 0xFFFF0000u : u[i / 2] << 16);
-    }
-  }
+  for (int i = 0; i < V; ++i) v[i] = element<T>(u, i);
 }
 
 // y's V elements, each the winner's own bits: every m is an input element
@@ -250,57 +271,133 @@ pool_walk_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
-// `code` is the in-window position a winner must have to route dy here;
-// a miss adds +0.0, which leaves every sum bitwise as a skipped add would
-// (sums start at +0 and never become -0), and never reads dy as a factor.
-template <typename T>
-__device__ __forceinline__ float routed(uint8_t arg, int code, T g) {
-  return arg == code ? to_float(g) : 0.0f;
+// Byte i of V codes held as 32-bit words.
+__device__ __forceinline__ uint32_t code_at(const uint32_t* u, int i) {
+  return (u[i / 4] >> (8 * (i % 4))) & 0xFF;
 }
 
-// One thread per input column (b, j, c), walking down the rows: output
-// row k's index and dy (at the one or two window columns oj0 <= oj1 that
-// cover j) are loaded once and serve input rows 2k, 2k+1 and 2k+2; the
-// unrolled loop keeps several output rows' loads in flight. Sums per
-// input element run over oi ascending, then oj, from +0.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pool_bwd_kernel(const T* __restrict__ dy, const uint8_t* __restrict__ idx,
-                T* __restrict__ dx, int h, int w, int c, int ho, int wo,
-                long long columns) {
-  for (long long col = (long long)blockIdx.x * THREADS + threadIdx.x;
-       col < columns; col += (long long)gridDim.x * THREADS) {
-    const int ch = (int)(col % c);
-    const long long r = col / c;
-    const int j = (int)(r % w);
-    const long long b = r / w;
-    const int oj0 = j >= 1 ? (j - 1) >> 1 : 0;
-    const int oj1 = min(j >> 1, wo - 1);
-    const long long row_out = (long long)wo * c, row_in = (long long)w * c;
-    T* out = dx + b * h * row_in + (long long)j * c + ch;
-    if (oj0 > oj1) {  // the last column of an even width: in no window
-      for (int i = 0; i < h; ++i) store(out + (long long)i * row_in, 0.0f);
-      continue;
+// dy where the window's winner is at `at`, else +0.0: a miss never reads
+// dy as a factor, and adds +0.0 to a sum, which leaves it bitwise as a
+// skipped add would (sums start at +0 and never become -0).
+__device__ __forceinline__ float routed(uint32_t code, uint32_t at, float g) {
+  return code == at ? g : 0.0f;
+}
+
+// V fp32 sums, rounded once to T by the conversion PyTorch's own float ->
+// bf16 store uses on sm_80 and later (__float2bfloat16: to nearest even).
+template <typename T, int V>
+__device__ __forceinline__ void store_sums(T* p, const float (&s)[V]) {
+  constexpr int BYTES = V * (int)sizeof(T);
+  uint32_t u[(BYTES + 3) / 4];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      u[i] = __float_as_uint(s[i]);
+    } else {
+      const uint32_t half = __bfloat16_as_ushort(__float2bfloat16(s[i]));
+      if (i & 1) u[i / 2] |= half << 16;
+      else u[i / 2] = half;
     }
-    const bool two = oj1 > oj0;
-    const int dj0 = j - 2 * oj0, dj1 = j - 2 * oj1;
-    const T* g = dy + b * ho * row_out + (long long)oj0 * c + ch;
-    const uint8_t* a = idx + b * ho * row_out + (long long)oj0 * c + ch;
-    const long long step1 = (long long)(oj1 - oj0) * c;  // oj0 -> oj1
-    float carry = 0.0f;  // output row k-1's share of input row 2k
-#pragma unroll 4
-    for (int k = 0; k < ho; ++k) {
-      const long long o = k * row_out;
-      const uint8_t a0 = a[o], a1 = two ? a[o + step1] : (uint8_t)255;
-      const T g0 = g[o], g1 = two ? g[o + step1] : g0;
-      const float top = (carry + routed(a0, dj0, g0)) + routed(a1, dj1, g1);
-      const float mid = (0.0f + routed(a0, 3 + dj0, g0)) + routed(a1, 3 + dj1, g1);
-      carry = (0.0f + routed(a0, 6 + dj0, g0)) + routed(a1, 6 + dj1, g1);
-      store(out + (2LL * k) * row_in, top);
-      store(out + (2LL * k + 1) * row_in, mid);
+  }
+  store_words<BYTES>(p, u);
+}
+
+// The backward's strip walk: one thread per (b, window column oj in
+// 0..wo, channel vector) and strip of output rows. It reads windows oj-1
+// ("left") and oj ("right") and writes input columns 2oj (left's position
+// 2, right's 0) and 2oj+1 (right's 1), where they are < w; the lane oj =
+// wo writes the last column(s), in no window but oj-1. Per output row k:
+// input row 2k gets the carry (window row k-1's position 2) and row k's
+// positions 0, input row 2k+1 row k's positions 1, and positions 2 become
+// the carry. The rule is PyTorch's channels-last backward: an element in
+// two or more windows gets the fp32 sum from +0 over them, oi ascending,
+// then oj, rounded once; an element in one window alone gets that
+// window's dy as it is (or +0 where it lost): -0.0 and NaN bits kept.
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS, 3)
+pool_bwd_walk_kernel(const T* __restrict__ dy, const uint8_t* __restrict__ idx,
+                     T* __restrict__ dx, int h, int w, int c, int ho, int wo,
+                     int strip, int lanes) {
+  constexpr int WORDS = (V * (int)sizeof(T) + 3) / 4, CODES = (V + 3) / 4;
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= lanes) return;
+  const int nv = c / V;
+  const int t = lane / nv, vec = lane - t * nv;
+  const int b = t / (wo + 1), oj = t - b * (wo + 1);
+  const int oi0 = blockIdx.y * strip, rows = min(strip, ho - oi0);
+  const bool left = oj >= 1, right = oj < wo, both = left && right;
+  const bool odd = 2 * oj + 1 < w;  // column 2oj+1 exists
+  const long long row_in = (long long)w * c, row_out = (long long)wo * c;
+  const long long o = ((long long)b * ho + oi0) * row_out + (long long)oj * c + vec * V;
+  const T* g = dy + o;  // window oj; oj-1 is c elements back
+  const uint8_t* a = idx + o;
+  T* out = dx + ((long long)b * h + 2 * oi0) * row_in + 2LL * oj * c + vec * V;
+  // a window outside the image keeps dy 0 and code 255, which no position
+  // matches
+  uint32_t gl[WORDS] = {}, gr[WORDS] = {}, al[CODES], ar[CODES];
+#pragma unroll
+  for (int j = 0; j < CODES; ++j) al[j] = ar[j] = 0xFFFFFFFFu;
+  auto load = [&](long long k) {  // output row oi0 + k
+    if (left) {
+      load_words<V * (int)sizeof(T)>(g + k * row_out - c, gl);
+      load_words<V>(a + k * row_out - c, al);
     }
-    for (int i = 2 * ho; i < h; ++i) {  // below the last window: its share
-      store(out + (long long)i * row_in, i == 2 * ho ? carry : 0.0f);
+    if (right) {
+      load_words<V * (int)sizeof(T)>(g + k * row_out, gr);
+      load_words<V>(a + k * row_out, ar);
+    }
+  };
+  // An input row that one row of windows covers, from its positions base
+  // (left's base + 2, right's base; right's base + 1 for column 2oj+1):
+  // column 2oj sums where both windows exist, else it copies one; column
+  // 2oj+1 copies.
+  auto shares = [&](int base, float (&e)[V], float (&d)[V]) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float l = routed(code_at(al, i), base + 2, element<T>(gl, i));
+      const float r = routed(code_at(ar, i), base, element<T>(gr, i));
+      e[i] = both ? (0.0f + l) + r : left ? l : r;
+      d[i] = routed(code_at(ar, i), base + 1, element<T>(gr, i));
+    }
+  };
+  auto store_shares = [&](T* p, const float (&e)[V], const float (&d)[V]) {
+    if (both) store_sums<T, V>(p, e);
+    else store_vec<T, V>(p, e);  // dy's own bits
+    if (odd) store_vec<T, V>(p + c, d);
+  };
+  float ce[V] = {}, co[V] = {};  // carry: row 2k as window row k-1 alone gives it
+  float e[V], d[V];
+  if (oi0 > 0) {
+    load(-1);
+    shares(6, ce, co);
+  }
+  for (int k = 0; k < rows; ++k) {
+    load(k);
+    if (oi0 + k == 0) {  // input row 0 lies in window row 0 alone
+      shares(0, e, d);
+      store_shares(out, e, d);
+    } else {  // in window rows k-1 and k: sums
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        e[i] = ((0.0f + ce[i]) + routed(code_at(al, i), 2, element<T>(gl, i))) +
+               routed(code_at(ar, i), 0, element<T>(gr, i));
+        d[i] = (0.0f + co[i]) + routed(code_at(ar, i), 1, element<T>(gr, i));
+      }
+      store_sums<T, V>(out, e);
+      if (odd) store_sums<T, V>(out + c, d);
+    }
+    shares(3, e, d);
+    store_shares(out + row_in, e, d);
+    shares(6, ce, co);
+    out += 2 * row_in;
+  }
+  if (oi0 + rows == ho) {  // row 2ho in window row ho-1 alone, then none
+    store_shares(out, ce, co);
+    if (2 * ho + 1 < h) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) e[i] = 0.0f;
+      store_vec<T, V>(out + row_in, e);
+      if (odd) store_vec<T, V>(out + row_in + c, e);
     }
   }
 }
@@ -346,17 +443,35 @@ int launch(const T* x, T* y, uint8_t* idx, int batch, int h, int w, int c,
   return launch_walk<T, 1, IDX>(x, y, idx, batch, h, w, c, ho, wo, stream);
 }
 
+// As launch_walk: one lane per window column and one more (the tail
+// column); a launch of 2^31 or more lanes is refused.
+template <typename T, int V>
+int launch_bwd_walk(const T* dy, const uint8_t* idx, T* dx, int batch, int h,
+                    int w, int c, int ho, int wo, cudaStream_t stream) {
+  const long long lanes = (long long)batch * (wo + 1) * (c / V);
+  if (lanes > INT_MAX - THREADS) return (int)cudaErrorInvalidValue;
+  const int strip = strip_rows(lanes, ho);
+  const dim3 grid((unsigned)((lanes + THREADS - 1) / THREADS),
+                  (unsigned)((ho + strip - 1) / strip));
+  pool_bwd_walk_kernel<T, V><<<grid, THREADS, 0, stream>>>(
+      dy, idx, dx, h, w, c, ho, wo, strip, (int)lanes);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte dy and dx vectors where c fills them, dy and dx are 16-byte
+// aligned and idx is aligned to its V bytes, else one element a lane.
 template <typename T>
 int launch_bwd(const T* dy, const uint8_t* idx, T* dx, int batch, int h,
-               int w, int c, void* stream) {
+               int w, int c, void* stream_) {
   if (batch <= 0 || h < 3 || w < 3 || c <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = (cudaStream_t)stream_;
   const int ho = (h - 3) / 2 + 1, wo = (w - 3) / 2 + 1;
-  const long long columns = (long long)batch * w * c;
-  long long blocks = (columns + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  pool_bwd_kernel<T><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      dy, idx, dx, h, w, c, ho, wo, columns);
-  return (int)cudaGetLastError();
+  constexpr int WIDE = 16 / (int)sizeof(T);
+  const bool wide = c % WIDE == 0 && ((uintptr_t)dy | (uintptr_t)dx) % 16 == 0 &&
+                    (uintptr_t)idx % WIDE == 0;
+  if (wide)
+    return launch_bwd_walk<T, WIDE>(dy, idx, dx, batch, h, w, c, ho, wo, stream);
+  return launch_bwd_walk<T, 1>(dy, idx, dx, batch, h, w, c, ho, wo, stream);
 }
 
 }  // namespace

@@ -162,6 +162,96 @@ def test_pool_backward_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(_bits(dx), _bits(ref.contiguous()))
 
 
+def _placed(t, offset, device):
+    """A copy of t on the device, `offset` elements into a flat buffer."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _backward_matches_autograd(x, dy, offsets=(0, 0, 0)):
+    """dx of the backward kernel from the with-index forward's idx, with
+    dy, idx and dx placed `offsets` elements off their buffers' bases,
+    bitwise autograd of F.max_pool2d on the card."""
+    bsz, h, w, c = x.shape
+    _, idx = pool.max_pool_3x3s2_idx_cuda(x)
+    dy = _placed(dy, offsets[0], x.device)
+    idx = _placed(idx, offsets[1], x.device)
+    dx = _placed(torch.full(x.shape, 7.0, dtype=x.dtype), offsets[2], x.device)
+    before = pool.max_pool_3x3s2_bwd_cuda.launches
+    if offsets[2]:  # the wrapper allocates an aligned dx: call the library
+        pool._run(f"max_pool_3x3s2_bwd_{pool._SUFFIX[x.dtype]}", dy,
+                  (dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), bsz, h, w, c))
+    else:
+        dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, h, w)
+        assert pool.max_pool_3x3s2_bwd_cuda.launches == before + 1
+    ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dx), _bits(ref))
+
+
+@pytest.mark.parametrize("kind", ["relu", "ints"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 18, 20, 16), (2, 254, 198, 96)])
+def test_pool_backward_at_even_sizes(cuda, shape, dtype, kind):
+    """Even H and W at 16-byte vectors: the last input column lies in no
+    window (the tail lane writes it), the last row in none either."""
+    x = _pool_input(kind, shape, dtype, shape[1]).to(cuda)
+    ho, wo = (shape[1] - 3) // 2 + 1, (shape[2] - 3) // 2 + 1
+    gen = torch.Generator().manual_seed(shape[2])
+    dy = torch.randn(shape[0], ho, wo, shape[3], generator=gen).to(dtype)
+    _backward_matches_autograd(x, dy.to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [17, 18, 19, 20])
+def test_pool_backward_at_strip_boundaries(cuda, h, dtype):
+    """Strips of 4 output rows: ho = 8 ends on a whole strip, ho = 9 one
+    row past it; each strip but the first seeds its carry from the row
+    above it."""
+    x = _pool_input("ints", (2, h, 22, 16), dtype, h).to(cuda)
+    gen = torch.Generator().manual_seed(h + 1)
+    dy = torch.randn(2, (h - 3) // 2 + 1, 10, 16, generator=gen).to(dtype)
+    _backward_matches_autograd(x, dy.to(cuda))
+
+
+@pytest.mark.parametrize("dtype,shape,offsets", [
+    (torch.bfloat16, (2, 17, 19, 12), (0, 0, 0)),  # 24 bytes a pixel
+    (torch.float32, (2, 17, 19, 6), (0, 0, 0)),    # 24 bytes a pixel
+    (torch.bfloat16, (2, 9, 11, 8), (1, 0, 0)),    # dy 2 bytes off
+    (torch.bfloat16, (2, 9, 11, 8), (0, 4, 0)),    # idx 4 bytes off its 8
+    (torch.bfloat16, (2, 9, 11, 8), (0, 0, 4)),    # dx 8 bytes off
+    (torch.float32, (2, 9, 11, 4), (2, 0, 0)),     # dy 8 bytes off
+    (torch.float32, (2, 9, 11, 4), (0, 1, 0)),     # idx 1 byte off its 4
+    (torch.float32, (2, 9, 11, 4), (0, 0, 1))])    # dx 4 bytes off
+def test_pool_backward_narrow_paths(cuda, dtype, shape, offsets):
+    """One element a lane: C x the element size not a multiple of 16
+    bytes, or dy, idx or dx off its alignment (a view into a flat buffer)."""
+    x = _pool_input("ints", shape, dtype, sum(shape)).to(cuda)
+    gen = torch.Generator().manual_seed(sum(offsets))
+    dy = torch.randn(shape[0], (shape[1] - 3) // 2 + 1,
+                     (shape[2] - 3) // 2 + 1, shape[3], generator=gen).to(dtype)
+    _backward_matches_autograd(x, dy.to(cuda), offsets)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_backward_special_values_in_dy(cuda, dtype):
+    """NaN, +-inf and -0.0 in dy, routed to winners that one, two or four
+    windows share (tie-heavy x): NaN and inf sums, inf - inf, and -0.0
+    that a sum from +0 makes +0."""
+    x = _pool_input("ints", (2, 21, 24, 16), dtype, 5).to(cuda)
+    gen = torch.Generator().manual_seed(6)
+    dy = torch.randn(2, 10, 11, 16, generator=gen)
+    pick = torch.rand(dy.shape, generator=gen)
+    dy[pick < 0.05] = float("nan")
+    dy[(pick >= 0.05) & (pick < 0.12)] = float("inf")
+    dy[(pick >= 0.12) & (pick < 0.19)] = -float("inf")
+    dy[(pick >= 0.19) & (pick < 0.4)] = -0.0
+    dy[..., 0] = -0.0  # a whole channel of -0.0
+    _backward_matches_autograd(x, dy.to(dtype).to(cuda))
+
+
 def _pool_matches_plain(x):
     """Both forwards against the plain version on the card: y bitwise (the
     index-free one too), idx exactly."""
