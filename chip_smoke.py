@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``mcncrossmodalemotions_torch/csrc``
-(one nvcc per source, started together -> ``build/kernels/``), holds each
-against its plain PyTorch version on the card, then drives the port's
-four main paths, the first three with the full-width VGG-M student:
-whole-clip feature extraction (``compute_audio_feats``, seeded weights,
-synthetic tracks in three duration buckets), the distillation train step
-at the headline shape, offline ``run_distillation`` end to end, and the
-two Mosaic probe tools; each path with and without the kernels where a
-comparison applies. Phases:
+Builds the port's CUDA kernels and its wav reader library from
+``mcncrossmodalemotions_torch/csrc`` (one nvcc or g++ per source, started
+together -> ``build/kernels/``), holds each kernel against its plain
+PyTorch version on the card, then drives the port's main paths, all but
+the probes with the full-width VGG-M student: whole-clip feature
+extraction (``compute_audio_feats``, seeded weights, synthetic tracks in
+three duration buckets), the distillation train step at the headline
+shape, offline ``run_distillation`` end to end, extraction through the
+port's own wav reader, a released student loaded from a ``.mat`` file and
+trained on from it, the student's statistics and external benchmarks,
+and the two Mosaic probe tools; each path with and without the kernels
+where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
-   probes).
+   probes) and g++ seconds for the wav reader (dataservice_audio).
 3. data: 126 synthetic wavs (``data.synthetic_track_imdb``), grouped as
    the extractor groups them; each chunk's shapes are the shapes the
    main run launches the kernels at.
@@ -59,7 +62,33 @@ comparison applies. Phases:
    ``metrics.jsonl`` appear, losses finite, the exact kernel launch
    counts; a second call with ``num_epochs=3`` resumes at epoch 3;
    ``feed_bound_frac`` per epoch.
-10. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+10. reader: the port's wav reader library (``csrc/dataservice_audio.cc``),
+    not Python, serves extraction; its ``ds_read_crops`` and
+    ``ds_read_crops_packed`` crops are bitwise the Python reads (and their
+    ``pack_pcm16``) over the smoke's tracks, from 0 and from random
+    starts; extraction's tracks/s with library reads and with Python reads
+    (``MCNCME_DISABLE_NATIVE``), in turns, over windows of the smoke's
+    tracks read 16 times (the window's seconds printed beside each rate),
+    each run launching K1 once and K2 twice per chunk, their logits within
+    the slice gate.
+11. release: a classic (v5) MatConvNet ``.mat`` written from seeded
+    full-width weights with nonzero conv biases (BN means moved by them),
+    loaded on the card by ``load_pretrained_student``: extraction logits
+    within 2e-2 x max|logit| of the seeded weights through the bridge;
+    one ``run_distillation`` epoch with ``from_scratch=False`` from the
+    file (exact launch counts), and ``load_student_from_exp(..., 'best')``
+    bitwise equal to the checkpoint's state.
+12. analysis: ``student_stats`` over the distill phase's imdb with the
+    released student, extraction with the kernels and plain, in fp32
+    (per-emotion AUCs within 0.02) and in bf16, the default (bf16 rounding
+    swaps near-tied tracks, and a few swaps in a partition of 7 or 20
+    tracks move an AUC by more than 0.02, so per partition the kernels may
+    reorder at most 2n + 1 (positive, negative) track pairs, n the pairs
+    that bf16 itself reorders on the plain path against fp32); each
+    partition's largest AUC gap, ``meanAuc`` of each run and the first
+    reordered pairs printed; ``emo_benchmarks`` over a synthetic external
+    set (60 tracks, 6 classes, 5 folds): mean and std accuracy.
+13. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -73,8 +102,8 @@ comparison applies. Phases:
     takes on the card).
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
-counted over the first three main runs, the probe kernels' over the
-probes run, each read between a reset just before and just after it;
+counted over the main runs of the slice, train, distill, reader, release
+and analysis phases, the probe kernels' over the probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -120,6 +149,9 @@ N_PROBES = 17                 # P1-P11, P5b; P4r, P4s, P4b, P12, P1r
 EVEN_POOL = (16, 254, 198, 96)  # k2-backward: even H and W, 16-byte vectors
 NARROW_POOL = (16, 61, 47, 12)  # k2-backward: 24 bytes a bf16 pixel, one
                                 # element a lane
+AUC_TOL = 0.02                # per-emotion AUC, extraction kernels vs plain
+READER_REPEATS = 16           # the reader phase's windows: the track list
+                              # 16 times, seconds long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 
@@ -443,9 +475,9 @@ def train_phase(card: str, wrappers: dict) -> dict:
     return k["counts"]
 
 
-def distill_phase(root: Path, wrappers: dict) -> dict:
+def distill_phase(root: Path, wrappers: dict) -> tuple:
     """``run_distillation`` end to end, then its resume (phase 9); returns
-    the first call's launch counts."""
+    the first call's launch counts and the synthetic imdb."""
     import numpy as np
 
     from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
@@ -497,7 +529,7 @@ def distill_phase(root: Path, wrappers: dict) -> dict:
     check([h["epoch"] for h in history] == [3], "resume did not start at epoch 3")
     check([e for e, _ in list_checkpoints(exp_dir)] == [1, 2, 3],
           "checkpoint 3 missing")
-    return counts
+    return counts, imdb
 
 
 def probe_work(probe) -> tuple:
@@ -623,6 +655,461 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
     return counts
 
 
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def extraction_chunks(paths, batch: int = BATCH) -> list:
+    """(rows, t_pad, bucket) of every chunk the extractor launches the
+    kernels for over ``paths``: tracks grouped by (t_pad, bucket), cut
+    into chunks of ``batch``."""
+    from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        AudioFeatureExtractor,
+    )
+
+    meta = AudioFeatureExtractor(None, {})
+    groups: dict = {}
+    for p in paths:
+        _, bucket, t_pad = meta._meta(str(p))[:3]
+        groups[(t_pad, bucket)] = groups.get((t_pad, bucket), 0) + 1
+    return [(min(batch, count - k), t_pad, bucket)
+            for (t_pad, bucket), count in sorted(groups.items())
+            for k in range(0, count, batch)]
+
+
+def imdb_paths(imdb) -> list:
+    """The wav paths ``compute_audio_feats`` reads for ``imdb``."""
+    wav_dir = getattr(imdb, "wav_dir", "")
+    return [str(Path(wav_dir) / p) for p in imdb.wav_paths]
+
+
+def extraction_launches(wrappers: dict, imdb) -> dict:
+    """The launches an extraction with kernels makes over ``imdb``: K1
+    once and the index-free K2 twice per chunk."""
+    n = len(extraction_chunks(imdb_paths(imdb)))
+    return {k: 0 for k in wrappers} | {"spectrogram": n, "max_pool_3x3s2": 2 * n}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] += v
+
+
+def student_release(path: Path, seed: int = SEED, fc6: int = 4096,
+                    fc7: int = 1024) -> dict:
+    """Write a classic (v5) MatConvNet student ``.mat`` from seeded weights,
+    every conv and fc6 with a nonzero bias and its BN mean moved by that
+    bias, so the release computes what the seeded weights compute (the
+    importer folds the bias back: mean - bias). Returns the seeded weights
+    in the Flax layout."""
+    import numpy as np
+    import scipy.io
+
+    from mcncrossmodalemotions_torch.zoo import random_student_variables
+    from mcncrossmodalemotions_torch.zoo.matconvnet import BN_EPSILON
+
+    v = random_student_variables(seed=seed, fc6=fc6, fc7=fc7)
+    p, s = v["params"], v["batch_stats"]
+    rng = np.random.default_rng(seed + 1)
+    named = {}
+    for i, conv in enumerate(("conv1", "conv2", "conv3", "conv4", "conv5",
+                              "fc6"), 1):
+        kernel = p[conv]["kernel"]
+        bias = rng.normal(0.0, 0.5, kernel.shape[-1]).astype(np.float32)
+        named[f"{conv}f"], named[f"{conv}b"] = kernel, bias
+        named[f"bn{i}f"], named[f"bn{i}b"] = p[f"bn{i}"]["scale"], p[f"bn{i}"]["bias"]
+        sigma = np.sqrt(s[f"bn{i}"]["var"] + BN_EPSILON)
+        named[f"bn{i}m"] = np.stack([s[f"bn{i}"]["mean"] + bias, sigma], axis=1)
+    named["fc7f"], named["fc7b"] = p["fc7"]["kernel"][None, None], p["fc7"]["bias"]
+    named["fc8f"] = p["prediction"]["kernel"][None, None]
+    named["fc8b"] = p["prediction"]["bias"]
+    arr = np.zeros((len(named),), dtype=[("name", object), ("value", object)])
+    for i, item in enumerate(named.items()):
+        arr[i] = item
+    scipy.io.savemat(path, {"net": {"params": arr}})
+    return v
+
+
+def reader_phase(card: str, imdb, wrappers: dict, dev="cuda",
+                 widths: tuple = (4096, 1024)) -> dict:
+    """The port's own wav reader library (built in the build phase with the
+    host's g++): it, not Python, serves extraction; its crops are bitwise
+    the Python reads' over the smoke's tracks, through both
+    ``ds_read_crops`` and ``ds_read_crops_packed``; extraction's tracks/s
+    with it and with Python reads, in turns, over windows of the tracks
+    read ``READER_REPEATS`` times. Returns the launches of the extractions
+    that read through it."""
+    import os
+
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.data import audio, native_audio
+    from mcncrossmodalemotions_torch.exp import compute_audio_feats as feats
+    from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.zoo import (
+        random_student_variables,
+        student_state_dict_from_flax,
+    )
+
+    check(feats.wav_reader() is native_audio,
+          "extraction does not read through the port's wav library")
+    paths = imdb_paths(imdb)
+    rng = np.random.default_rng(SEED)
+    meta = feats.AudioFeatureExtractor(None, {})
+    by_t_pad: dict = {}
+    for p in paths:
+        by_t_pad.setdefault(meta._meta(p)[2], []).append(p)
+    for t_pad, group in sorted(by_t_pad.items()):
+        need = DEFAULT_SPEC.crop_samples(t_pad)
+        for starts in ([0] * len(group),
+                       [int(rng.integers(0, audio.wav_info(p).num_samples))
+                        for p in group]):
+            crops = native_audio.read_crops(group, starts, need)
+            packed = native_audio.read_crops_packed(group, starts, need)
+            python = np.zeros_like(crops)
+            for row, path, start in zip(python, group, starts):
+                got, _ = audio.read_wav(path, start, need)
+                row[:len(got)] = got
+            same = crops.view(np.int32).tobytes() == python.view(np.int32).tobytes()
+            same_packed = np.array_equal(packed, audio.pack_pcm16(python))
+            print(f"  t_pad {t_pad}: {len(group)} tracks x {need} samples from "
+                  f"{'0' if not any(starts) else 'random starts'}: ds_read_crops "
+                  f"{'bitwise equal to' if same else 'DIFFERENT from'} the "
+                  f"Python reads, ds_read_crops_packed "
+                  f"{'bitwise equal to' if same_packed else 'DIFFERENT from'} "
+                  f"their pack_pcm16", flush=True)
+            check(same and same_packed,
+                  f"the port's reader differs from Python at t_pad {t_pad}")
+
+    fc6, fc7 = widths
+    model = VGGMStudent(fc6_features=fc6, fc7_features=fc7)
+    state = student_state_dict_from_flax(
+        random_student_variables(seed=SEED, fc6=fc6, fc7=fc7))
+    # each timed window reads the track list READER_REPEATS times over
+    window = paths * READER_REPEATS
+    chunks = len(extraction_chunks(window))
+    want = {k: 0 for k in wrappers} | {"spectrogram": chunks,
+                                        "max_pool_3x3s2": 2 * chunks}
+    counts = {k: 0 for k in wrappers}
+    runs = {"library": [], "python": []}
+    logits = {}
+    order = ("library", "python", "python", "library")
+    for mode in order:
+        if mode == "python":
+            os.environ["MCNCME_DISABLE_NATIVE"] = "1"
+        try:
+            ex = feats.AudioFeatureExtractor(model, state, batch_size=BATCH,
+                                             device=dev)
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = ex.track_logits(window, verbose=False)
+            sync(dev)
+            runs[mode].append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("MCNCME_DISABLE_NATIVE", None)
+        got = read_counts(wrappers)
+        check(got == want, f"reader {mode}: launches {got}, expected {want}")
+        if mode == "library":
+            add_counts(counts, got)
+            check(ex.readers == {"native-packed"},
+                  f"extraction read with {ex.readers}, not the port's library")
+        else:
+            check(ex.readers == {"python"}, f"python run read with {ex.readers}")
+        logits.setdefault(mode, np.concatenate(out))
+    a, b = logits["library"], logits["python"]
+    diff = float(np.abs(a - b).max())
+    print(f"  logits, library reads vs Python reads: max abs {diff:.3e} "
+          f"({'bitwise equal' if np.array_equal(a, b) else 'not bitwise equal'})")
+    check(diff <= SLICE_REL_TOL * float(np.abs(b).max()),
+          "library-read logits disagree with Python-read ones")
+    rates = {mode: ", ".join(f"{len(window) / w:.2f} in {w:.3f} s"
+                             for w in walls) for mode, walls in runs.items()}
+    print(f"  {card}: extraction tracks/s, library reads {rates['library']}; "
+          f"Python reads {rates['python']} (in turns: {', '.join(order)}; "
+          f"{len(paths)} tracks x {READER_REPEATS} a window, batch {BATCH})",
+          flush=True)
+    return counts
+
+
+def release_phase(card: str, root: Path, imdb, distill_imdb, wrappers: dict,
+                  dev="cuda", widths: tuple = (4096, 1024),
+                  batch: int = 64) -> tuple:
+    """A released student at full width: a classic ``.mat`` written from
+    seeded weights with nonzero conv biases, loaded on the card by
+    ``load_pretrained_student``; its extraction logits against the same
+    weights through the bridge, biases already folded (the extraction
+    gate); one ``run_distillation`` epoch from the file, and
+    ``load_student_from_exp(..., 'best')`` bitwise equal to the
+    checkpoint's state. Returns (launches, model, state)."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        compute_audio_feats,
+    )
+    from mcncrossmodalemotions_torch.exp.run_distillation import (
+        DistillationConfig,
+        load_student_from_exp,
+        run_distillation,
+    )
+    from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
+    from mcncrossmodalemotions_torch.train.checkpoints import (
+        checkpoint_path,
+        read_checkpoint,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        load_pretrained_student,
+        student_state_dict_from_flax,
+    )
+
+    fc6, fc7 = widths
+    mat = root / "emovoxceleb-student.mat"
+    t0 = time.perf_counter()
+    seeded = student_release(mat, fc6=fc6, fc7=fc7)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, state = load_pretrained_student(mat, with_frontend=False, device=dev)
+    load_s = time.perf_counter() - t0
+    check(model.fc6.weight.shape[0] == fc6 and model.fc7.weight.shape[0] == fc7
+          and model.prediction.weight.shape[0] == 8, "release widths")
+    check(all(v.device.type == torch.device(dev).type for v in state.values()),
+          "the release's state is not on the card")
+    print(f"  release {mat.stat().st_size / 2**20:.1f} MiB written in "
+          f"{write_s:.2f} s, loaded in {load_s:.2f} s (fc6 {fc6}, fc7 {fc7}, "
+          "8 outputs)", flush=True)
+    counts = {k: 0 for k in wrappers}
+    reset_counts(wrappers)
+    got = compute_audio_feats(imdb, model, state, batch_size=BATCH,
+                              verbose=False, device=dev)
+    sync(dev)
+    launches = read_counts(wrappers)
+    want = extraction_launches(wrappers, imdb)
+    check(launches == want, f"release extraction launches {launches}, "
+          f"expected {want}")
+    add_counts(counts, launches)
+    bare = VGGMStudent(fc6_features=fc6, fc7_features=fc7)
+    ref = compute_audio_feats(imdb, bare, student_state_dict_from_flax(seeded),
+                              batch_size=BATCH, verbose=False, device=dev)
+    got, ref = np.concatenate(got), np.concatenate(ref)
+    check(got.shape == (len(imdb.wav_paths), 8) and np.isfinite(got).all(),
+          "release logits not finite [N, 8]")
+    scale, diff = float(np.abs(ref).max()), float(np.abs(got - ref).max())
+    print(f"  release logits vs the seeded weights through the bridge: max "
+          f"abs {diff:.3e}, max |logit| {scale:.3f}, rel {diff / scale:.3e} "
+          f"(gate {SLICE_REL_TOL})", flush=True)
+    check(diff <= SLICE_REL_TOL * scale, "release logits disagree")
+
+    cfg = DistillationConfig(num_epochs=1, from_scratch=False,
+                             pretrained_student=str(mat), batch_size=batch,
+                             mini_epoch_ratio=1.0, seed=SEED,
+                             out_root=str(root / "exps-release"))
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    _, history, exp_dir = run_distillation(cfg, distill_imdb, device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    h = history[0]
+    print(f"  from-release epoch: train loss {h['train']['loss']:.4f} over "
+          f"{h['train']['num_samples']} samples, val loss "
+          f"{h['val']['loss']:.4f}, {wall:.2f} s; launches {launches}",
+          flush=True)
+    check([r["epoch"] for r in history] == [1]
+          and np.isfinite(h["train"]["loss"]), "from-release epoch")
+    val_batches = -(-h["val"]["num_samples"] // batch)
+    train_batches = h["train"]["num_samples"] // batch
+    want = {k: 0 for k in wrappers} | {
+        "spectrogram": train_batches + val_batches,
+        "max_pool_3x3s2": 2 * val_batches,
+        "max_pool_3x3s2_idx": 2 * train_batches,
+        "max_pool_3x3s2_bwd": 2 * train_batches}
+    check(launches == want, f"from-release launches {launches}, expected {want}")
+    add_counts(counts, launches)
+    _, best = load_student_from_exp(exp_dir, "best", device=dev)
+    saved = read_checkpoint(checkpoint_path(exp_dir, 1))["model"]
+    same = (sorted(best) == sorted(k[len("net."):] for k in saved)
+            and all(torch.equal(v.cpu(), saved["net." + k])
+                    for k, v in best.items()))
+    print(f"  load_student_from_exp(best): {len(best)} tensors "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} checkpoint 1's",
+          flush=True)
+    check(same, "load_student_from_exp does not give back the checkpoint")
+    return counts, model, state
+
+
+def swapped_pairs(positive, a, b) -> list:
+    """(positive, negative) row pairs of two score vectors whose order
+    differs between ``a`` and ``b``; each such pair moves an AUC over
+    these rows by 1 / (positives x negatives)."""
+    import numpy as np
+
+    pos, neg = np.flatnonzero(positive), np.flatnonzero(~positive)
+    order_a = np.sign(a[pos][:, None] - a[neg][None, :])
+    order_b = np.sign(b[pos][:, None] - b[neg][None, :])
+    i, j = np.nonzero(order_a != order_b)
+    return [(int(pos[x]), int(neg[y])) for x, y in zip(i, j)]
+
+
+def compare_stats(a: tuple, b: tuple, imdb) -> dict:
+    """Two ``student_stats`` runs, each (result, [N, C] logits), partition
+    by partition: {partition: (largest per-emotion AUC gap, its emotion,
+    [(emotion, imdb track pairs whose order differs)], pairs compared)},
+    the pairs counted over every emotion with an AUC."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch import EMOTIONS
+    from mcncrossmodalemotions_torch.exp.student_stats import (
+        PARTITIONS,
+        softmax_np,
+        teacher_labels,
+    )
+
+    labels = teacher_labels(imdb)
+    (res_a, logits_a), (res_b, logits_b) = a, b
+    scores_a, scores_b = softmax_np(logits_a, axis=1), softmax_np(logits_b, axis=1)
+    out = {}
+    for part, row in res_a.items():
+        check(list(row) == list(res_b[part]), f"{part}: other emotions")
+        mask = imdb.set_id == PARTITIONS[part]
+        tracks = np.flatnonzero(mask)
+        gap, worst, swaps, pairs = 0.0, "no emotion", [], 0
+        for emotion, auc in row.items():
+            if emotion == "meanAuc":
+                continue
+            c = EMOTIONS.index(emotion)
+            positive = labels[mask] == c
+            pairs += int(positive.sum()) * int((~positive).sum())
+            diff = abs(auc - res_b[part][emotion])
+            if diff >= gap:
+                gap, worst = diff, emotion
+            swaps += [(emotion, (tracks[i], tracks[j])) for i, j in
+                      swapped_pairs(positive, scores_a[mask, c],
+                                    scores_b[mask, c])]
+        out[part] = (gap, worst, swaps, pairs)
+    return out
+
+
+def analysis_phase(card: str, root: Path, model, state, distill_imdb,
+                   wrappers: dict, dev="cuda",
+                   widths: tuple = (4096, 1024)) -> dict:
+    """The student's analysis on the card: ``student_stats`` over the
+    distill phase's imdb with the released student, extraction with the
+    kernels and plain. In fp32, where the two differ only by K1's
+    summation order, each per-emotion AUC within 0.02. In bf16, the
+    default, the rounding of the conv inputs moves logits by about 1e-2
+    relative, which swaps near-tied tracks of the random student, and a
+    few swaps in a partition of a few tracks move an AUC by more than
+    0.02: there the kernels may reorder, partition by partition, at most
+    twice as many (positive, negative) track pairs (and one) as bf16
+    itself reorders on the plain path against fp32. Then
+    ``emo_benchmarks`` (bf16) over a synthetic external set of 60 tracks
+    in 6 classes with 5 folds. Returns the kernel runs' launches."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.data.external import (
+        build_synthetic_track_imdb,
+    )
+    from mcncrossmodalemotions_torch.data.imdb import float_tracks
+    from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        compute_audio_feats,
+    )
+    from mcncrossmodalemotions_torch.exp.emo_benchmarks import emo_benchmarks
+    from mcncrossmodalemotions_torch.exp.student_stats import student_stats
+    from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
+
+    counts = {k: 0 for k in wrappers}
+    want = extraction_launches(wrappers, distill_imdb)
+    fp32 = VGGMStudent(fc6_features=widths[0], fc7_features=widths[1],
+                       dtype=torch.float32)
+    runs = {}  # (precision, kernels) -> (student_stats result, logits)
+    for label, m in (("fp32", fp32), ("bf16", model)):
+        for kernels in (True, False):
+            feats = root / f"feats-{label}-{'kernels' if kernels else 'plain'}.npz"
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            res = student_stats(distill_imdb, model=m, state=state,
+                                feat_path=str(feats), verbose=False,
+                                use_kernels=kernels, device=dev)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            if kernels:
+                check(launches == want, f"student_stats {label} launches "
+                      f"{launches}, expected {want}")
+                add_counts(counts, launches)
+            else:
+                check(not any(launches.values()), f"plain launched {launches}")
+            runs[label, kernels] = (res, np.concatenate(
+                float_tracks(np.load(feats, allow_pickle=True)["logits"])))
+        print(f"  student_stats {label} over {distill_imdb.num_tracks} tracks, "
+              f"{wall:.2f} s plain", flush=True)
+    del fp32
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    print(f"  logits max rel difference: bf16 kernels vs plain "
+          f"{rel(runs['bf16', True][1], runs['bf16', False][1]):.3e}, bf16 vs "
+          f"fp32 plain {rel(runs['bf16', False][1], runs['fp32', False][1]):.3e}"
+          f", fp32 kernels vs plain "
+          f"{rel(runs['fp32', True][1], runs['fp32', False][1]):.3e}", flush=True)
+    fp32 = compare_stats(runs["fp32", True], runs["fp32", False], distill_imdb)
+    bf16 = compare_stats(runs["bf16", True], runs["bf16", False], distill_imdb)
+    noise = compare_stats(runs["bf16", False], runs["fp32", False], distill_imdb)
+    for part, (gap, emotion, swaps, pairs) in fp32.items():
+        print(f"  student_stats fp32 {part}: meanAuc "
+              f"{runs['fp32', True][0][part]['meanAuc']:.4f} kernels, "
+              f"{runs['fp32', False][0][part]['meanAuc']:.4f} plain; max "
+              f"per-emotion AUC gap {gap:.4f} ({emotion}; gate {AUC_TOL}), "
+              f"{len(swaps)} of {pairs} track pairs reordered", flush=True)
+        check(gap <= AUC_TOL, f"fp32 {part}: AUC kernels vs plain {gap:.4f}")
+    for part, (gap, emotion, swaps, pairs) in bf16.items():
+        ref_gap, ref_emotion, ref_swaps, _ = noise[part]
+        print(f"  student_stats bf16 {part}: meanAuc "
+              f"{runs['bf16', True][0][part]['meanAuc']:.4f} kernels, "
+              f"{runs['bf16', False][0][part]['meanAuc']:.4f} plain; max "
+              f"per-emotion AUC gap {gap:.4f} ({emotion}); {len(swaps)} of "
+              f"{pairs} track pairs reordered (gate {2 * len(ref_swaps) + 1}); "
+              f"bf16 vs fp32 plain: max AUC gap {ref_gap:.4f} ({ref_emotion}), "
+              f"{len(ref_swaps)} pairs reordered", flush=True)
+        if swaps:
+            print(f"    kernels vs plain reorder (emotion: positive, negative "
+                  "track): " + ", ".join(f"{e}: {i}, {j}"
+                                         for e, (i, j) in swaps[:8])
+                  + (", ..." if len(swaps) > 8 else ""), flush=True)
+        check(len(swaps) <= 2 * len(ref_swaps) + 1,
+              f"bf16 {part}: kernels vs plain reorder {len(swaps)} track "
+              f"pairs, bf16 itself {len(ref_swaps)}")
+
+    ext = build_synthetic_track_imdb(root / "external", tracks_per_class=10,
+                                     duration=2.0, seed=SEED)
+    reset_counts(wrappers)
+    logits = compute_audio_feats(ext, model, state, batch_size=BATCH,
+                                 verbose=False, device=dev)
+    sync(dev)
+    launches = read_counts(wrappers)
+    want = extraction_launches(wrappers, ext)
+    check(launches == want, f"benchmark extraction launches {launches}, "
+          f"expected {want}")
+    add_counts(counts, launches)
+    with contextlib.redirect_stdout(sys.stderr):
+        res = emo_benchmarks({"synthetic-rml": dict(
+            track_logits=logits, labels=ext.labels,
+            classes=list(ext.classes))}, num_folds=5)["synthetic-rml"]
+    print(f"  emo_benchmarks over {len(logits)} tracks, 6 classes, 5 folds: "
+          f"accuracy {res.mean_accuracy:.4f} +/- {res.std_accuracy:.4f} "
+          f"(folds {', '.join(f'{a:.3f}' for a in res.fold_accuracies)})",
+          flush=True)
+    check(len(res.fold_accuracies) == 5
+          and all(0.0 <= a <= 1.0 for a in res.fold_accuracies),
+          "emo_benchmarks folds")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -638,7 +1125,6 @@ def main() -> int:
 
     from mcncrossmodalemotions_torch.data import synthetic_track_imdb
     from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
-        AudioFeatureExtractor,
         compute_audio_feats,
     )
     from mcncrossmodalemotions_torch.ops import _build, pool, probes
@@ -681,29 +1167,24 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build", walls):
-        libs = ("spectrogram", "max_pool_3x3s2", "probes")
-        _build.load(*libs)  # one nvcc each, all started together
+        libs = ("spectrogram", "max_pool_3x3s2", "probes", "dataservice_audio")
+        _build.load(*libs)  # one compiler each, all started together
         for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
             for line in log.splitlines():
                 if any(w in line for w in ("entry function", "registers",
                                            "spill")):
                     print(f"  {lib}: {line.strip()}")
-            print(f"  {lib}: nvcc {_build.build_seconds[lib]:.2f} s", flush=True)
+            compiler = "g++" if lib == "dataservice_audio" else "nvcc"
+            print(f"  {lib}: {compiler} {_build.build_seconds[lib]:.2f} s",
+                  flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         with phase("data", walls):
             imdb = synthetic_track_imdb(Path(tmp))
             paths = list(imdb.wav_paths)
-            probe = AudioFeatureExtractor(None, {})
-            groups: dict = {}
-            for p in paths:
-                _, bucket, t_pad = probe._meta(p)[:3]
-                groups[(t_pad, bucket)] = groups.get((t_pad, bucket), 0) + 1
             # (rows, t_pad, bucket) of every chunk the extractor launches
-            chunks = [(min(BATCH, count - k), t_pad, bucket)
-                      for (t_pad, bucket), count in sorted(groups.items())
-                      for k in range(0, count, BATCH)]
+            chunks = extraction_chunks(paths)
             print(f"  {len(paths)} tracks; chunks (rows, t_pad, bucket): "
                   f"{chunks}")
             check(len({b for _, _, b in chunks}) >= 3, "fewer than three buckets")
@@ -863,7 +1344,20 @@ def main() -> int:
             train_counts = train_phase(card, wrappers)
 
         with phase("distill", walls):
-            distill_counts = distill_phase(Path(tmp), wrappers)
+            distill_counts, distill_imdb = distill_phase(Path(tmp), wrappers)
+
+        with phase("reader", walls):
+            reader_counts = reader_phase(card, imdb, wrappers)
+
+        with phase("release", walls):
+            release_counts, student, student_state = release_phase(
+                card, Path(tmp), imdb, distill_imdb, wrappers)
+
+        with phase("analysis", walls):
+            analysis_counts = analysis_phase(card, Path(tmp), student,
+                                             student_state, distill_imdb,
+                                             wrappers)
+            del student, student_state
 
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
@@ -901,7 +1395,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source + src,
             "replaces": rep,
             "launches": (launches[name] + train_counts[name]
-                         + distill_counts[name] + probe_counts[name]),
+                         + distill_counts[name] + reader_counts[name]
+                         + release_counts[name] + analysis_counts[name]
+                         + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -1,0 +1,124 @@
+"""ctypes bindings to the port's own wav reader library.
+
+``csrc/dataservice_audio.cc`` is the audio half of the JAX package's C++
+data service (``native/dataservice.cc``) without its JPEG decode, so it
+needs no libjpeg: ``ops/_build.py`` compiles it with the host's ``g++`` at
+first use into ``build/kernels/``. The entry points and their ctypes
+signatures are those of ``data/native.py`` (the committed
+``native/libdataservice.so``), and so are the results: bit for bit the
+committed library's and the Python reads' (``tests/test_torch_native_audio.py``).
+``MCNCME_DISABLE_NATIVE`` switches it off as it does the committed one. A
+failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from mcncrossmodalemotions_torch.data.native import _c_args
+
+LIBRARY = "dataservice_audio"
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The library, built here at first use; None while switched off."""
+    global _lib
+    if os.environ.get("MCNCME_DISABLE_NATIVE"):
+        return None
+    if _lib is not None:
+        return _lib
+    from mcncrossmodalemotions_torch.ops import _build
+
+    lib = _build.load(LIBRARY)
+    lib.ds_wav_info.restype = ctypes.c_int
+    lib.ds_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.ds_read_wav.restype = ctypes.c_int64
+    lib.ds_read_wav.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
+                                ctypes.POINTER(ctypes.c_int32)]
+    lib.ds_read_crops.restype = ctypes.c_int
+    lib.ds_read_crops.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_float)]
+    lib.ds_read_crops_packed.restype = ctypes.c_int
+    lib.ds_read_crops_packed.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    _lib = lib
+    return lib
+
+
+def _need() -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the port's wav reader is switched off "
+                           "(MCNCME_DISABLE_NATIVE)")
+    return lib
+
+
+def available() -> bool:
+    """True unless switched off; builds the library if it is not built."""
+    return _load() is not None
+
+
+def wav_info(path: str) -> Tuple[int, int, int, int]:
+    """(num_samples, sample_rate, channels, bits) from the header."""
+    out = (ctypes.c_int64 * 4)()
+    rc = _need().ds_wav_info(str(path).encode(), out)
+    if rc != 0:
+        raise IOError(f"ds_wav_info({path}) failed: {rc}")
+    return tuple(int(v) for v in out)  # type: ignore[return-value]
+
+
+def read_wav(path: str, start: int = 0, num_samples: int = -1):
+    """Segment read -> (float32 mono [n], sample_rate); zero-padded past
+    the end of the file."""
+    lib = _need()
+    if num_samples < 0:
+        num_samples = wav_info(path)[0] - start
+    out = np.zeros(num_samples, np.float32)
+    rate = ctypes.c_int32(0)
+    got = lib.ds_read_wav(str(path).encode(), start, num_samples,
+                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                          ctypes.byref(rate))
+    if got < 0:
+        raise IOError(f"ds_read_wav({path}) failed")
+    return out, int(rate.value)
+
+
+def read_crops(paths: Sequence[str], starts: Sequence[int],
+               num_samples: int, num_threads: int = 8) -> np.ndarray:
+    """Threaded batched segment reads -> [count, num_samples] float32;
+    short files are zero-padded (getBatchEmoVoxCeleb.m:115-119)."""
+    lib = _need()
+    count, c_paths, c_starts = _c_args(paths, starts)
+    out = np.zeros((count, num_samples), np.float32)
+    failures = lib.ds_read_crops(
+        c_paths, c_starts, num_samples, count, num_threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if failures:
+        raise IOError(f"ds_read_crops: {failures}/{count} files failed")
+    return out
+
+
+def read_crops_packed(paths: Sequence[str], starts: Sequence[int],
+                      num_samples: int, num_threads: int = 8) -> np.ndarray:
+    """Threaded segment reads fused with the device-feed quantisation ->
+    [count, n] int16 (``data.audio.pack_pcm16`` of the float read, bit for
+    bit). The library's mu-law mode is not bound: the port feeds PCM16."""
+    lib = _need()
+    count, c_paths, c_starts = _c_args(paths, starts)
+    out = np.zeros((count, num_samples), np.int16)
+    failures = lib.ds_read_crops_packed(
+        c_paths, c_starts, num_samples, count, num_threads, 0,  # mode 0: int16
+        out.ctypes.data_as(ctypes.c_void_p))
+    if failures:
+        raise IOError(f"ds_read_crops_packed: {failures}/{count} files failed")
+    return out

@@ -6,9 +6,12 @@ and the same bucketing:
 
 - a header-only metadata pass groups tracks by (padded length ``t_pad``,
   duration bucket) and cuts each group into chunks of ``batch_size``;
-- waveform reads run two chunks ahead of the device, through the native
-  C++ reader (fused int16 packing) or the Python path for off-rate files;
-  the int16 rows go to the device through pinned memory;
+- waveform reads run two chunks ahead of the device, through a C++ reader
+  (fused int16 packing) or the Python path for off-rate files; the int16
+  rows go to the device through pinned memory. The C++ reader is the
+  port's own ``csrc/dataservice_audio.cc`` (built with ``g++`` at first
+  use; a failed build raises); the Python path reads every file only
+  where ``MCNCME_DISABLE_NATIVE`` is set. Both give the same bits;
 - on the device (the card unless the caller passes ``device="cpu"``):
   decode, spectrogram (the K1 kernel on the card), masked instance norm
   over the full clip, a centre crop to the bucket, and the student (whose
@@ -32,7 +35,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from mcncrossmodalemotions_torch.data import native as native_ds
+from mcncrossmodalemotions_torch.data import native_audio
 from mcncrossmodalemotions_torch.data.audio import (
     pack_pcm16,
     read_wav,
@@ -86,12 +89,11 @@ def _bucket_forward(model: nn.Module, state: Mapping[str, torch.Tensor],
          "use_kernels": use_kernels}, strict=True)
 
 
-def _native_ok() -> bool:
-    """True when the native reader library loads on this host."""
-    try:
-        return native_ds.available()
-    except OSError:  # a committed .so built for another host's libc
-        return False
+def wav_reader():
+    """The port's C++ wav reader (built at first use; a failed build
+    raises), or None, the Python reads, where ``MCNCME_DISABLE_NATIVE`` is
+    set."""
+    return native_audio if native_audio.available() else None
 
 
 @dataclasses.dataclass
@@ -154,29 +156,22 @@ class AudioFeatureExtractor:
         cfg = self.spec
         need = cfg.crop_samples(t_pad)
         cap = int(MAX_CLIP_SECONDS * cfg.sample_rate)
-        native_ok = _native_ok()
+        reader = wav_reader()
         fast, fast_rows, slow_futs = [], [], {}
         for row, (_, path, meta) in enumerate(chunk):
-            if native_ok and meta[3] == cfg.sample_rate:
+            if reader is not None and meta[3] == cfg.sample_rate:
                 fast.append(path)
                 fast_rows.append(row)
             else:
                 slow_futs[row] = pool.submit(self._load_one, path, need)
         # The fused read+pack computes each row's peak over everything it
         # reads, so it is only taken when no 19.9 s cap truncation applies.
-        packed = (not slow_futs and fast and need <= cap
-                  and native_ds.packed_reads_available())
+        packed = not slow_futs and bool(fast) and need <= cap
         fast_fut = None
         if fast:
-            if packed:
-                fast_fut = pool.submit(
-                    native_ds.read_crops_packed, fast, [0] * len(fast),
-                    need, self.num_threads)
-            else:
-                fast_fut = pool.submit(
-                    native_ds.read_crops, fast, [0] * len(fast), need,
-                    self.num_threads)
-        if fast:
+            read = reader.read_crops_packed if packed else reader.read_crops
+            fast_fut = pool.submit(read, fast, [0] * len(fast), need,
+                                   self.num_threads)
             self.readers.add("native-packed" if packed else "native")
         if slow_futs:
             self.readers.add("python")

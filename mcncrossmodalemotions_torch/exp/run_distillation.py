@@ -12,12 +12,14 @@ run metadata dumped alongside (:95-105, :227-240).
 On the card the host ships int16 crops; decode, spectrogram (the K1
 kernel), instance norm, the student (K2 forward-with-index and backward at
 pool1/pool2), the loss, the backward and the SGD update run on one
-device. Not ported yet, and refused with ``NotImplementedError``: the
-online (fused-teacher) mode, starting from the released weights
-(``from_scratch=False``), remat policies, speed/noise augmentation, the
-mu-law feed and fixedSegments. ``use_pallas_frontend`` only chose the JAX
-frontend's implementation; the port always runs the K1 wrapper, with the
-same function.
+device. ``from_scratch=False`` starts from a released student ``.mat``
+(``pretrained_student`` is its path; nothing is downloaded), and
+``load_student_from_exp`` rebuilds a trained student from an experiment
+directory of either package for evaluation. Not ported yet, and refused
+with ``NotImplementedError``: the online (fused-teacher) mode, remat
+policies, speed/noise augmentation, the mu-law feed and fixedSegments.
+``use_pallas_frontend`` only chose the JAX frontend's implementation; the
+port always runs the K1 wrapper, with the same function.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ import json
 import platform
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from mcncrossmodalemotions_torch import EMOTIONS
 from mcncrossmodalemotions_torch.data.emovox import BatchConfig, EmoVoxBatcher
@@ -40,13 +43,26 @@ from mcncrossmodalemotions_torch.data.imdb import (
     SET_UNHEARD_VAL,
     EmoVoxImdb,
 )
+from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
+from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
+from mcncrossmodalemotions_torch.train.checkpoints import read_from_exp
 from mcncrossmodalemotions_torch.train.engine import (
     TrainConfig,
     Trainer,
     logspace_lr,
 )
-from mcncrossmodalemotions_torch.utils.config import config_hash, to_dict
-from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+from mcncrossmodalemotions_torch.utils.config import (
+    config_hash,
+    read_latest_run_config,
+    to_dict,
+)
+from mcncrossmodalemotions_torch.utils.device import resolve_device
+from mcncrossmodalemotions_torch.zoo import (
+    STUDENT_MODELS,
+    build_student,
+    load_pretrained_student,
+    student_loss_fn,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +134,6 @@ def _refuse_unported(cfg: DistillationConfig, time_offsets) -> None:
     refused = {
         "online_teacher=True (the fused teacher step, train/distill.py)":
             cfg.online_teacher,
-        "from_scratch=False (the released student weights cannot be loaded "
-        "into the port yet: the .mat importer imports flax)":
-            not cfg.from_scratch,
         f"remat_policy={cfg.remat_policy!r}":
             cfg.remat_policy not in (None, "none"),
         "mulaw_feed=True": cfg.mulaw_feed,
@@ -181,7 +194,10 @@ def run_distillation(cfg: DistillationConfig,
 
     Offline mode on one ``device``: the teacher targets are the imdb's
     cached ``wav_logits``. ``imdb`` None loads
-    ``cfg.data_root/emovoxceleb-imdb.npz``.
+    ``cfg.data_root/emovoxceleb-imdb.npz``. ``cfg.from_scratch=False``
+    starts from the released student at the path
+    ``cfg.pretrained_student`` (``load_pretrained_student``; the widths
+    are the release's), with the run's dropout rate.
     """
     _refuse_unported(cfg, time_offsets)
     if imdb is None:
@@ -214,9 +230,16 @@ def run_distillation(cfg: DistillationConfig,
         exp_dir=str(exp_dir),
         resume=resume,
     )
-    model = build_student(cfg.student, num_outputs=cfg.num_pred_emotions,
-                          dropout=cfg.dropout, tiny=cfg.tiny_model,
-                          loss_type=cfg.loss_type)
+    if cfg.from_scratch:
+        model = build_student(cfg.student, num_outputs=cfg.num_pred_emotions,
+                              dropout=cfg.dropout, tiny=cfg.tiny_model,
+                              loss_type=cfg.loss_type)
+    else:
+        # fromScratch=false (emoVoxZoo.m:25-44): the release's weights; the
+        # run's parameter-free options still apply
+        model, _ = load_pretrained_student(cfg.pretrained_student,
+                                           with_frontend=True, device=device)
+        model.net.dropout_rate = cfg.dropout
     loss_fn = student_loss_fn(cfg.loss_type, temperature=cfg.temperature,
                               num_classes=cfg.num_pred_emotions)
     trainer = Trainer(model, loss_fn, tcfg,
@@ -228,5 +251,46 @@ def run_distillation(cfg: DistillationConfig,
     state, history = trainer.fit(
         lambda epoch: train_batcher.batches(epoch, epoch_size=epoch_size,
                                             drop_remainder=True),
-        val_batches_fn=lambda epoch: val_batcher.batches(epoch))
+        val_batches_fn=lambda epoch: val_batcher.batches(epoch),
+        state=trainer.init_state(scratch=cfg.from_scratch))
     return state, history, exp_dir
+
+
+def load_student_from_exp(exp_dir, epoch: int | str | None = None,
+                          with_frontend: bool = False,
+                          device: torch.device | str = "cuda"
+                          ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """Rebuild the trained student of an experiment directory for eval.
+
+    The reference's dev-checkpoint flow (emoVoxZoo.m:46-63). The
+    directory is the port's (``net-epoch-N.pt``) or the JAX package's
+    (``net-epoch-N.msgpack``, read by ``load_flax_checkpoint``); its newest
+    run-metadata dump must name a ``DistillationConfig`` run of a known
+    student. ``epoch`` None takes the latest readable checkpoint
+    (last-good fallback), ``'best'`` ``find_best_epoch``'s pick, an int
+    that epoch. The widths are the checkpoint's, so a from-release run
+    needs no ``.mat`` file.
+
+    Returns ``(model, state_dict)`` on ``device`` (the card unless the
+    caller asks for the CPU), dropout off. With the default
+    ``with_frontend=False`` the pipeline's ``net.`` prefix is stripped and
+    the model is the bare ``VGGMStudent``, which ``compute_audio_feats``
+    and ``student_stats`` take.
+    """
+    device = resolve_device(device, "load_student_from_exp")
+    cfg = read_latest_run_config(exp_dir, DistillationConfig)
+    if cfg.student not in STUDENT_MODELS:
+        raise KeyError(f"{exp_dir}: unknown student {cfg.student!r}")
+    _, record = read_from_exp(exp_dir, epoch)
+    state = record["model"]
+    if with_frontend:
+        model_cls, prefix = AudioStudentPipeline, "net."
+    else:
+        model_cls, prefix = VGGMStudent, ""
+        state = {k[len("net."):]: v for k, v in state.items()
+                 if k.startswith("net.")}
+    model = model_cls(fc6_features=state[prefix + "fc6.weight"].shape[0],
+                      fc7_features=state[prefix + "fc7.weight"].shape[0],
+                      num_outputs=state[prefix + "prediction.weight"].shape[0])
+    model.load_state_dict(state, strict=True)
+    return model.to(device), {k: v.to(device) for k, v in state.items()}

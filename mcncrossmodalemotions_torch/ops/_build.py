@@ -1,12 +1,15 @@
-"""Build the CUDA kernels in ``csrc/`` at first use and load them.
+"""Build the native sources in ``csrc/`` at first use and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers)
-and is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``build/kernels/`` at the repository root, then loaded with
-``ctypes``. A build of one such file takes seconds; no ``ninja`` and no
+and is compiled by ``nvcc`` for Hopper (``sm_90a``); each
+``csrc/<name>.cc`` (the host-side wav reader) is compiled by the host's
+C++ compiler (``g++``, or ``$CXX``). Either becomes a shared library under
+``build/kernels/`` at the repository root, loaded with ``ctypes``. A
+build of one such file takes seconds; no ``ninja`` and no
 ``torch.utils.cpp_extension`` are involved. The library's file name
-carries a hash of its source, so an edited kernel is rebuilt and a stale
-library is never loaded.
+carries a hash of its source, so an edited source is rebuilt and a stale
+library is never loaded. A failed compile raises with the compiler's
+output.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -28,6 +31,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# the native/Makefile's flags without -march=native: the library may be
+# built on one host and run on another of the same architecture
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+CXX_LIBS = ("-lpthread",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,19 +55,41 @@ def _nvcc() -> str:
     return found
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("no host C++ compiler (g++ or $CXX) found: the "
+                           "wav reader library is built with one")
+    return found
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cc`` (host code)."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cc"
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    """Where the library built from ``source_path(name)`` lives."""
+    digest = hashlib.sha1(source_path(name).read_bytes()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def load(*names: str) -> ctypes.CDLL:
-    """Build each ``csrc/<name>.cu`` whose library is missing, then load
-    them; returns the last one's library.
+def _command(name: str, out: Path) -> list:
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [_cxx(), *CXX_FLAGS, "-o", str(out), str(src), *CXX_LIBS]
 
-    The missing libraries are compiled at once, one ``nvcc`` process each.
-    The compiler's output (``-Xptxas=-v``: registers, shared memory and
-    spills per kernel) is kept beside the library as ``<lib>.log``.
+
+def load(*names: str) -> ctypes.CDLL:
+    """Build each ``csrc/<name>.cu`` or ``.cc`` whose library is missing,
+    then load them; returns the last one's library.
+
+    The missing libraries are compiled at once, one compiler process each.
+    The compiler's output (for a kernel, ``-Xptxas=-v``: registers, shared
+    memory and spills per kernel) is kept beside the library as
+    ``<lib>.log``.
     """
     with _lock:
         todo = [n for n in names if n not in _libs]
@@ -71,11 +100,9 @@ def load(*names: str) -> ctypes.CDLL:
             if not so.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC / f"{name}.cu")]
                 procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
+                    _command(name, tmp), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, t0, proc) in procs.items():
             out, _ = proc.communicate()
@@ -83,7 +110,8 @@ def load(*names: str) -> ctypes.CDLL:
             so = library_path(name)
             so.with_suffix(".log").write_text(out)
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+                failed.append(f"{Path(proc.args[0]).name} failed for "
+                              f"{source_path(name).name}:\n{out}")
             else:
                 os.replace(tmp, so)  # atomic: concurrent builds never race
         if failed:

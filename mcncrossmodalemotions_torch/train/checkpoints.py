@@ -8,8 +8,13 @@ the epoch record, written atomically (tmp file + ``os.replace``), with a
 (run_distillation.m:72,177-178) falls back past an unreadable latest
 checkpoint to the last good one (the reference's corrupted-checkpoint
 weakness, run_distillation.m:169); ``find_best_epoch`` is findBestEpoch
-(ferplus_baselines.m:121-126). Loading the JAX package's msgpack
-checkpoints is not ported.
+(ferplus_baselines.m:121-126).
+
+The JAX package's own checkpoints (``net-epoch-N.msgpack``, flax
+serialization of its ``TrainState``) are read by ``load_flax_checkpoint``
+with the port's msgpack reader (``utils/msgpack_lite.py``) and mapped
+through the weight bridge into the same record a ``.pt`` checkpoint holds;
+``read_from_exp`` takes either kind of experiment directory.
 """
 
 from __future__ import annotations
@@ -25,8 +30,14 @@ from typing import Optional, Tuple
 import torch
 
 from mcncrossmodalemotions_torch.train.state import TrainState
+from mcncrossmodalemotions_torch.utils import msgpack_lite
+from mcncrossmodalemotions_torch.zoo.bridge import (
+    student_params_from_flax,
+    student_state_dict_from_flax,
+)
 
-_CKPT_RE = re.compile(r"net-epoch-(\d+)\.pt$")
+PORT_SUFFIX = ".pt"
+FLAX_SUFFIX = ".msgpack"  # the JAX package's checkpoints
 
 
 class CorruptCheckpointError(Exception):
@@ -70,16 +81,87 @@ def save_checkpoint(exp_dir: str | Path, epoch: int, state: TrainState,
     return path
 
 
-def list_checkpoints(exp_dir: str | Path) -> list[Tuple[int, Path]]:
+def list_checkpoints(exp_dir: str | Path,
+                     suffix: str = PORT_SUFFIX) -> list[Tuple[int, Path]]:
+    """(epoch, path) of every ``net-epoch-N<suffix>`` file, by epoch: the
+    port's ``.pt`` checkpoints, or the JAX package's with ``FLAX_SUFFIX``."""
     exp_dir = Path(exp_dir)
     if not exp_dir.exists():
         return []
+    pattern = re.compile(r"net-epoch-(\d+)" + re.escape(suffix))
     found = []
     for p in exp_dir.iterdir():
-        m = _CKPT_RE.fullmatch(p.name)
+        m = pattern.fullmatch(p.name)
         if m and p.is_file():
             found.append((int(m.group(1)), p))
     return sorted(found)
+
+
+def read_checkpoint(path: Path) -> dict:
+    """The record of a ``.pt`` checkpoint: ``model`` (the ``state_dict``),
+    ``velocity``, ``step``, ``generator`` and ``record``, on the CPU.
+    Unreadable bytes raise :class:`CorruptCheckpointError`."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except (RuntimeError, EOFError, pickle.UnpicklingError,
+            zipfile.BadZipFile) as exc:  # truncated/garbled bytes
+        raise CorruptCheckpointError(f"{path}: {exc}") from exc
+
+
+def load_flax_checkpoint(path: str | Path) -> dict:
+    """Read the JAX package's ``net-epoch-N.msgpack`` (its ``TrainState``:
+    params, ``model_state`` with the batch statistics, velocity, step,
+    rng) into the port's record: ``model``, the ``state_dict`` of the
+    student or pipeline the params describe (``zoo/bridge.py``),
+    ``velocity`` under the port's parameter names, and ``step``. Every
+    tensor is the file's float32 values bit for bit (a bfloat16 leaf
+    widened exactly). Unreadable or truncated bytes raise
+    :class:`CorruptCheckpointError`; a tree that is not a student's
+    raises ``KeyError``."""
+    try:
+        tree = msgpack_lite.unpackb(Path(path).read_bytes())
+    except msgpack_lite.MsgpackError as exc:
+        raise CorruptCheckpointError(f"{path}: {exc}") from exc
+    if not (isinstance(tree, dict)
+            and {"params", "velocity", "step"} <= set(tree)):
+        raise KeyError(f"{path}: not a TrainState (keys "
+                       f"{sorted(tree) if isinstance(tree, dict) else type(tree)})")
+    model_state = tree.get("model_state") or {}
+    variables = {"params": tree["params"], **model_state}
+    return {"model": student_state_dict_from_flax(variables),
+            "velocity": student_params_from_flax(tree["velocity"]),
+            "step": int(tree["step"])}
+
+
+def read_from_exp(exp_dir: str | Path,
+                  epoch: int | str | None = None) -> Tuple[int, dict]:
+    """(epoch, record) of one checkpoint of an experiment directory: the
+    port's ``.pt`` ones, or, where there are none, the JAX package's
+    ``.msgpack`` ones (``load_flax_checkpoint``). ``epoch`` None takes the
+    latest readable one (last-good fallback), ``'best'`` the
+    ``find_best_epoch`` pick, an int that epoch. Raises
+    ``FileNotFoundError`` when nothing fits."""
+    suffix = PORT_SUFFIX if list_checkpoints(exp_dir) else FLAX_SUFFIX
+    read = read_checkpoint if suffix == PORT_SUFFIX else load_flax_checkpoint
+    ckpts = list_checkpoints(exp_dir, suffix)
+    if epoch == "best":
+        epoch = find_best_epoch(exp_dir, suffix=suffix)
+        if epoch is None:
+            raise FileNotFoundError(f"no epoch metrics in {exp_dir}")
+    if epoch is None:
+        for found, path in reversed(ckpts):
+            try:
+                return found, read(path)
+            except CorruptCheckpointError as exc:  # corrupted: try older
+                print(f"warning: checkpoint {path} unreadable ({exc}); "
+                      "falling back")
+        raise FileNotFoundError(f"no readable checkpoint in {exp_dir}")
+    path = dict(ckpts).get(int(epoch))
+    if path is None:
+        raise FileNotFoundError(
+            f"no checkpoint for epoch {epoch} in {exp_dir} (found epochs "
+            f"{[e for e, _ in ckpts]})")
+    return int(epoch), read(path)
 
 
 def load_checkpoint(path: Path, state: TrainState) -> TrainState:
@@ -87,11 +169,7 @@ def load_checkpoint(path: Path, state: TrainState) -> TrainState:
     generator) and return it. Unreadable bytes raise
     :class:`CorruptCheckpointError`; a checkpoint that does not fit the
     state raises the underlying error."""
-    try:
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-    except (RuntimeError, EOFError, pickle.UnpicklingError,
-            zipfile.BadZipFile) as exc:  # truncated/garbled bytes
-        raise CorruptCheckpointError(f"{path}: {exc}") from exc
+    blob = read_checkpoint(path)
     state.model.load_state_dict(blob["model"], strict=True)
     if set(blob["velocity"]) != set(state.velocity):
         raise KeyError(f"{path}: velocity keys differ from the model's "
@@ -119,12 +197,14 @@ def load_latest(exp_dir: str | Path, state: TrainState) -> Tuple[int, TrainState
 
 def find_best_epoch(exp_dir: str | Path, priority_metric: str = "classerror",
                     mode: str = "min", subset: str = "val",
-                    prune: bool = False) -> Optional[int]:
+                    prune: bool = False,
+                    suffix: str = PORT_SUFFIX) -> Optional[int]:
     """The epoch whose ``subset`` metrics optimise ``priority_metric``
-    (``findBestEpoch``). With ``prune=True`` every other epoch's
-    checkpoint and sidecar are deleted."""
+    (``findBestEpoch``) among the ``net-epoch-N<suffix>`` checkpoints.
+    With ``prune=True`` every other epoch's checkpoint and sidecar are
+    deleted."""
     best_epoch, best_value = None, None
-    ckpts = list_checkpoints(exp_dir)
+    ckpts = list_checkpoints(exp_dir, suffix)
     for epoch, path in ckpts:
         mpath = path.with_suffix(".json")
         if not mpath.exists():

@@ -260,11 +260,15 @@ class Trainer:
             thread.join(timeout=10)
 
     # -- state ------------------------------------------------------------
-    def init_state(self) -> TrainState:
-        """Scratch init from ``cfg.seed`` (on the CPU, so the weights do
-        not depend on the device), then the model moves to the device; the
-        dropout generator lives on the device, seeded ``cfg.seed + 1``."""
-        self.model.reset_parameters(torch.Generator().manual_seed(self.cfg.seed))
+    def init_state(self, scratch: bool = True) -> TrainState:
+        """The state at epoch 0: the model moves to the device (after
+        Flax's scratch init from ``cfg.seed``, on the CPU so the weights do
+        not depend on the device, unless ``scratch`` is False and the model
+        holds weights to start from); the dropout generator lives on the
+        device, seeded ``cfg.seed + 1``."""
+        if scratch:
+            self.model.reset_parameters(
+                torch.Generator().manual_seed(self.cfg.seed))
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 1)
         return TrainState.create(self.model.to(self.device), gen)
 

@@ -11,6 +11,10 @@ dicts (optionally under ``'net'``, as ``AudioStudentPipeline`` and
 - a student built with ``use_batchnorm=False`` has conv biases and no
   BatchNorm (and may have no ``batch_stats`` at all).
 
+Leaves are numpy arrays (or anything ``np.asarray`` takes) or torch
+tensors (the msgpack reader gives bfloat16 leaves as tensors); each
+becomes an fp32 tensor.
+
 ``student_params_from_flax`` maps a params-shaped tree alone (the JAX
 ``TrainState.velocity``, or its ``params``) to the port's parameter names
 (``named_parameters``), the keys of the port's velocity.
@@ -38,6 +42,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         path = f"{prefix}{key}"
         if isinstance(value, Mapping):
             flat.update(_flatten(value, path + "/"))
+        elif isinstance(value, torch.Tensor):  # a bfloat16 leaf
+            flat[path] = value
         else:
             flat[path] = np.asarray(value)
     return flat
@@ -60,7 +66,10 @@ def _map_student(params: Mapping,
     def take(path: str) -> torch.Tensor:
         if path not in leaves:
             raise KeyError(f"student variables lack {path!r}")
-        return torch.from_numpy(np.array(leaves.pop(path), np.float32))
+        leaf = leaves.pop(path)
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to("cpu", torch.float32, copy=True)
+        return torch.from_numpy(np.array(leaf, np.float32))
 
     state: Dict[str, torch.Tensor] = {}
     for i, conv in enumerate(_CONVS, 1):

@@ -1,16 +1,22 @@
 """Student zoo, the student half of ``mcncrossmodalemotions_tpu/zoo/registry.py``:
-``build_student`` (emoVoxZoo.m:25-31, scratch init :202-243) and
+``build_student`` (emoVoxZoo.m:25-31, scratch init :202-243),
+``load_pretrained_student`` (the released weights, emoVoxZoo.m:25-44) and
 ``student_loss_fn`` (emoVoxZoo.m:137-169).
 
-Released weights are not loaded here yet: the JAX package's ``.mat``
-importer sits behind ``zoo/__init__.py``, which imports flax.
+Released ``.mat`` files are read by the port's own copy of the MatConvNet
+importer (``zoo/matconvnet.py``) and reach the model through the weight
+bridge (``zoo/bridge.py``). The port takes a path: it has no release
+registry and downloads nothing.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from mcncrossmodalemotions_torch.losses import (
     class_error,
@@ -23,6 +29,8 @@ from mcncrossmodalemotions_torch.losses import (
 from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
 from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, SpecConfig
+from mcncrossmodalemotions_torch.utils.device import resolve_device
+from mcncrossmodalemotions_torch.zoo.bridge import student_state_dict_from_flax
 
 STUDENT_MODELS = ("emovoxceleb-student",)
 
@@ -56,6 +64,69 @@ def build_student(name: str = "emovoxceleb-student", *,
                              "bare model (with_frontend=False)")
         return AudioStudentPipeline(spec=spec, **kw)
     return VGGMStudent(use_batchnorm=use_bnorm, **kw)
+
+
+def fold_conv_biases(variables: dict) -> dict:
+    """Fold the release's conv and fc6 biases into the BN running means,
+    in place, and return ``variables``.
+
+    The student's convs are bias-free (the following BN absorbs the bias):
+    a released bias b shifts the BN input, and the release's running mean
+    mu was estimated on conv(x)+b, so dropping b shifts the mean to mu-b
+    to keep (z-mu)/sigma identical (the JAX ``load_pretrained_student``).
+    """
+    bn_for = {f"conv{i}": f"bn{i}" for i in range(1, 6)}
+    bn_for["fc6"] = "bn6"
+    for conv_name, bn_name in bn_for.items():
+        conv = variables["params"].get(conv_name, {})
+        bias = conv.pop("bias", None)
+        if bias is not None and bn_name in variables["batch_stats"]:
+            stats = variables["batch_stats"][bn_name]
+            stats["mean"] = np.asarray(stats["mean"]) - np.asarray(bias)
+    return variables
+
+
+def load_pretrained_student(mat_path: str | Path, *,
+                            with_frontend: bool = True,
+                            spec: SpecConfig = DEFAULT_SPEC,
+                            device: torch.device | str = "cuda"
+                            ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """Load a released MatConvNet student ``.mat`` (classic or ``-v7.3``).
+
+    The fromScratch=False path of emoVoxZoo (emoVoxZoo.m:25-44): returns
+    ``(model, state_dict)`` with the imported weights, the model on
+    ``device`` (the card unless the caller asks for the CPU) and the
+    ``state_dict`` a separate copy of them there. The widths (fc6, fc7,
+    head) come from the release; the conv biases are folded into the BN
+    means (``fold_conv_biases``). With ``with_frontend`` the model is the
+    waveform pipeline and the keys carry its ``net.`` prefix; without it,
+    the bare spectrogram-input VGG-M that ``compute_audio_feats`` takes.
+    ``mat_path`` is a path; nothing is downloaded.
+    """
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        import_vggm_student,
+        mat_cache_scope,
+    )
+
+    device = resolve_device(device, "load_pretrained_student")
+    if not Path(mat_path).is_file():
+        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
+                                "takes a path and downloads nothing)")
+    with mat_cache_scope():
+        variables = fold_conv_biases(import_vggm_student(mat_path))
+    params = variables["params"]
+    dims = dict(fc6_features=int(params["fc6"]["kernel"].shape[-1]),
+                fc7_features=int(params["fc7"]["kernel"].shape[-1]),
+                num_outputs=int(params["prediction"]["kernel"].shape[-1]))
+    if with_frontend:
+        model = AudioStudentPipeline(spec=spec, **dims)
+        variables = {"params": {"net": variables["params"]},
+                     "batch_stats": {"net": variables["batch_stats"]}}
+    else:
+        model = VGGMStudent(**dims)
+    state = student_state_dict_from_flax(variables)
+    model.load_state_dict(state, strict=True)
+    return model.to(device), {k: v.to(device) for k, v in state.items()}
 
 
 def student_loss_fn(loss_type: str = "hot-cross-ent", *,

@@ -7,7 +7,16 @@
   loss; a second call with ``num_epochs=3`` resumes at epoch 3; a corrupt
   latest checkpoint falls back to the one before it;
 - the engine's helpers (LR schedule, mini-epochs, split, class stats)
-  agree with the JAX ones.
+  agree with the JAX ones;
+- ``from_scratch=False`` starts from a released student ``.mat`` (a path;
+  a registry name raises, nothing is downloaded): epoch 0's weights are
+  the release's, the run trains and resumes;
+- ``load_student_from_exp`` rebuilds the student of a port experiment
+  directory (latest, ``'best'``, an int epoch, past a corrupt latest
+  checkpoint) bitwise equal to the checkpoint's ``state_dict``, and of a
+  JAX experiment directory (``net-epoch-N.msgpack``) bitwise equal to the
+  bridge of the JAX variables, with the JAX forward's logits;
+  ``read_latest_run_config`` reads either package's run metadata alike.
 """
 
 import dataclasses
@@ -17,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mcncrossmodalemotions_tpu.exp import run_distillation as jrd
 from mcncrossmodalemotions_tpu.train import engine as jengine
 from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
@@ -125,7 +135,6 @@ def test_checkpoint_round_trip_and_mismatch_raises(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("online_teacher", True),
-                                         ("from_scratch", False),
                                          ("remat_policy", "drop_conv1"),
                                          ("mulaw_feed", True),
                                          ("speed_aug", True),
@@ -164,3 +173,156 @@ def test_metric_averager_weights_by_batch_size():
     out = avg.result()
     assert out["loss"] == pytest.approx(2.0)
     np.testing.assert_array_equal(out["class_pop"], [1.0, 3.0])
+
+
+# -- from a release, and back from an experiment directory -------------------
+
+FC6, FC7 = 64, 32
+
+
+def _release_mat(path):
+    """A classic MatConvNet student release of the test's widths, conv
+    biases nonzero (the smoke run's writer)."""
+    chip_smoke.student_release(path, fc6=FC6, fc7=FC7)
+    return path
+
+
+def _release_cfg(tmp_path, num_epochs):
+    mat = tmp_path / "release.mat"
+    if not mat.exists():
+        _release_mat(mat)
+    return rd.DistillationConfig(num_epochs=num_epochs, out_root=str(tmp_path),
+                                 from_scratch=False,
+                                 pretrained_student=str(mat),
+                                 **dict(TINY_RUN, tiny_model=False))
+
+
+def test_from_release_starts_from_its_weights_then_trains(imdb, tmp_path):
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_student
+
+    release, _ = load_pretrained_student(
+        _release_mat(tmp_path / "release.mat"), device="cpu")
+    state, history, exp_dir = rd.run_distillation(_release_cfg(tmp_path, 0),
+                                                  imdb, device="cpu")
+    assert history == [] and state.step == 0
+    for k, v in release.state_dict().items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+    assert exp_dir.name == jrd.DistillationConfig(
+        from_scratch=False, pretrained_student=str(tmp_path / "release.mat"),
+        **dict(TINY_RUN, tiny_model=False)).exp_name()
+    state, history, _ = rd.run_distillation(_release_cfg(tmp_path, 2), imdb,
+                                            device="cpu")
+    assert [h["epoch"] for h in history] == [1, 2] and state.step == 6
+    assert all(np.isfinite(h["train"]["loss"]) for h in history)
+    assert state.model.net.fc6.weight.shape[0] == FC6
+    assert not torch.equal(state.model.net.conv1.weight,
+                           release.net.conv1.weight)
+    _, history, _ = rd.run_distillation(_release_cfg(tmp_path, 3), imdb,
+                                        device="cpu")
+    assert [h["epoch"] for h in history] == [3]
+
+
+def test_from_release_takes_a_path_not_a_name(imdb, tmp_path):
+    cfg = rd.DistillationConfig(out_root=str(tmp_path), from_scratch=False,
+                                **TINY_RUN)
+    assert cfg.pretrained_student == "emovoxceleb-student"
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+        rd.run_distillation(cfg, imdb, device="cpu")
+
+
+def _ckpt_state(exp_dir, epoch):
+    return ckpt.read_checkpoint(ckpt.checkpoint_path(exp_dir, epoch))["model"]
+
+
+def test_load_student_from_exp_epochs(imdb, tmp_path):
+    _, history, exp_dir = _run(imdb, tmp_path, 3)
+    errors = {h["epoch"]: h["val"]["classerror"] for h in history}
+    best = ckpt.find_best_epoch(exp_dir)
+    assert errors[best] == min(errors.values())
+    for epoch, want_epoch in ((None, 3), ("best", best), (2, 2), (1, 1)):
+        model, state = rd.load_student_from_exp(exp_dir, epoch, device="cpu")
+        want = _ckpt_state(exp_dir, want_epoch)
+        assert isinstance(model, rd.VGGMStudent)
+        assert sorted(state) == sorted(k[len("net."):] for k in want)
+        for k, v in state.items():
+            assert torch.equal(v, want["net." + k]), (epoch, k)
+            assert torch.equal(model.state_dict()[k], v)
+    model, state = rd.load_student_from_exp(exp_dir, 2, with_frontend=True,
+                                            device="cpu")
+    assert isinstance(model, rd.AudioStudentPipeline)
+    want = _ckpt_state(exp_dir, 2)
+    assert all(torch.equal(state[k], v) for k, v in want.items())
+    # a corrupt latest checkpoint: the latest readable one
+    latest = ckpt.checkpoint_path(exp_dir, 3)
+    latest.write_bytes(latest.read_bytes()[:64])
+    _, state = rd.load_student_from_exp(exp_dir, device="cpu")
+    assert all(torch.equal(v, want["net." + k]) for k, v in state.items())
+    with pytest.raises(ckpt.CorruptCheckpointError):
+        rd.load_student_from_exp(exp_dir, 3, device="cpu")
+    with pytest.raises(FileNotFoundError, match="no checkpoint for epoch 7"):
+        rd.load_student_from_exp(exp_dir, 7, device="cpu")
+    with pytest.raises(FileNotFoundError, match="meta"):
+        rd.load_student_from_exp(tmp_path, device="cpu")
+
+
+def test_load_student_from_a_jax_exp_dir(tmp_path):
+    import jax
+    import jax.numpy as jnp
+
+    from mcncrossmodalemotions_tpu.models.vggm import VGGMStudent as JaxVGGM
+    from mcncrossmodalemotions_tpu.train import checkpoints as jckpt
+    from mcncrossmodalemotions_tpu.train.state import TrainState as JaxState
+    from mcncrossmodalemotions_tpu.utils.config import write_run_meta
+    from mcncrossmodalemotions_torch.zoo import (
+        random_student_variables,
+        student_state_dict_from_flax,
+    )
+
+    cfg = jrd.DistillationConfig(tiny_model=True, out_root=str(tmp_path))
+    exp_dir = tmp_path / cfg.exp_name()
+    write_run_meta(exp_dir, cfg)
+    variables = {}
+    for epoch, err in ((1, 0.25), (2, 0.5), (3, 0.75)):
+        v = random_student_variables(seed=epoch, fc6=FC6, fc7=FC7)
+        variables[epoch] = v
+        nested = {k: {"net": jax.tree.map(jnp.asarray, t)} for k, t in v.items()}
+        jckpt.save_checkpoint(exp_dir, epoch,
+                              JaxState.create(nested, jax.random.PRNGKey(0)),
+                              {"val": {"classerror": err}})
+    assert rd.read_latest_run_config(exp_dir, rd.DistillationConfig) == \
+        rd.DistillationConfig(**dataclasses.asdict(cfg))
+    x = np.random.RandomState(0).randn(2, 512, 100, 1).astype(np.float32)
+    jm = JaxVGGM(fc6_features=FC6, fc7_features=FC7, dtype=np.float32)
+    for epoch, want_epoch in ((None, 3), ("best", 1), (2, 2)):
+        model, state = rd.load_student_from_exp(exp_dir, epoch, device="cpu")
+        want = student_state_dict_from_flax(variables[want_epoch])
+        assert sorted(state) == sorted(want)
+        for k, v in want.items():
+            assert torch.equal(state[k], v), (epoch, k)
+        with jax.default_matmul_precision("highest"):
+            ref = np.asarray(jm.apply(variables[want_epoch], jnp.asarray(x)))
+        assert isinstance(model, rd.VGGMStudent)
+        fp32 = rd.VGGMStudent(fc6_features=FC6, fc7_features=FC7,
+                              dtype=torch.float32)
+        fp32.load_state_dict(state)
+        with torch.inference_mode():
+            got = fp32(torch.from_numpy(x), train=False).numpy()
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    latest = exp_dir / "net-epoch-3.msgpack"
+    latest.write_bytes(latest.read_bytes()[:-10])
+    _, state = rd.load_student_from_exp(exp_dir, device="cpu")
+    want = student_state_dict_from_flax(variables[2])
+    assert all(torch.equal(state[k], v) for k, v in want.items())
+
+
+def test_read_latest_run_config_equals_jax(tmp_path):
+    from mcncrossmodalemotions_tpu.utils import config as jconfig
+    from mcncrossmodalemotions_torch.utils import config
+
+    rd.write_run_meta(tmp_path / "a", rd.DistillationConfig(seed=4, dropout=0.5))
+    for exp in (tmp_path / "a",):
+        assert (config.read_latest_run_config(exp, rd.DistillationConfig)
+                == jconfig.read_latest_run_config(exp, rd.DistillationConfig))
+    for mod in (config, jconfig):
+        with pytest.raises(FileNotFoundError, match="no meta"):
+            mod.read_latest_run_config(tmp_path, rd.DistillationConfig)
