@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels and its wav reader library from
-``mcncrossmodalemotions_torch/csrc`` (one nvcc or g++ per source, started
-together -> ``build/kernels/``), holds each kernel against its plain
-PyTorch version on the card, then drives the port's main paths, all but
-the probes with the full-width VGG-M student: whole-clip feature
-extraction (``compute_audio_feats``, seeded weights, synthetic tracks in
-three duration buckets), the distillation train step at the headline
-shape, offline ``run_distillation`` end to end, extraction through the
-port's own wav reader, a released student loaded from a ``.mat`` file and
-trained on from it, the student's statistics and external benchmarks,
-and the two Mosaic probe tools; each path with and without the kernels
-where a comparison applies. Phases:
+Builds the port's CUDA kernels, its wav reader and its JPEG face decoder
+libraries from ``mcncrossmodalemotions_torch/csrc`` (one nvcc or g++ per
+source, started together -> ``build/kernels/``), holds each kernel against
+its plain PyTorch version on the card, then drives the port's main paths,
+the student's with the full-width VGG-M: whole-clip feature extraction
+(``compute_audio_feats``, seeded weights, synthetic tracks in three
+duration buckets), the distillation train step at the headline shape,
+offline ``run_distillation`` end to end, extraction through the port's
+own wav reader, a released student loaded from a ``.mat`` file and
+trained on from it, the student's statistics and external benchmarks;
+the teacher's serving path with full-width SENet50 and ResNet50 (face
+frames decoded by the port, dense EmoVoxCeleb inference); and the two
+Mosaic probe tools; each path with and without the kernels where a
+comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
-   probes) and g++ seconds for the wav reader (dataservice_audio).
+   probes) and g++ seconds for the wav reader (dataservice_audio) and the
+   face decoder (dataservice_faces).
 3. data: 126 synthetic wavs (``data.synthetic_track_imdb``), grouped as
    the extractor groups them; each chunk's shapes are the shapes the
    main run launches the kernels at.
@@ -88,7 +91,25 @@ where a comparison applies. Phases:
     partition's largest AUC gap, ``meanAuc`` of each run and the first
     reordered pairs printed; ``emo_benchmarks`` over a synthetic external
     set (60 tracks, 6 classes, 5 folds): mean and std accuracy.
-13. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+13. teacher: the port's JPEG decoder on this host gives the committed
+    libjpeg library's frames of every fixture (``tests/fixtures/
+    torch_faces``) at crops 1/1.6 and 1.0 and PIL's RGB, bit for bit (the
+    golden, ``tests/fixtures/torch_teacher_golden.npz``); full-width
+    SENet50 and ResNet50 classic ``.mat`` releases written from
+    ``random_teacher_variables(seed=0)`` with conv biases, loaded on the
+    card by ``load_pretrained_teacher(with_pipeline=True)``: logits on the
+    golden's four frames within 2e-3 x max|golden| of the JAX package's
+    in fp32 (TF32 off), and in bf16 within max(2 x JAX's own bf16 error,
+    1e-2 x max|golden|); the dense build (``build_imdb``, SENet50 bf16,
+    batch 128) over the smoke's 126 tracks with 16 fixture frames each
+    (2,016 frames, the last batch padded): a 1,024-frame bounded call and
+    its resume bitwise equal to one pass, which launches none of the
+    kernel line's kernels; decode-only frames/s at 8 threads and at
+    ``os.cpu_count()`` in turns, teacher-only frames/s (CUDA events, batch
+    128, bf16), dense frames/s end to end, the dense run's device busy
+    share (torch.profiler) and peak memory; one ``run_distillation`` epoch
+    (full width, batch 64) on the built imdb, with its exact launches.
+14. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -102,8 +123,8 @@ where a comparison applies. Phases:
     takes on the card).
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
-counted over the main runs of the slice, train, distill, reader, release
-and analysis phases, the probe kernels' over the probes run, each read between a reset just before and just after it;
+counted over the main runs of the slice, train, distill, reader, release,
+analysis and teacher phases, the probe kernels' over the probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -154,6 +175,15 @@ READER_REPEATS = 16           # the reader phase's windows: the track list
                               # 16 times, seconds long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+FIXTURES = ROOT / "tests" / "fixtures"
+TEACHER_GOLDEN = FIXTURES / "torch_teacher_golden.npz"
+FACES = FIXTURES / "torch_faces"
+TEACHER_BATCH = 128           # compute_visual_feats.m:83-98
+TEACHER_FP32_RTOL = 2e-3      # fp32 convs, TF32 off, against the JAX golden
+TEACHER_BF16_RTOL = 1e-2      # the bf16 gate's floor; else 2 x JAX's own
+DENSE_FRAMES = 16             # frames a track in the dense build: 2,016
+DENSE_BOUNDED = 1024          # the bounded first call of the resume check
+TEACHER_TIMED = 10            # teacher-only batches timed
 
 
 class SmokeFailure(RuntimeError):
@@ -558,7 +588,7 @@ def probe_work(probe) -> tuple:
 def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
                  work: dict) -> dict:
     """Both probe tools on the card, then each probe kernel against its
-    plain version and timed (phase 10); returns the tools' launch counts."""
+    plain version and timed (phase 14); returns the tools' launch counts."""
     import numpy as np
     import torch
 
@@ -1110,6 +1140,328 @@ def analysis_phase(card: str, root: Path, model, state, distill_imdb,
     return counts
 
 
+def teacher_release(path: Path, seed: int = SEED, use_se: bool = True,
+                    stage_sizes: tuple = (3, 4, 6, 3), width: int = 64,
+                    average_image=(131.0912, 103.8827, 91.4953)) -> dict:
+    """Write a classic (v5) MatConvNet teacher ``.mat`` from
+    ``random_teacher_variables(seed)``: every conv with a nonzero bias and
+    its BN mean moved by that bias (the importer folds it back: mean -
+    bias), the SE pairs and the head as 1x1 filters, ``averageImage`` the
+    VGGFace2 mean (any array, or None for none). Returns the seeded
+    weights in the Flax layout."""
+    import numpy as np
+    import scipy.io
+
+    from mcncrossmodalemotions_torch.zoo import random_teacher_variables
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        BN_EPSILON,
+        resnet50_layer_map,
+    )
+
+    v = random_teacher_variables(seed=seed, use_se=use_se,
+                                 stage_sizes=stage_sizes, width=width)
+    p, s = v["params"], v["batch_stats"]
+    rng = np.random.default_rng(seed + 1)
+
+    def get(tree, path):
+        for part in path.split("/"):
+            tree = tree[part]
+        return tree
+
+    named, biases = {}, {}
+    for layer, spec in resnet50_layer_map(stage_sizes, use_se=use_se).items():
+        if spec["kind"] == "conv":
+            kernel = get(p, layer)["kernel"]
+            biases[layer] = rng.normal(0.0, 0.5, kernel.shape[-1]).astype(
+                np.float32)
+            named[spec["filters"][0]] = kernel
+            named[spec["bias"][0]] = biases[layer]
+        elif spec["kind"] == "dense":
+            named[spec["filters"][0]] = get(p, layer)["kernel"][None, None]
+            named[spec["bias"][0]] = get(p, layer)["bias"]
+        else:
+            conv = layer.replace("bn_down", "downsample").replace("bn", "conv")
+            stats = get(s, layer)
+            named[spec["gamma"][0]] = get(p, layer)["scale"]
+            named[spec["beta"][0]] = get(p, layer)["bias"]
+            named[spec["moments"][0]] = np.stack(
+                [stats["mean"] + biases[conv],
+                 np.sqrt(stats["var"] + BN_EPSILON)], axis=1)
+    arr = np.zeros((len(named),), dtype=[("name", object), ("value", object)])
+    for i, item in enumerate(named.items()):
+        arr[i] = item
+    net = {"params": arr}
+    if average_image is not None:
+        net["meta"] = {"normalization": {
+            "averageImage": np.asarray(average_image, np.float32)}}
+    scipy.io.savemat(path, {"net": net})
+    return v
+
+
+def thread_cpu() -> dict:
+    """CPU seconds each thread of this process has used so far, by thread
+    id: (name, seconds), from /proc (empty where there is none)."""
+    import os
+
+    out = {}
+    tick = os.sysconf("SC_CLK_TCK")
+    for task in Path("/proc/self/task").glob("*"):
+        try:
+            stat = (task / "stat").read_text()
+            name = (task / "comm").read_text().strip()
+        except OSError:  # the thread ended meanwhile
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[task.name] = (name, (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def dense_tree(root: Path, wav_paths: list, frames: int) -> list:
+    """A VoxCeleb-style tree over the smoke's wavs: ``wavs/spkNNN/trackNNN.wav``
+    (8 speakers) and ``frames/spkNNN/trackNNN/*.jpg``, ``frames`` fixture
+    JPEGs a track, cycled; links, not copies. Returns the speakers."""
+    import os
+
+    faces = sorted(FACES.glob("*.jpg"))
+    speakers = set()
+    for i, wav in enumerate(wav_paths):
+        spk, track = f"spk{i % 8:03d}", f"track{i // 8:03d}"
+        speakers.add(spk)
+        (root / "wavs" / spk).mkdir(parents=True, exist_ok=True)
+        os.symlink(Path(wav).resolve(), root / "wavs" / spk / f"{track}.wav")
+        fdir = root / "frames" / spk / track
+        fdir.mkdir(parents=True)
+        for f in range(frames):
+            os.symlink(faces[(i * frames + f) % len(faces)],
+                       fdir / f"{f:05d}.jpg")
+    return sorted(speakers)
+
+
+def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
+                  dev="cuda") -> dict:
+    """The teacher's serving path (phase 13): the port's JPEG decoder on
+    the card's host against the golden's libjpeg frames and PIL RGB (bit
+    for bit); full-width SENet50 and ResNet50 loaded from classic ``.mat``
+    releases with conv biases by ``load_pretrained_teacher`` on the card,
+    fp32 (TF32 off) and bf16 logits against the JAX golden; the dense
+    EmoVoxCeleb build over the smoke's tracks with ``frames`` fixture
+    frames each (a bounded call and its resume bitwise the one-pass
+    build, which launches no kernel of the kernel line), decode-only,
+    teacher-only and dense frames/s, the dense run's device busy share and
+    peak memory; one ``run_distillation`` epoch on the built imdb.
+    Returns that epoch's launch counts. With ``dev="cpu"`` (a rehearsal on
+    a machine without a card) the golden checks run as they are and the
+    dense build, its timings and the epoch at tiny sizes."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcncrossmodalemotions_torch.data import native_faces
+    from mcncrossmodalemotions_torch.data.images import load_frame_batch
+    from mcncrossmodalemotions_torch.data.imdb import SET_UNHEARD_VAL
+    from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
+        VisualFeatureExtractor,
+    )
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        CROP_RATIO,
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.exp.profile_extraction import busy_us
+    from mcncrossmodalemotions_torch.exp.run_distillation import (
+        DistillationConfig,
+        run_distillation,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    full = dev == "cuda"
+    stage_sizes, width = ((3, 4, 6, 3), 64) if full else ((1, 1), 8)
+    frames = DENSE_FRAMES if full else 3
+    batch = TEACHER_BATCH if full else 8
+    bounded = DENSE_BOUNDED if full else 16
+    distill_batch = 64 if full else 4
+    gold = np.load(TEACHER_GOLDEN)
+    names = list(gold["names"])
+    faces = [str(FACES / f"{n}.jpg") for n in names]
+    check(names == sorted(p.stem for p in FACES.glob("*.jpg")),
+          "the fixtures are not the golden's")
+    for key, ratio in (("crop0625", CROP_RATIO), ("crop1", 1.0)):
+        got = native_faces.decode_faces(faces, 224, ratio)[..., 0]
+        same = np.array_equal(got, gold[f"frames_{key}"])
+        print(f"  decoder: {len(faces)} fixtures at crop {ratio:.4f}, 224x224: "
+              f"{'bitwise equal to' if same else 'DIFFERENT from'} the "
+              f"committed libjpeg library's frames", flush=True)
+        check(same, f"decoded frames differ from the golden at {key}")
+    rgb_same = [np.array_equal(native_faces.decode_jpeg_rgb(f),
+                               gold[f"rgb_{n}"]) for f, n in zip(faces, names)]
+    print(f"  decoder: RGB bitwise equal to PIL's on {sum(rgb_same)}/"
+          f"{len(faces)} fixtures")
+    check(all(rgb_same), "decoded RGB differs from PIL's")
+
+    x = torch.from_numpy(gold["frames_crop0625"][gold["logit_index"]][..., None])
+    for arch, use_se in (("senet50", True), ("resnet50", False)):
+        path = root / f"{arch}-release.mat"
+        t0 = time.perf_counter()
+        teacher_release(path, use_se=use_se)
+        t1 = time.perf_counter()
+        model, state = load_pretrained_teacher(path, with_pipeline=True,
+                                               device=dev, dtype=torch.float32)
+        sync(dev)
+        t2 = time.perf_counter()
+        ref = gold[f"logits_{arch}_fp32"]
+        scale = float(np.abs(ref).max())
+        jax_bf16 = float(np.abs(gold[f"logits_{arch}_bf16"] - ref).max())
+        errs = {}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            model.teacher.dtype = dtype
+            with torch.inference_mode():
+                got = model(x.to(dev)).float().cpu().numpy()
+            check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                  f"{arch} {tag}: logits not finite {ref.shape}")
+            errs[tag] = float(np.abs(got - ref).max())
+        bf16_gate = max(2 * jax_bf16, TEACHER_BF16_RTOL * scale)
+        print(f"  {card}: {arch}: .mat ({path.stat().st_size / 2**20:.1f} MiB) "
+              f"written in {t1 - t0:.2f} s, loaded on the card in {t2 - t1:.2f} "
+              f"s; logits vs the JAX golden (max |golden| {scale:.4f}): fp32 "
+              f"max abs {errs['fp32']:.3e} (gate {TEACHER_FP32_RTOL * scale:.3e}),"
+              f" bf16 {errs['bf16']:.3e} (gate {bf16_gate:.3e}; JAX's own bf16 "
+              f"vs fp32 {jax_bf16:.3e})", flush=True)
+        check(errs["fp32"] <= TEACHER_FP32_RTOL * scale,
+              f"{arch} fp32 logits off the golden")
+        check(errs["bf16"] <= bf16_gate, f"{arch} bf16 logits off the golden")
+        del model, state
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # the dense build: SENet50 in bf16 (the default), batch 128
+    teacher_release(root / "dense.mat", stage_sizes=stage_sizes, width=width)
+    model, state = load_pretrained_teacher(root / "dense.mat",
+                                           with_pipeline=True, device=dev)
+    tree = root / "vox"
+    speakers = dense_tree(tree, list(wav_paths), frames)
+    sets = {speakers[-1]: SET_UNHEARD_VAL}
+    n_frames = len(wav_paths) * frames
+    kw = dict(set_assignment=sets, batch_size=batch, verbose=False, device=dev)
+    partial = str(root / "dense.partial.npz")
+    reset_counts(wrappers)
+    check(build_imdb(tree, model, state, partial_path=partial,
+                     max_frames=bounded, **kw) is None,
+          "the bounded dense call finished the job")
+    done = np.load(partial)["logits"].shape[0]
+    resumed = build_imdb(tree, model, state, partial_path=partial, **kw)
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = thread_cpu()
+    t0 = time.perf_counter()
+    imdb = build_imdb(tree, model, state, **kw)
+    sync(dev)
+    dense_s = time.perf_counter() - t0
+    after = thread_cpu()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    launches = read_counts(wrappers)
+    check(not any(launches.values()),
+          f"the teacher path launched kernels of the kernel line: {launches}")
+    check(len(imdb.wav_paths) == len(wav_paths)
+          and all(w.shape == (frames, 8) and np.all(np.isfinite(w))
+                  for w in imdb.wav_logits), "dense logits not finite [F, 8]")
+    same = all(np.array_equal(a, b)
+               for a, b in zip(resumed.wav_logits, imdb.wav_logits))
+    print(f"  dense: {n_frames} frames ({len(wav_paths)} tracks x {frames}) in "
+          f"batches of {batch} (the last {n_frames % batch or batch} padded): "
+          f"bounded call stopped at {done}, its resume "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} one pass",
+          flush=True)
+    check(same and done == (bounded // batch) * batch,
+          "the resumed dense build differs from one pass")
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        build_imdb(tree, model, state, **kw)
+        sync(dev)
+        prof_s = time.perf_counter() - t0
+    busy = busy_us(prof.events()) / 1e6
+
+    used = sorted(((name, sec - before.get(tid, (name, 0.0))[1])
+                   for tid, (name, sec) in after.items()), key=lambda t: -t[1])
+    print(f"  dense run's host CPU: {sum(u for _, u in used):.3f} s over "
+          f"{dense_s:.3f} s of wall in {len(after)} threads; the busiest: "
+          + ", ".join(f"{n} {u:.3f} s" for n, u in used[:6]), flush=True)
+
+    paths = [str(tree / "frames" / f) for t in imdb.dense_frames for f in t]
+    chunks = [paths[i:i + batch] for i in range(0, len(paths), batch)]
+    extractor = VisualFeatureExtractor(model, state, batch_size=batch,
+                                       crop_ratio=CROP_RATIO, device=dev)
+    t0 = time.perf_counter()
+    extractor.frame_logits(paths, verbose=False)
+    sync(dev)
+    engine_s = time.perf_counter() - t0
+    threads = {"default (8)": 8, f"os.cpu_count() ({os.cpu_count()})":
+               os.cpu_count() or 8}
+    decode = {k: [] for k in threads}
+    for label in list(threads) + list(threads)[::-1]:
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            load_frame_batch(chunk, 224, threads[label], CROP_RATIO)
+        decode[label].append(len(paths) / (time.perf_counter() - t0))
+
+    xb = torch.from_numpy(load_frame_batch(paths[:batch], 224, 8,
+                                           CROP_RATIO)).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return functional_call(model, state, (xb,))
+
+    if dev == "cuda":
+        teacher_ms = cuda_ms(forward, iters=TEACHER_TIMED)
+    else:
+        t0 = time.perf_counter()
+        forward()
+        teacher_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  {card}: decode-only frames/s (224x224, crop 1/1.6, batches of "
+          f"{batch}, in turns): " + "; ".join(
+              f"{k} threads {', '.join(f'{r:.1f}' for r in v)}"
+              for k, v in decode.items()), flush=True)
+    print(f"  {card}: teacher-only: {teacher_ms:.3f} ms a batch of {batch} "
+          f"bf16 = {batch / teacher_ms * 1e3:.1f} frames/s "
+          f"({'CUDA events' if dev == 'cuda' else 'host clock'})")
+    print(f"  {card}: dense build end to end: {n_frames} frames in "
+          f"{dense_s:.3f} s = {n_frames / dense_s:.1f} frames/s (its engine, "
+          f"frame_logits alone over the same frames: "
+          f"{n_frames / engine_s:.1f} frames/s); profiled run "
+          f"{prof_s:.3f} s, device busy {busy:.3f} s = {busy / prof_s:.2%} of "
+          f"the wall; peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    del model, state, xb
+
+    cfg = DistillationConfig(num_epochs=1, batch_size=distill_batch,
+                             mini_epoch_ratio=1.0,
+                             out_root=str(root / "dense-exps"), seed=SEED,
+                             tiny_model=not full)
+    reset_counts(wrappers)
+    _, history, _ = run_distillation(cfg, imdb, device=dev)
+    counts = read_counts(wrappers)
+    h = history[0]
+    print(f"  run_distillation on the dense imdb: epoch 1 train loss "
+          f"{h['train']['loss']:.4f} ({h['train']['num_samples']} samples), "
+          f"val loss {h['val']['loss']:.4f} ({h['val']['num_samples']} "
+          f"samples); launches {counts}", flush=True)
+    check(h["train"]["num_samples"] > 0 and np.isfinite(h["train"]["loss"])
+          and np.isfinite(h["val"]["loss"]), "no finite epoch on the dense imdb")
+    if dev == "cuda":
+        train_b = h["train"]["num_samples"] // distill_batch
+        val_b = -(-h["val"]["num_samples"] // distill_batch)
+        want = {k: 0 for k in wrappers} | {
+            "spectrogram": train_b + val_b, "max_pool_3x3s2": 2 * val_b,
+            "max_pool_3x3s2_idx": 2 * train_b, "max_pool_3x3s2_bwd": 2 * train_b}
+        check(counts == want, f"dense-imdb epoch launches {counts}, "
+              f"expected {want}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1167,7 +1519,8 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build", walls):
-        libs = ("spectrogram", "max_pool_3x3s2", "probes", "dataservice_audio")
+        libs = ("spectrogram", "max_pool_3x3s2", "probes", "dataservice_audio",
+                "dataservice_faces")
         _build.load(*libs)  # one compiler each, all started together
         for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
@@ -1175,7 +1528,7 @@ def main() -> int:
                 if any(w in line for w in ("entry function", "registers",
                                            "spill")):
                     print(f"  {lib}: {line.strip()}")
-            compiler = "g++" if lib == "dataservice_audio" else "nvcc"
+            compiler = "g++" if lib.startswith("dataservice") else "nvcc"
             print(f"  {lib}: {compiler} {_build.build_seconds[lib]:.2f} s",
                   flush=True)
 
@@ -1359,6 +1712,10 @@ def main() -> int:
                                              wrappers)
             del student, student_state
 
+        with phase("teacher", walls):
+            teacher_counts = teacher_phase(card, Path(tmp), imdb_paths(imdb),
+                                           wrappers)
+
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
 
@@ -1397,7 +1754,7 @@ def main() -> int:
             "launches": (launches[name] + train_counts[name]
                          + distill_counts[name] + reader_counts[name]
                          + release_counts[name] + analysis_counts[name]
-                         + probe_counts[name]),
+                         + teacher_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -8,7 +8,8 @@ package's host modules it keeps as its own copies (``data.audio``,
 ``utils.logging``), held equal to the originals by CPU tests.
 
 Layer map of the ported slices (student audio-feature extraction; the
-student's offline distillation training; the Mosaic lowering probes):
+student's offline distillation training; the Mosaic lowering probes; the
+student's evaluation; the teacher's serving path):
 
 - ``ops``     spectrogram frontend (plain PyTorch) and the kernels
               written by hand for Hopper in ``csrc/``: the fused
@@ -17,17 +18,22 @@ student's offline distillation training; the Mosaic lowering probes):
               (``ops/pool.py``) and the probe kernels (``ops/probes.py``),
               built at first use by ``ops/_build.py``.
 - ``models``  VGG-M student (eval and train mode) and the
-              waveform->logits pipeline.
+              waveform->logits pipeline; the ResNet50/SENet50 face
+              teachers (inference) and their face pipeline.
 - ``losses``  distillation / classification losses and metrics.
-- ``zoo``     ``build_student``, ``student_loss_fn`` and the
-              Flax-variables -> ``state_dict`` weight bridge.
+- ``zoo``     ``build_student``, ``student_loss_fn``, ``build_teacher``,
+              the released-weight loaders and the Flax-variables ->
+              ``state_dict`` weight bridge.
 - ``train``   train state and MatConvNet SGD step, checkpoints, the
               epoch engine with its threaded host feed.
 - ``data``    wav I/O, the native reader's bindings, imdb manifests,
-              synthetic tracks and the EmoVoxCeleb batcher.
+              synthetic tracks and the EmoVoxCeleb batcher; face frames
+              through the port's own JPEG decoder (``data/images.py``,
+              ``data/native_faces.py``, ``csrc/dataservice_faces.cc``).
 - ``utils``   config hashing, ETA and metrics logs.
 - ``exp``     bucketed whole-clip feature extraction and offline
-              ``run_distillation``.
+              ``run_distillation``; teacher features over face frames and
+              the dense EmoVoxCeleb imdb build.
 - ``tools``   the Mosaic lowering probes as Hopper probes.
 """
 

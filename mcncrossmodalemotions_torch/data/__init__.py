@@ -1,9 +1,9 @@
 """Host-side dataset helpers of the port.
 
-``audio``, ``native``, ``imdb`` and ``external`` are the port's own copies
-of what it uses from the JAX package's host modules of the same names
-(numpy and ctypes only; ``tests/test_torch_host_copies.py`` holds each
-equal to its original). The port imports nothing of the JAX package.
+``audio``, ``native``, ``imdb``, ``external`` and ``images`` are the port's
+own copies of what it uses from the JAX package's host modules of the same
+names (numpy and ctypes only; ``tests/test_torch_host_copies.py`` and
+``tests/test_torch_faces.py`` hold each equal to its original). The port imports nothing of the JAX package.
 Scripts that drive the port take what they need from here.
 """
 

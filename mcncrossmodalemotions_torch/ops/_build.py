@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers)
 and is compiled by ``nvcc`` for Hopper (``sm_90a``); each
-``csrc/<name>.cc`` (the host-side wav reader) is compiled by the host's
-C++ compiler (``g++``, or ``$CXX``). Either becomes a shared library under
+``csrc/<name>.cc`` (the host-side wav reader and face-frame decoder) is
+compiled by the host's C++ compiler (``g++``, or ``$CXX``). Either becomes a shared library under
 ``build/kernels/`` at the repository root, loaded with ``ctypes``. A
 build of one such file takes seconds; no ``ninja`` and no
 ``torch.utils.cpp_extension`` are involved. The library's file name
@@ -32,8 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the native/Makefile's flags without -march=native: the library may be
-# built on one host and run on another of the same architecture
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+# built on one host and run on another of the same architecture; no
+# contraction into fused multiply-adds either (where the host has them),
+# so the face decoder's float arithmetic is the fused multiply-adds it
+# writes out and nothing else
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall",
+             "-ffp-contract=off")
 CXX_LIBS = ("-lpthread",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,7 +63,8 @@ def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX", "g++"))
     if found is None:
         raise RuntimeError("no host C++ compiler (g++ or $CXX) found: the "
-                           "wav reader library is built with one")
+                           "wav reader and face decoder libraries are built "
+                           "with one")
     return found
 
 

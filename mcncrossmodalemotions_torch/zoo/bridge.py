@@ -142,3 +142,112 @@ def random_student_variables(seed: int = 0, fc6: int = 4096, fc7: int = 1024,
                 for k, v in tree.items()}
 
     return {"params": f32(params), "batch_stats": f32(stats)}
+
+
+# ---------------------------------------------------------------------------
+# The face teachers (ResNet50 / SENet50)
+# ---------------------------------------------------------------------------
+
+def teacher_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX ``ResNet``/``SENet`` variables to the port's ``state_dict``.
+
+    Both the bare ``ResNet`` tree and the one nested under ``'teacher'`` by
+    ``FaceTeacherPipeline`` (keys ``teacher.``-prefixed) map: conv kernels
+    HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``Linear`` ``[out, in]``
+    (the SE pair and the head), BatchNorm ``scale/bias`` and ``mean/var``
+    -> ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
+    The port's module names are the Flax ones, so a leaf the port lacks or
+    a key it has and the tree does not fail its strict ``load_state_dict``.
+    """
+    params, stats = variables["params"], variables.get("batch_stats", {})
+
+    def tensor(leaf) -> torch.Tensor:
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to("cpu", torch.float32, copy=True)
+        return torch.from_numpy(np.array(leaf, np.float32))
+
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        module, name = path.rsplit("/", 1)
+        key = module.replace("/", ".")
+        t = tensor(leaf)
+        if name == "kernel":
+            state[f"{key}.weight"] = (t.permute(3, 2, 0, 1) if t.ndim == 4
+                                      else t.t()).contiguous()
+        elif name in ("scale", "bias"):
+            state[f"{key}.{'weight' if name == 'scale' else 'bias'}"] = t
+        else:
+            raise KeyError(f"teacher variables have an unknown leaf {path!r}")
+    for path, leaf in _flatten(stats).items():
+        module, name = path.rsplit("/", 1)
+        key = module.replace("/", ".")
+        if name not in ("mean", "var"):
+            raise KeyError(f"teacher batch_stats have an unknown leaf {path!r}")
+        state[f"{key}.running_{name}"] = tensor(leaf)
+        state[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return state
+
+
+def random_teacher_variables(seed: int = 0, use_se: bool = True,
+                             stage_sizes=(3, 4, 6, 3), width: int = 64,
+                             num_outputs: int = 8) -> dict:
+    """Seeded ResNet/SENet weights in the Flax layout (bare ``ResNet``
+    tree), numpy only (``np.random.RandomState(seed)``).
+
+    He-normal convs (conv1 scaled by 1/100 for the mean-subtracted 0-255
+    input), BatchNorm scales, biases, running means and variances all
+    randomised, the last BatchNorm of each block scaled down so the residual
+    sum stays bounded over 16 blocks, and a head that gives O(1) logits that
+    differ across frames and classes: a golden on near-zero logits would
+    prove nothing.
+    """
+    rng = np.random.RandomState(seed)
+    params: dict = {}
+    stats: dict = {}
+
+    def conv(shape, gain=1.0):
+        fan_in = shape[0] * shape[1] * shape[2]
+        return {"kernel": rng.normal(0.0, gain * np.sqrt(2.0 / fan_in), shape)}
+
+    def bn(feats, lo=0.5, hi=1.5):
+        return ({"scale": rng.uniform(lo, hi, feats),
+                 "bias": rng.normal(0.0, 0.1, feats)},
+                {"mean": rng.normal(0.0, 0.1, feats),
+                 "var": rng.uniform(0.5, 2.0, feats)})
+
+    def dense(fan_in, fan_out, gain=np.sqrt(2.0)):
+        return {"kernel": rng.normal(0.0, gain / np.sqrt(fan_in),
+                                     (fan_in, fan_out)),
+                "bias": rng.normal(0.0, 0.1, fan_out)}
+
+    params["conv1"] = conv((7, 7, 3, width), gain=0.01)
+    params["bn1"], stats["bn1"] = bn(width)
+    in_features = width
+    for s, num_blocks in enumerate(stage_sizes):
+        for b in range(num_blocks):
+            feats = width * 2 ** s
+            out = feats * 4
+            p: dict = {}
+            st: dict = {}
+            p["conv1"] = conv((1, 1, in_features, feats))
+            p["bn1"], st["bn1"] = bn(feats)
+            p["conv2"] = conv((3, 3, feats, feats))
+            p["bn2"], st["bn2"] = bn(feats)
+            p["conv3"] = conv((1, 1, feats, out))
+            p["bn3"], st["bn3"] = bn(out, 0.1, 0.3)
+            if use_se:
+                p["se"] = {"fc1": dense(out, out // 16),
+                           "fc2": dense(out // 16, out, gain=1.0)}
+            if in_features != out or (s > 0 and b == 0):
+                p["downsample"] = conv((1, 1, in_features, out))
+                p["bn_down"], st["bn_down"] = bn(out)
+            params[f"layer{s + 1}_{b}"] = p
+            stats[f"layer{s + 1}_{b}"] = st
+            in_features = out
+    params["prediction"] = dense(in_features, num_outputs, gain=1.0)
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.astype(np.float32)
+                for k, v in tree.items()}
+
+    return {"params": f32(params), "batch_stats": f32(stats)}

@@ -1,7 +1,11 @@
-"""Student zoo, the student half of ``mcncrossmodalemotions_tpu/zoo/registry.py``:
+"""The port's zoo (``mcncrossmodalemotions_tpu/zoo/registry.py``): the student's
 ``build_student`` (emoVoxZoo.m:25-31, scratch init :202-243),
 ``load_pretrained_student`` (the released weights, emoVoxZoo.m:25-44) and
-``student_loss_fn`` (emoVoxZoo.m:137-169).
+``student_loss_fn`` (emoVoxZoo.m:137-169); the ResNet/SENet teachers'
+``build_teacher`` (ferPlusZoo.m:37-92), ``load_pretrained_teacher``
+(ferPlusZoo.m:103-114), ``release_mean_rgb`` and
+``fold_teacher_conv_biases``. The classic VGG face teachers are not ported
+yet (ROADMAP.md queue 1).
 
 Released ``.mat`` files are read by the port's own copy of the MatConvNet
 importer (``zoo/matconvnet.py``) and reach the model through the weight
@@ -27,12 +31,27 @@ from mcncrossmodalemotions_torch.losses import (
     softmax_ce,
 )
 from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
+from mcncrossmodalemotions_torch.models.resnet import ResNet, ResNet50, SENet50
+from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+    FaceTeacherPipeline,
+)
 from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, SpecConfig
 from mcncrossmodalemotions_torch.utils.device import resolve_device
-from mcncrossmodalemotions_torch.zoo.bridge import student_state_dict_from_flax
+from mcncrossmodalemotions_torch.zoo.bridge import (
+    student_state_dict_from_flax,
+    teacher_state_dict_from_flax,
+)
 
 STUDENT_MODELS = ("emovoxceleb-student",)
+TEACHER_MODELS = ("resnet50-ferplus", "senet50-ferplus")
+# VGGFace2-pretrained bases (ferPlusZoo.m:37-42): the same architectures
+VGGFACE2_MODELS = ("resnet50_ft-dag", "resnet50_scratch-dag",
+                   "senet50_ft-dag", "senet50_scratch-dag")
+# classic pre-ResNet face models (ferPlusZoo.m:44-59): not ported yet
+CLASSIC_MODELS = ("vgg_face", "vgg-vd-face", "vgg-vd-face-fer",
+                  "vgg-vd-face-sfew", "vgg-vd-face-sfew-dag",
+                  "vgg-m-face-bn", "vgg-m-face-bn-fer")
 
 
 def build_student(name: str = "emovoxceleb-student", *,
@@ -127,6 +146,125 @@ def load_pretrained_student(mat_path: str | Path, *,
     state = student_state_dict_from_flax(variables)
     model.load_state_dict(state, strict=True)
     return model.to(device), {k: v.to(device) for k, v in state.items()}
+
+
+def build_teacher(name: str = "senet50-ferplus", *,
+                  num_outputs: int = 8,
+                  dropout: float = 0.0,
+                  tiny: bool = False) -> ResNet:
+    """Teacher zoo (ferPlusZoo.m:37-92 registry, 8-way CNTK head): the
+    ResNet/SENet names build ``models.resnet.ResNet``; ``tiny`` gives the
+    JAX zoo's test variant (``stage_sizes=(1, 1)``, ``width=8``). ``dropout``
+    is the single pooled-embedding dropout (inactive at inference). The
+    classic VGG face names raise ``NotImplementedError``."""
+    if name in CLASSIC_MODELS:
+        raise NotImplementedError(
+            f"{name!r} is a classic VGG face teacher (models/vggface.py of the "
+            "JAX package), not ported yet; see ROADMAP.md queue 1")
+    known = TEACHER_MODELS + VGGFACE2_MODELS + ("resnet50-face-sfew",)
+    if name not in known:
+        raise KeyError(f"unknown teacher {name!r}; known: "
+                       f"{known + CLASSIC_MODELS}")
+    use_se = name.startswith("senet")
+    kw = dict(num_outputs=num_outputs, dropout_rate=dropout)
+    if tiny:
+        return ResNet(stage_sizes=(1, 1), width=8, use_se=use_se, **kw)
+    return SENet50(**kw) if use_se else ResNet50(**kw)
+
+
+def fold_teacher_conv_biases(arch: dict, variables: dict) -> dict:
+    """Fold any released conv bias into the following BatchNorm's running
+    mean, in place, and return ``variables``: the ResNet convs are
+    bias-free, and mean' = mean - bias keeps (z - mean) / sigma identical
+    (the JAX ``_fold_teacher_conv_biases``)."""
+
+    def fold(node_params, node_stats, conv_name, bn_name):
+        conv = node_params.get(conv_name)
+        if conv is None:
+            return
+        bias = conv.pop("bias", None)
+        if bias is not None and bn_name in node_stats:
+            stats = node_stats[bn_name]
+            stats["mean"] = np.asarray(stats["mean"]) - np.asarray(bias)
+
+    fold(variables["params"], variables["batch_stats"], "conv1", "bn1")
+    for s, num_blocks in enumerate(arch["stage_sizes"], start=1):
+        for b in range(num_blocks):
+            block = f"layer{s}_{b}"
+            bp = variables["params"].get(block, {})
+            bs = variables["batch_stats"].get(block, {})
+            for conv_name, bn_name in (("conv1", "bn1"), ("conv2", "bn2"),
+                                       ("conv3", "bn3"),
+                                       ("downsample", "bn_down")):
+                fold(bp, bs, conv_name, bn_name)
+    return variables
+
+
+def release_mean_rgb(mat_path: str | Path) -> Optional[Tuple[float, ...]]:
+    """Per-channel mean from a release's ``normalization.averageImage``, an
+    RGB 3-tuple, or None without one. A full HxWx3 average image (the
+    classic releases) is reduced to its per-channel means; the VGGFace2
+    dags store a 3-vector."""
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        load_mat_meta,
+        mat_cache_scope,
+    )
+
+    with mat_cache_scope():
+        avg = load_mat_meta(mat_path).get("averageImage")
+    if avg is None:
+        return None
+    avg = np.asarray(avg, np.float64)
+    if avg.size <= 3:
+        return tuple(float(v) for v in avg.reshape(-1)[:3])
+    return tuple(float(v) for v in avg.reshape(-1, avg.shape[-1])
+                 .mean(axis=0)[:3])
+
+
+def load_pretrained_teacher(mat_path: str | Path, *,
+                            with_pipeline: bool = False,
+                            input_size: int = 224,
+                            device: torch.device | str = "cuda",
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """Load a released MatConvNet teacher ``.mat`` (classic or ``-v7.3``)
+    into the ResNet/SENet.
+
+    The pretrained path of ferPlusZoo (ferPlusZoo.m:103-114). The
+    architecture (stage sizes, SE blocks, width, head) is inferred from the
+    parameter names and shapes; conv biases are folded into the BN means.
+    Returns ``(model, state_dict)``, the model on ``device`` (the card
+    unless the caller asks for the CPU) in eval mode and the ``state_dict``
+    a separate copy there. With ``with_pipeline`` the model is a
+    ``FaceTeacherPipeline`` whose ``mean_rgb`` is the release's
+    ``normalization.averageImage`` where it has one, and the keys carry
+    its ``teacher.`` prefix. ``mat_path`` is a path; nothing is downloaded.
+    """
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        import_teacher,
+        mat_cache_scope,
+    )
+
+    device = resolve_device(device, "load_pretrained_teacher")
+    if not Path(mat_path).is_file():
+        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
+                                "takes a path and downloads nothing)")
+    with mat_cache_scope():  # params and meta from one parse
+        arch, variables = import_teacher(mat_path)
+        fold_teacher_conv_biases(arch, variables)
+        model: nn.Module = ResNet(stage_sizes=arch["stage_sizes"],
+                                  use_se=arch["use_se"], width=arch["width"],
+                                  num_outputs=arch["num_outputs"], dtype=dtype)
+        if with_pipeline:
+            mean = release_mean_rgb(mat_path)
+            kw = {"mean_rgb": mean} if mean is not None else {}
+            model = FaceTeacherPipeline(model, input_size=input_size, **kw)
+            variables = {"params": {"teacher": variables["params"]},
+                         "batch_stats": {"teacher": variables["batch_stats"]}}
+    state = teacher_state_dict_from_flax(variables)
+    model.load_state_dict(state, strict=True)
+    return (model.to(device).eval(),
+            {k: v.to(device) for k, v in state.items()})
 
 
 def student_loss_fn(loss_type: str = "hot-cross-ent", *,

@@ -3,13 +3,18 @@
 - The pool shapes chip_smoke holds K2 at are the inputs the student hands
   pool1 and pool2 at each of the smoke's buckets.
 - Without a CUDA device, in the repo or alone in a directory, chip_smoke
-  exits non-zero and prints no result.
+  exits non-zero and prints no result; so does ``exp/profile_dense.py``.
 - The profiler's device busy time is the union of the device intervals.
 - ``data.synthetic_track_imdb``'s defaults (the smoke's traffic) span the
   100-, 400- and 1000-frame buckets.
 - The library call timed beside K1 (``torch.stft``) frames K1's samples
   and gives the plain frontend's magnitudes; the bound and the probes'
   byte counts are what the shapes say.
+- The teacher release chip_smoke writes (conv biases, BN means moved by
+  them, the VGGFace2 mean) loads to what its seeded weights compute, its
+  dense tree gives every smoke track its fixture frames, and its teacher
+  phase rehearses on the CPU: the golden gates at full width, the dense
+  build, its resume and an epoch at tiny sizes.
 """
 
 import shutil
@@ -138,3 +143,72 @@ def test_probe_work_counts_the_probes_bytes():
     assert work["P4b"] == (2 * 16 * 99 * 96 + 4 * 197 + 4 * 16 * 197 * 96, 0)
     assert work["P12"] == (4 * (2 * 16 * 197 * 96 + 2 * 16 * 100 * 96),
                            5 * 16 * 197 * 96)
+
+
+@pytest.mark.parametrize("use_se", [False, True])
+def test_teacher_release_loads_to_its_seeded_weights(tmp_path, use_se):
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.models.resnet import ResNet
+    from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+        VGGFACE2_MEAN_RGB,
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        load_pretrained_teacher,
+        teacher_state_dict_from_flax,
+    )
+
+    v = chip_smoke.teacher_release(tmp_path / "t.mat", use_se=use_se,
+                                   stage_sizes=(2, 1), width=8)
+    model, state = load_pretrained_teacher(tmp_path / "t.mat",
+                                           with_pipeline=True, input_size=48,
+                                           device="cpu", dtype=torch.float32)
+    np.testing.assert_allclose(model.mean_rgb, VGGFACE2_MEAN_RGB, rtol=1e-6)
+    plain = FaceTeacherPipeline(ResNet(use_se=use_se, stage_sizes=(2, 1),
+                                       width=8, dtype=torch.float32),
+                                input_size=48, mean_rgb=model.mean_rgb)
+    plain.load_state_dict(teacher_state_dict_from_flax(
+        {"params": {"teacher": v["params"]},
+         "batch_stats": {"teacher": v["batch_stats"]}}))
+    x = torch.randint(0, 256, (3, 40, 40, 1), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got, ref = model(x), plain.eval()(x)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_dense_tree_gives_every_track_its_frames(tmp_path):
+    imdb = synthetic_track_imdb(tmp_path / "tracks", durations=(1.0,),
+                                tracks_per_class=3)
+    wavs = chip_smoke.imdb_paths(imdb)
+    speakers = chip_smoke.dense_tree(tmp_path / "vox", wavs, 5)
+    assert speakers == [f"spk{i:03d}" for i in range(8)]
+    frames = sorted((tmp_path / "vox" / "frames").rglob("*.jpg"))
+    assert len(frames) == 5 * len(wavs)
+    assert len(list((tmp_path / "vox" / "wavs").rglob("*.wav"))) == len(wavs)
+    assert {f.resolve().parent for f in frames} == {chip_smoke.FACES.resolve()}
+
+
+def test_teacher_phase_rehearses_on_the_cpu(tmp_path):
+    from mcncrossmodalemotions_torch.ops import pool
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+
+    imdb = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5, 4.1),
+                                tracks_per_class=2)
+    wrappers = {"spectrogram": spectrogram_cuda,
+                "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda}
+    counts = chip_smoke.teacher_phase("cpu", tmp_path,
+                                      chip_smoke.imdb_paths(imdb), wrappers,
+                                      dev="cpu")
+    assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}  # CPU tensors
+
+
+def test_profile_dense_fails_without_a_cuda_device(monkeypatch, capsys):
+    from mcncrossmodalemotions_torch.exp import profile_dense
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_dense.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err

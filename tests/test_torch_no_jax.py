@@ -7,12 +7,15 @@ runs the tiny extraction slice, the tiny pipeline, one tiny train step, two
 tiny ``run_distillation`` epochs and both probe tools on the CPU, loads a
 classic-``.mat`` release, reads a JAX experiment directory (written here
 by the JAX package), runs the student statistics and the external
-benchmarks without figures, and then inspects ``sys.modules``: no jax,
-flax, optax or JAX package, and none of ``h5py``, ``matplotlib`` and
-``msgpack``, which the port imports only to read ``-v7.3`` files and to
-draw. The static check parses the port's sources and ``chip_smoke.py``
-and refuses any import statement that names those packages (comments and
-docstrings may name them).
+benchmarks without figures, decodes face frames through the port's own
+JPEG library, loads a classic-``.mat`` teacher and runs
+``compute_visual_feats`` and ``build_imdb`` with it, and then inspects
+``sys.modules``: no jax, flax, optax or JAX package, and none of
+``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
+only to read ``-v7.3`` files, to draw, and to read frames where its own
+decoder is switched off. The static checks parse the port's sources and
+``chip_smoke.py``: no import statement names the JAX packages, and none
+at module level names ``PIL`` (comments and docstrings may name them).
 """
 
 import ast
@@ -25,12 +28,13 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mcncrossmodalemotions_tpu")
-LAZY = ("h5py", "matplotlib", "msgpack")  # imported only where they are used
+LAZY = ("h5py", "matplotlib", "msgpack", "PIL")  # imported where used only
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
     from pathlib import Path
 
+    import numpy as np
     import torch
 
     torch.set_num_threads(2)  # beside other test processes, a full pool spins
@@ -126,6 +130,42 @@ SCRIPT = textwrap.dedent("""
         sample_audio(imdb, Path(d) / "samples", per_emotion=1,
                      make_figures=False)
 
+    from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
+    from mcncrossmodalemotions_torch.data.images import load_frame_batch
+    from mcncrossmodalemotions_torch.data.imdb import TrackImdb
+    from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
+        compute_visual_feats)
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb)
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    faces = sorted(chip_smoke.FACES.glob("*.jpg"))
+    frames = load_frame_batch([str(f) for f in faces], 64)
+    assert frames.shape == (len(faces), 64, 64, 1)
+    with tempfile.TemporaryDirectory() as d:
+        chip_smoke.teacher_release(Path(d) / "t.mat", stage_sizes=(1, 1),
+                                   width=8)
+        model, state = load_pretrained_teacher(
+            Path(d) / "t.mat", with_pipeline=True, input_size=64,
+            device="cpu")
+        tracks = TrackImdb(track_ids=np.arange(2), labels=np.zeros(2),
+                           set_id=np.ones(2),
+                           frame_paths=[[f.name for f in faces[:5]],
+                                        [f.name for f in faces[5:]]])
+        feats = compute_visual_feats(tracks, model, state, batch_size=4,
+                                     frame_root=str(chip_smoke.FACES),
+                                     input_size=64, verbose=False,
+                                     device="cpu")
+        assert [f.shape for f in feats] == [(5, 8), (len(faces) - 5, 8)]
+        wavs = build_synthetic_imdb(Path(d) / "w", num_speakers=2,
+                                    tracks_per_speaker=2,
+                                    duration_range=(1.1, 1.2))
+        chip_smoke.dense_tree(Path(d) / "vox", [
+            str(Path(wavs.wav_dir) / p) for p in wavs.wav_paths], 3)
+        built = build_imdb(Path(d) / "vox", model, state, batch_size=4,
+                           verbose=False, device="cpu")
+        assert [w.shape for w in built.wav_logits] == [(3, 8)] * 4
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN + LAZY)
     assert not leaked, leaked
@@ -182,3 +222,24 @@ def _imported_modules(path: Path):
 def test_no_import_statement_names_jax_or_the_jax_package(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _module_level_imports(path: Path):
+    """Modules imported by the statements at a module's top level (not
+    inside a function or a class)."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                ast.ClassDef)):
+                break
+            if isinstance(sub, ast.Import):
+                yield from (a.name for a in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                yield sub.module
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_level_import_of_pil(path):
+    bad = [m for m in _module_level_imports(path) if m.split(".")[0] == "PIL"]
+    assert not bad, f"{path.name} imports {bad} at module level"
