@@ -104,10 +104,15 @@ comparison applies. Phases:
     batch 128) over the smoke's 126 tracks with 16 fixture frames each
     (2,016 frames, the last batch padded): a 1,024-frame bounded call and
     its resume bitwise equal to one pass, which launches none of the
-    kernel line's kernels; decode-only frames/s at 8 threads and at
-    ``os.cpu_count()`` in turns, teacher-only frames/s (CUDA events, batch
-    128, bf16), dense frames/s end to end, the dense run's device busy
-    share (torch.profiler) and peak memory; one ``run_distillation`` epoch
+    kernel line's kernels; 64 of the built logits (the padded batch's
+    among them) within max(2 x bf16's own error, 1e-2 x max|logit|) of the
+    same teacher's fp32 forward (TF32 off) on those frames, decoded apart;
+    decode-only frames/s at 8 threads and at ``os.cpu_count()`` in turns
+    (a call decodes on at most its threads), teacher-only frames/s (batch
+    128, bf16, CUDA events around each forward queued whole behind a
+    device sleep, so the card and not the host sets the pace), dense
+    frames/s end to end, the dense run's device busy share, device time
+    by op (torch.profiler) and peak memory; one ``run_distillation`` epoch
     (full width, batch 64) on the built imdb, with its exact launches.
 14. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
@@ -184,6 +189,10 @@ TEACHER_BF16_RTOL = 1e-2      # the bf16 gate's floor; else 2 x JAX's own
 DENSE_FRAMES = 16             # frames a track in the dense build: 2,016
 DENSE_BOUNDED = 1024          # the bounded first call of the resume check
 TEACHER_TIMED = 10            # teacher-only batches timed
+TEACHER_SLEEP_CYCLES = 4 * QUEUE_CYCLES  # ~200 ms of device sleep ahead of
+                              # each timed forward, which takes 9-21 ms of
+                              # host time to enqueue
+DENSE_SAMPLE = 64             # dense frames held against an fp32 forward
 
 
 class SmokeFailure(RuntimeError):
@@ -224,6 +233,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def paced_ms(fn, iters: int, cycles: int = TEACHER_SLEEP_CYCLES) -> tuple:
+    """Device milliseconds of ``iters`` calls timed one at a time, CUDA
+    events around each call queued whole behind a device-side sleep: a
+    call that costs the host longer to issue than the card to run (an
+    eager network's forward) is timed at the card's pace, not the host's.
+    Returns (the times, the host's milliseconds to issue each call, how
+    many calls were issued whole before the sleep ended, that is, timed at
+    the card's pace)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times, issue, paced = [], [], 0
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        paced += not start.query()  # the card still asleep
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, issue, paced
 
 
 def turns_ms(*fns, iters: int = 20) -> list:
@@ -1246,9 +1283,12 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     fp32 (TF32 off) and bf16 logits against the JAX golden; the dense
     EmoVoxCeleb build over the smoke's tracks with ``frames`` fixture
     frames each (a bounded call and its resume bitwise the one-pass
-    build, which launches no kernel of the kernel line), decode-only,
-    teacher-only and dense frames/s, the dense run's device busy share and
-    peak memory; one ``run_distillation`` epoch on the built imdb.
+    build, which launches no kernel of the kernel line; a sample of its
+    logits against the teacher's own fp32 forward on those frames),
+    decode-only frames/s at 8 and ``os.cpu_count()`` threads, teacher-only
+    frames/s at the card's pace, dense frames/s, the dense run's device
+    busy share, device time by op and peak memory; one
+    ``run_distillation`` epoch on the built imdb.
     Returns that epoch's launch counts. With ``dev="cpu"`` (a rehearsal on
     a machine without a card) the golden checks run as they are and the
     dense build, its timings and the epoch at tiny sizes."""
@@ -1269,7 +1309,10 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
         CROP_RATIO,
         build_imdb,
     )
-    from mcncrossmodalemotions_torch.exp.profile_extraction import busy_us
+    from mcncrossmodalemotions_torch.exp.profile_extraction import (
+        DEVICE_TYPES,
+        busy_us,
+    )
     from mcncrossmodalemotions_torch.exp.run_distillation import (
         DistillationConfig,
         run_distillation,
@@ -1307,7 +1350,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
         teacher_release(path, use_se=use_se)
         t1 = time.perf_counter()
         model, state = load_pretrained_teacher(path, with_pipeline=True,
-                                               device=dev, dtype=torch.float32)
+                                               device=dev)
         sync(dev)
         t2 = time.perf_counter()
         ref = gold[f"logits_{arch}_fp32"]
@@ -1377,6 +1420,36 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     check(same and done == (bounded // batch) * batch,
           "the resumed dense build differs from one pass")
 
+    # the built imdb against the same teacher's own forward on a sample of
+    # its frames (the first, the padded last batch's, the last), decoded
+    # apart and run at another batch size, bf16 and fp32 (TF32 off): the
+    # build within twice bf16's own error on these frames of the fp32
+    # forward, and at least 1e-2 x its max |logit|
+    rows = [(t, f) for t, fr in enumerate(imdb.dense_frames)
+            for f in range(len(fr))]
+    pick = np.unique(np.linspace(0, n_frames - 1, min(DENSE_SAMPLE, n_frames))
+                     .round().astype(int))
+    sample = [rows[i] for i in pick]
+    built = np.stack([imdb.wav_logits[t][f] for t, f in sample])
+    xs = torch.from_numpy(load_frame_batch(
+        [str(tree / "frames" / imdb.dense_frames[t][f]) for t, f in sample],
+        224, 8, CROP_RATIO)).to(dev)
+    own = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model.teacher.dtype = dtype  # ends at bf16, the build's
+        with torch.inference_mode():
+            own[tag] = functional_call(model, state, (xs,)).float().cpu().numpy()
+    scale = float(np.abs(own["fp32"]).max())
+    own_err = float(np.abs(own["bf16"] - own["fp32"]).max())
+    err = float(np.abs(built - own["fp32"]).max())
+    gate = max(2 * own_err, TEACHER_BF16_RTOL * scale)
+    print(f"  dense: {len(sample)} of its frames against the teacher's own "
+          f"forward at batch {len(sample)}: max abs {err:.3e} of fp32 (max "
+          f"|logit| {scale:.4f}, spread over frames "
+          f"{float(own['fp32'].std(axis=0).mean()):.4f}; gate {gate:.3e}), "
+          f"the forward's own bf16 vs fp32 {own_err:.3e}", flush=True)
+    check(err <= gate, "the dense build's logits are off the teacher's own")
+
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev == "cuda" else [])
     with profile(activities=activities) as prof:
@@ -1385,6 +1458,9 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
         sync(dev)
         prof_s = time.perf_counter() - t0
     busy = busy_us(prof.events()) / 1e6
+    by_op = sorted((e for e in prof.key_averages()
+                    if e.device_type in DEVICE_TYPES),
+                   key=lambda e: -e.self_device_time_total)
 
     used = sorted(((name, sec - before.get(tid, (name, 0.0))[1])
                    for tid, (name, sec) in after.items()), key=lambda t: -t[1])
@@ -1417,24 +1493,36 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
             return functional_call(model, state, (xb,))
 
     if dev == "cuda":
-        teacher_ms = cuda_ms(forward, iters=TEACHER_TIMED)
+        times, issue, paced = paced_ms(forward, TEACHER_TIMED)
+        teacher_ms = sum(times) / len(times)
+        how = (f"CUDA events around each forward queued whole behind a device "
+               f"sleep, {paced} of {len(times)} card-paced; min "
+               f"{min(times):.3f}, max {max(times):.3f} ms; the host issues "
+               f"one in {min(issue):.3f}-{max(issue):.3f} ms")
     else:
         t0 = time.perf_counter()
         forward()
         teacher_ms = (time.perf_counter() - t0) * 1e3
+        how = "host clock"
     print(f"  {card}: decode-only frames/s (224x224, crop 1/1.6, batches of "
           f"{batch}, in turns): " + "; ".join(
               f"{k} threads {', '.join(f'{r:.1f}' for r in v)}"
               for k, v in decode.items()), flush=True)
     print(f"  {card}: teacher-only: {teacher_ms:.3f} ms a batch of {batch} "
-          f"bf16 = {batch / teacher_ms * 1e3:.1f} frames/s "
-          f"({'CUDA events' if dev == 'cuda' else 'host clock'})")
+          f"bf16 = {batch / teacher_ms * 1e3:.1f} frames/s ({how})")
     print(f"  {card}: dense build end to end: {n_frames} frames in "
           f"{dense_s:.3f} s = {n_frames / dense_s:.1f} frames/s (its engine, "
           f"frame_logits alone over the same frames: "
           f"{n_frames / engine_s:.1f} frames/s); profiled run "
           f"{prof_s:.3f} s, device busy {busy:.3f} s = {busy / prof_s:.2%} of "
-          f"the wall; peak device memory {peak / 2**30:.3f} GiB", flush=True)
+          f"the wall ({busy / -(-n_frames // batch) * 1e3:.3f} ms a batch); "
+          f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    summed = sum(e.self_device_time_total for e in by_op) / 1e6
+    print(f"  profiled dense run's device time by op ({summed:.3f} s summed"
+          f"{', the top 10' if by_op else '; no device events'}):", flush=True)
+    for e in by_op[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}", flush=True)
     del model, state, xb
 
     cfg = DistillationConfig(num_epochs=1, batch_size=distill_batch,

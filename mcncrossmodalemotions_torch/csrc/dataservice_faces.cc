@@ -110,25 +110,33 @@ ThreadPool* GlobalPool(int num_threads) {
   return pool;
 }
 
-// Run `count` tasks on the pool and wait for completion. Returns the
-// number of tasks that threw (e.g. bad_alloc on a corrupt input's size
-// field): an exception escaping a pool thread would std::terminate the
-// whole process, violating the corrupt-input contract, so it is caught
-// here and surfaced as a failure count for the caller to add in.
+// Run `count` tasks on at most `num_threads` workers of the pool (8 where
+// num_threads <= 0) and wait for completion: min(count, num_threads) pool
+// tasks each take the next index until none is left, so a call's
+// parallelism is its own num_threads whatever size an earlier call grew
+// the shared pool to. Returns the number of tasks that threw (e.g.
+// bad_alloc on a corrupt input's size field): an exception escaping a pool
+// thread would std::terminate the whole process, violating the
+// corrupt-input contract, so it is caught here and surfaced as a failure
+// count for the caller to add in.
 int ParallelFor(int count, int num_threads,
                 const std::function<void(int)>& body) {
   if (count <= 0) return 0;
   ThreadPool* pool = GlobalPool(num_threads);
-  std::atomic<int> remaining(count);
+  const int workers = std::min(count, num_threads > 0 ? num_threads : 8);
+  std::atomic<int> next(0);
+  std::atomic<int> remaining(workers);
   std::atomic<int> threw(0);
   std::mutex mu;
   std::condition_variable cv;
-  for (int i = 0; i < count; ++i) {
-    pool->Submit([&, i] {
-      try {
-        body(i);
-      } catch (...) {
-        threw.fetch_add(1);
+  for (int w = 0; w < workers; ++w) {
+    pool->Submit([&] {
+      for (int i = next.fetch_add(1); i < count; i = next.fetch_add(1)) {
+        try {
+          body(i);
+        } catch (...) {
+          threw.fetch_add(1);
+        }
       }
       if (remaining.fetch_sub(1) == 1) {
         std::lock_guard<std::mutex> lock(mu);

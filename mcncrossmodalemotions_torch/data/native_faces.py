@@ -76,8 +76,10 @@ def decode_faces(paths: Sequence[str], out_size: int = 224,
                  crop_ratio: float = 1.0 / 1.6,
                  num_threads: int = 8) -> np.ndarray:
     """Threaded JPEG decode + centered square crop of side ``crop_ratio *
-    min(h, w)`` + align-corners resize + gray -> [count, S, S, 1] uint8.
-    Raises ``IOError`` naming the count of files that failed."""
+    min(h, w)`` + align-corners resize + gray -> [count, S, S, 1] uint8,
+    on at most ``num_threads`` threads of the library's pool (which an
+    earlier call may have grown larger). Raises ``IOError`` naming the
+    count of files that failed."""
     if out_size < 2:  # the align-corners resize divides by out_size - 1
         raise ValueError(f"out_size must be at least 2, not {out_size}")
     lib = _need()

@@ -40,6 +40,19 @@ class FaceTeacherPipeline(nn.Module):
         self.teacher = teacher
         self.input_size = input_size
         self.mean_rgb = tuple(float(v) for v in mean_rgb)
+        self._means: dict = {}  # (device, mean_rgb) -> the mean there
+
+    def mean_on(self, device: torch.device) -> torch.Tensor:
+        """``mean_rgb`` as a float32 tensor on ``device``, made once: a copy
+        from pageable host memory at every forward would make the host wait
+        there for the card to finish all it was given."""
+        key = (torch.device(device), self.mean_rgb)
+        if key not in self._means:
+            with torch.inference_mode(False):  # usable outside it too
+                self._means[key] = torch.tensor(self.mean_rgb,
+                                                dtype=torch.float32,
+                                                device=device)
+        return self._means[key]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, H, W, 1] uint8 (or float) grayscale -> logits [B, C] fp32."""
@@ -48,7 +61,5 @@ class FaceTeacherPipeline(nn.Module):
         x = x.float()
         if x.shape[1] != self.input_size or x.shape[2] != self.input_size:
             x = resize_separable(x, self.input_size, self.input_size)
-        mean = torch.tensor(self.mean_rgb, dtype=torch.float32,
-                            device=x.device)
-        x = x.expand(-1, -1, -1, 3) - mean  # gray -> 3 channels
+        x = x.expand(-1, -1, -1, 3) - self.mean_on(x.device)  # gray -> 3 channels
         return self.teacher(x)

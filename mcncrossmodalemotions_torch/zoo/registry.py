@@ -224,8 +224,7 @@ def release_mean_rgb(mat_path: str | Path) -> Optional[Tuple[float, ...]]:
 def load_pretrained_teacher(mat_path: str | Path, *,
                             with_pipeline: bool = False,
                             input_size: int = 224,
-                            device: torch.device | str = "cuda",
-                            dtype: torch.dtype = torch.bfloat16
+                            device: torch.device | str = "cuda"
                             ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """Load a released MatConvNet teacher ``.mat`` (classic or ``-v7.3``)
     into the ResNet/SENet.
@@ -238,7 +237,9 @@ def load_pretrained_teacher(mat_path: str | Path, *,
     a separate copy there. With ``with_pipeline`` the model is a
     ``FaceTeacherPipeline`` whose ``mean_rgb`` is the release's
     ``normalization.averageImage`` where it has one, and the keys carry
-    its ``teacher.`` prefix. ``mat_path`` is a path; nothing is downloaded.
+    its ``teacher.`` prefix. The ResNet computes in bf16; an fp32 caller
+    sets its ``dtype`` (the pipeline's ``teacher.dtype``). ``mat_path`` is
+    a path; nothing is downloaded.
     """
     from mcncrossmodalemotions_torch.zoo.matconvnet import (
         import_teacher,
@@ -254,7 +255,7 @@ def load_pretrained_teacher(mat_path: str | Path, *,
         fold_teacher_conv_biases(arch, variables)
         model: nn.Module = ResNet(stage_sizes=arch["stage_sizes"],
                                   use_se=arch["use_se"], width=arch["width"],
-                                  num_outputs=arch["num_outputs"], dtype=dtype)
+                                  num_outputs=arch["num_outputs"])
         if with_pipeline:
             mean = release_mean_rgb(mat_path)
             kw = {"mean_rgb": mean} if mean is not None else {}

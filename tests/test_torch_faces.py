@@ -115,6 +115,38 @@ def test_single_and_batched_entry_points_and_threads_agree():
         np.testing.assert_array_equal(one, base[i, ..., 0])
 
 
+def _pool_cpu_ticks() -> dict:
+    """CPU clock ticks used so far by each of this process's pool threads
+    (named ``ds-faces``), by thread id."""
+    from pathlib import Path
+
+    out = {}
+    for task in Path("/proc/self/task").glob("*"):
+        try:
+            if (task / "comm").read_text().strip() != "ds-faces":
+                continue
+            stat = (task / "stat").read_text()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[task.name] = int(fields[11]) + int(fields[12])
+    return out
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3])
+def test_a_call_uses_no_more_threads_than_it_asks_for(threads):
+    """The pool is shared and only grows; a call at fewer threads than its
+    size still decodes on at most that many of them."""
+    paths = [_path("f420_224x224")] * 480
+    native_faces.decode_faces(paths[:64], 224, num_threads=8)  # pool >= 8
+    before = _pool_cpu_ticks()
+    assert len(before) >= 8
+    native_faces.decode_faces(paths, 224, num_threads=threads)
+    after = _pool_cpu_ticks()
+    busy = [t for t, ticks in after.items() if ticks > before.get(t, 0)]
+    assert 1 <= len(busy) <= threads, (threads, busy)
+
+
 def _entropy_start(data: bytes) -> int:
     sos = data.index(b"\xff\xda")
     return sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")

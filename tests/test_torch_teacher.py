@@ -120,6 +120,28 @@ def test_tiny_pipeline_matches_jax(dtype, use_se, frame):
     _check(got, ref, dtype, f"pipeline(use_se={use_se}) {frame}->64")
 
 
+def test_pipeline_copies_its_mean_to_a_device_once():
+    """The forward copies nothing from the host after its first call on a
+    device (on the card such a copy would wait for the card); a new
+    ``mean_rgb`` gives a new tensor, and one made under inference mode
+    serves calls outside it."""
+    model = FaceTeacherPipeline(ResNet(dtype=torch.float32, **TINY),
+                                input_size=32, mean_rgb=(1.0, 2.0, 3.0)).eval()
+    x = torch.from_numpy(_frames(32, 2, 32))
+    with torch.inference_mode():
+        model(x)
+    first = model.mean_on(torch.device("cpu"))
+    assert not first.is_inference()
+    with torch.no_grad():
+        model(x)
+    assert model.mean_on("cpu") is first and len(model._means) == 1
+    np.testing.assert_array_equal(first.numpy(),
+                                  np.float32([1.0, 2.0, 3.0]))
+    model.mean_rgb = (4.0, 5.0, 6.0)
+    np.testing.assert_array_equal(model.mean_on("cpu").numpy(),
+                                  np.float32([4.0, 5.0, 6.0]))
+
+
 @pytest.mark.parametrize("arch", ["senet50", "resnet50"])
 def test_full_width_port_matches_the_jax_golden(arch):
     """The full-width port in fp32 on the golden's four frames against the
@@ -215,8 +237,8 @@ def test_load_pretrained_teacher_folds_biases_as_jax(tmp_path, use_se):
                                    stage_sizes=(2, 1), width=8,
                                    average_image=(110.5, 99.0, 80.25))
     model, state = load_pretrained_teacher(path, with_pipeline=True,
-                                           input_size=64, device="cpu",
-                                           dtype=torch.float32)
+                                           input_size=64, device="cpu")
+    model.teacher.dtype = torch.float32  # bf16 compute by default
     assert isinstance(model, FaceTeacherPipeline)
     assert model.mean_rgb == (110.5, 99.0, 80.25)
     assert model.teacher.stage_sizes == (2, 1) and model.teacher.use_se == use_se
