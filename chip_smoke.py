@@ -14,9 +14,10 @@ offline ``run_distillation`` end to end, extraction through the port's
 own wav reader, a released student loaded from a ``.mat`` file and
 trained on from it, the student's statistics and external benchmarks;
 the teacher's serving path with full-width SENet50 and ResNet50 (face
-frames decoded by the port, dense EmoVoxCeleb inference); and the two
-Mosaic probe tools; each path with and without the kernels where a
-comparison applies. Phases:
+frames decoded by the port, dense EmoVoxCeleb inference); the teacher's
+training path (FER+ fine-tuning and evaluation of SENet50, ResNet50 and
+the classic VGG face teachers); and the two Mosaic probe tools; each path
+with and without the kernels where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
@@ -114,7 +115,41 @@ comparison applies. Phases:
     frames/s end to end, the dense run's device busy share, device time
     by op (torch.profiler) and peak memory; one ``run_distillation`` epoch
     (full width, batch 64) on the built imdb, with its exact launches.
-14. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+14. teacher-train: the full-width SENet50 train golden
+    (``tests/fixtures/torch_teacher_train_golden.npz``: two MatConvNet SGD
+    steps, lr 0.01, momentum 0.9, wd 5e-4, backbone lr x 0.1, on 4 synthetic
+    FER+ images warped on the host at 48x48 and resized to 224 in the
+    pipeline, 'distributions' loss, fliplr and dropout off) in float64, fp32
+    with TF32 off and bf16, each against JAX's float64 run: the first loss,
+    the head after the steps, and each parameter's first update (its
+    gradient, weight decay and lr scale; relative L2 over a sample of 256
+    entries a parameter, median and largest), float64 (on the host's
+    resize) and fp32 within 1e-4 relative and 2e-3 x the head's scale,
+    the update within 1e-5 in float64 and 2 x JAX's own fp32 error in fp32,
+    bf16 within max(2 x JAX's own bf16 error, 1e-2 x the scale) and 2 x
+    JAX's own bf16 update error (``train_golden_errors``); the batch's
+    resize on the card within 1e-6 x max of the host's;
+    ``ferplus_baselines`` with the
+    senet50-ferplus defaults (distributions, dropout 0.5, batch 128, host
+    warp and device fliplr, bf16) on ``build_synthetic_ferplus(384)`` (2
+    batches an epoch): 2 epochs, a resume to 3 that runs epoch 3 alone,
+    eval-only val from the latest and the best checkpoint equal to those
+    epochs' val accuracy, test from the best, ``benchmark_ferplus_models``
+    and again from its cache; ``load_teacher_from_exp('best')`` into
+    ``compute_visual_feats`` on the 13 fixture frames, bitwise the reloaded
+    teacher's own forward; a full-width classic vgg-m-face-bn base ``.mat``
+    (``classic_release``: conv biases, BN means moved by them, a 2622-way
+    head) through ``prepare_classic_from_base``: fp32 logits within 1e-3 x
+    max of the bridge's weights with the same head, then one fine-tuning
+    epoch from it and its reload with the release's mean; one profiled
+    epoch of SENet50 over 11 batches of 128 (wall, images/s,
+    feed_bound_frac, device busy share, device time by op) and the train
+    step of SENet50, ResNet50, VGG-VD-16 and VGG-M-bn at batch 128 in bf16,
+    5 steps each timed one at a time behind a device sleep (``paced_ms``),
+    the card-paced count, the host's issue time, peak memory and a step's
+    FLOP (``torch.utils.flop_counter``) against the bf16 peak. The path
+    launches no kernel of the kernel line.
+15. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -129,7 +164,8 @@ comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis and teacher phases, the probe kernels' over the probes run, each read between a reset just before and just after it;
+analysis, teacher and teacher-train phases, the probe kernels' over the
+probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -180,6 +216,7 @@ READER_REPEATS = 16           # the reader phase's windows: the track list
                               # 16 times, seconds long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 dense, tensor cores
 FIXTURES = ROOT / "tests" / "fixtures"
 TEACHER_GOLDEN = FIXTURES / "torch_teacher_golden.npz"
 FACES = FIXTURES / "torch_faces"
@@ -193,6 +230,27 @@ TEACHER_SLEEP_CYCLES = 4 * QUEUE_CYCLES  # ~200 ms of device sleep ahead of
                               # each timed forward, which takes 9-21 ms of
                               # host time to enqueue
 DENSE_SAMPLE = 64             # dense frames held against an fp32 forward
+TRAIN_GOLDEN = FIXTURES / "torch_teacher_train_golden.npz"
+GOLDEN_STEPS, GOLDEN_LR = 2, 0.01  # the golden train steps: MatConvNet SGD,
+GOLDEN_FINETUNE = 0.1         # momentum 0.9, wd 5e-4, backbone lr x 0.1
+GOLDEN_LOSS_RTOL = 1e-4       # the golden's first loss, fp32 and float64
+GOLDEN_SAMPLE = 256           # entries of each parameter's first update held
+F64_UPDATE_RTOL = 1e-5        # float64's first update, relative L2 per
+                              # parameter: 5.6e-7 at most on an H100 and on
+                              # a CPU; a planted fault moves it 0.13 or more
+RESIZE_RTOL = 1e-6            # the pipeline's fp32 resize on the card vs the
+                              # host's, of the largest value (one unit in the
+                              # last place is 6e-8)
+FERPLUS_IMAGES = 384          # ferplus_baselines' synthetic FER+ set: 268 train
+                              # images, 2 batches of 128 an epoch
+PROFILED_IMAGES = 2048        # the profiled epoch's set: 11 batches of 128
+TRAIN_TIMED = 5               # paced train steps timed per teacher
+TRAIN_SLEEP_CYCLES = 8 * QUEUE_CYCLES  # ~400 ms of device sleep ahead of
+                              # each timed train step: the host takes up to
+                              # ~160 ms to issue a SENet50 step
+CLASSIC_RTOL = 1e-3           # fp32 logits, imported classic vs the bridge
+TIMED_TEACHERS = ("senet50-ferplus", "resnet50-ferplus", "vgg-vd-face",
+                  "vgg-m-face-bn")
 
 
 class SmokeFailure(RuntimeError):
@@ -1235,6 +1293,532 @@ def teacher_release(path: Path, seed: int = SEED, use_se: bool = True,
     return v
 
 
+def classic_release(path: Path, seed: int = SEED, arch: str = "m",
+                    use_batchnorm: bool = True, num_outputs: int = 2622,
+                    average_image=(129.1863, 104.7624, 93.594),
+                    **widths) -> dict:
+    """Write a classic (v5) MatConvNet VGG face ``.mat`` (the classic face
+    models' naming, ``vggface_layer_map``) from
+    ``random_vggface_variables(seed, arch, use_batchnorm, num_outputs,
+    **widths)``: every conv with a nonzero bias (BN means moved by it where
+    there is BatchNorm; the importer folds it back), the head as a 1x1
+    ``fc8`` filter, ``averageImage`` the classic vgg_face mean. Returns the
+    seeded weights in the Flax layout."""
+    import numpy as np
+    import scipy.io
+
+    from mcncrossmodalemotions_torch.zoo import random_vggface_variables
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        BN_EPSILON,
+        vggface_layer_map,
+    )
+
+    v = random_vggface_variables(seed=seed, arch=arch,
+                                 use_batchnorm=use_batchnorm,
+                                 num_outputs=num_outputs, **widths)
+    p, s = v["params"], v.get("batch_stats", {})
+    rng = np.random.default_rng(seed + 1)
+    named = {}
+    for layer, spec in vggface_layer_map(
+            arch, use_batchnorm=use_batchnorm).items():
+        if spec["kind"] == "dense":
+            named[spec["filters"][0]] = p[layer]["kernel"][None, None]
+            named[spec["bias"][0]] = p[layer]["bias"]
+        elif spec["kind"] == "conv":
+            kernel = p[layer]["kernel"]
+            named[spec["filters"][0]] = kernel
+            named[spec["bias"][0]] = p[layer].get(
+                "bias", rng.normal(0.0, 0.5, kernel.shape[-1]).astype(
+                    np.float32))
+        else:
+            conv = layer[len("bn_"):]
+            named[spec["gamma"][0]] = p[layer]["scale"]
+            named[spec["beta"][0]] = p[layer]["bias"]
+            named[spec["moments"][0]] = np.stack(
+                [s[layer]["mean"] + named[vggface_layer_map(arch)[conv][
+                    "bias"][0]],
+                 np.sqrt(s[layer]["var"] + BN_EPSILON)], axis=1)
+    arr = np.zeros((len(named),), dtype=[("name", object), ("value", object)])
+    for i, item in enumerate(named.items()):
+        arr[i] = item
+    scipy.io.savemat(path, {"net": {"params": arr, "meta": {"normalization": {
+        "averageImage": np.asarray(average_image, np.float32)}}}})
+    return v
+
+
+def golden_train_batch() -> dict:
+    """The train golden's batch: the first 4 train images of
+    ``build_synthetic_ferplus(num_images=8, seed=0)`` (48x48 uint8),
+    warped on the host at 48x48 by ``ferplus_batches(augment=True, seed=0)``
+    as the training path warps them (the pipeline resizes them to 224 on the
+    device), with their vote distributions ('CNTK') and a full
+    ``pad_mask``."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.data.ferplus import (
+        build_synthetic_ferplus,
+        ferplus_batches,
+    )
+
+    imdb = build_synthetic_ferplus(num_images=8, seed=SEED)
+    batch = next(ferplus_batches(imdb, 1, 4, seed=SEED, augment=True))
+    return dict(batch, pad_mask=np.ones(4, np.float32))
+
+
+def golden_sample(named) -> list:
+    """The train golden's sample of ``{parameter name: tensor}`` (the port's
+    names and layouts), in its order: of each tensor flattened, up to
+    ``GOLDEN_SAMPLE`` entries evenly spaced, as float64 numpy."""
+    import numpy as np
+
+    out = []
+    for t in named.values():
+        flat = t.detach().double().cpu().numpy().reshape(-1)
+        out.append(flat[np.unique(np.linspace(
+            0, flat.size - 1, min(flat.size, GOLDEN_SAMPLE)).astype(np.int64))])
+    return out
+
+
+def golden_train_run(dtype, dev="cuda") -> dict:
+    """The train golden's run in the port: full-width SENet50 (8 outputs,
+    ``random_teacher_variables(seed=0)``) in ``FaceTeacherPipeline`` at 224,
+    fliplr and dropout off, ``GOLDEN_STEPS`` MatConvNet SGD steps on
+    ``golden_train_batch()`` ('distributions' loss, lr 0.01, momentum 0.9,
+    wd 5e-4, backbone lr x 0.1), computing in ``dtype`` (float64 with
+    float64 parameters, else fp32 parameters). float64 takes the batch
+    resized to 224 on the host (``resize_separable`` on the CPU gives the
+    JAX package's values; the pipeline then resizes nothing), fp32 and
+    bf16 resize in the pipeline on ``dev``. Returns the parameter names,
+    the step losses, ``golden_sample`` of the velocity after the first step
+    (each parameter's first update: its gradient, weight decay and lr
+    scale) and the head after the steps (Flax layout: kernel [2048, 8])."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.models import FaceTeacherPipeline, SENet50
+    from mcncrossmodalemotions_torch.ops.warp import resize_separable
+    from mcncrossmodalemotions_torch.train.state import (
+        SGDConfig,
+        TrainState,
+        finetune_lr_scale_fn,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        random_teacher_variables,
+        teacher_loss_fn,
+        teacher_state_dict_from_flax,
+    )
+
+    v = random_teacher_variables(seed=SEED)
+    model = FaceTeacherPipeline(SENet50(num_outputs=8, dtype=dtype),
+                                augment=False)
+    model.load_state_dict(teacher_state_dict_from_flax(
+        {"params": {"teacher": v["params"]},
+         "batch_stats": {"teacher": v["batch_stats"]}}), strict=True)
+    model = model.to(dev, torch.promote_types(dtype, torch.float32))
+    state = TrainState.create(model,
+                              torch.Generator(device=dev).manual_seed(SEED))
+    step = make_train_step(
+        teacher_loss_fn("distributions"),
+        SGDConfig(momentum=0.9, weight_decay=5e-4),
+        lr_scale_fn=finetune_lr_scale_fn(backbone_scale=GOLDEN_FINETUNE),
+        pass_pad_mask=True)
+    batch = {k: torch.from_numpy(v) for k, v in golden_train_batch().items()}
+    if dtype == torch.float64:
+        batch["data"] = resize_separable(batch["data"].float(), 224, 224)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    losses = []
+    for i in range(GOLDEN_STEPS):
+        state, metrics = step(state, batch, GOLDEN_LR)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            update = golden_sample(state.velocity)
+    head = model.teacher.prediction
+    return {"names": list(state.velocity),
+            "losses": np.asarray(losses, np.float64),
+            "update": update,
+            "head_kernel": head.weight.detach().t().double().cpu().numpy()}
+
+
+def leaf_errors(parts: list, flat, sizes) -> list:
+    """Relative L2 error of each parameter's sample in ``parts`` against
+    the golden's, ``flat`` cut at ``sizes``."""
+    import numpy as np
+
+    want = np.split(np.asarray(flat, np.float64), np.cumsum(sizes)[:-1])
+    return [float(np.linalg.norm(p - w) / max(np.linalg.norm(w), 1e-300))
+            for p, w in zip(parts, want)]
+
+
+def train_golden_errors(got: dict, gold, tag: str) -> dict:
+    """{quantity: (error, gate)} of a ``golden_train_run`` in ``tag``
+    ('fp64', 'fp32' or 'bf16') against JAX's float64 run: the first loss
+    (a forward) and the head after the steps (largest absolute errors), and
+    each parameter's first update (relative L2; their median and largest).
+
+    float64 and fp32 hold the forward gates of the teacher phase on the
+    first loss (1e-4 relative) and the head (2e-3 x its scale). float64, on the
+    host's resize, holds the update within ``F64_UPDATE_RTOL``; fp32
+    within 2 x JAX's own fp32 median and largest, which also covers the
+    device resize's rounding (a unit in the last place of every resized
+    value moves the float64 update about as far). bf16 holds max(2 x
+    JAX's own bf16 error, 1e-2 x the scale) on the first loss and the
+    head, and the update within 2 x JAX's own bf16 median and largest."""
+    import numpy as np
+
+    check(list(got["names"]) == [str(n) for n in gold["names"]],
+          "the golden's parameters are not the port's")
+    loss = float(gold["losses_fp64"][0])
+    head = gold["head_kernel_fp64"]
+    rel = leaf_errors(got["update"], gold["update_fp64"], gold["update_sizes"])
+    err = {"first loss": abs(float(got["losses"][0]) - loss),
+           "head": float(np.abs(got["head_kernel"] - head).max()),
+           "update median": float(np.median(rel)),
+           "update max": max(rel)}
+    if tag == "fp64":
+        gate = {"update median": F64_UPDATE_RTOL, "update max": F64_UPDATE_RTOL}
+    else:
+        own = gold[f"update_rel_jax_{tag}"]
+        gate = {"update median": 2 * float(np.median(own)),
+                "update max": 2 * float(own.max())}
+    if tag == "bf16":
+        gate["first loss"] = max(2 * float(gold["first_loss_jax_bf16_err"]),
+                                 TEACHER_BF16_RTOL * abs(loss))
+        gate["head"] = max(2 * float(gold["head_kernel_jax_bf16_err"]),
+                           TEACHER_BF16_RTOL * float(np.abs(head).max()))
+    else:
+        gate["first loss"] = GOLDEN_LOSS_RTOL * abs(loss)
+        gate["head"] = TEACHER_FP32_RTOL * float(np.abs(head).max())
+    return {k: (err[k], gate[k]) for k in err}
+
+
+def teacher_train_phase(card: str, root: Path, wrappers: dict,
+                        dev="cuda") -> dict:
+    """The teacher's training path (phase 14): the full-width SENet50 train
+    golden in float64, fp32 (TF32 off) and bf16; ``ferplus_baselines``
+    with the senet50-ferplus defaults on the synthetic FER+ set, 2 epochs,
+    a resume to 3, eval-only from the latest and the best epoch, the
+    benchmark over its cache, the trained teacher reloaded into
+    ``compute_visual_feats``; a full-width classic vgg-m-face-bn base
+    ``.mat`` imported and fine-tuned; paced train-step times, images/s and
+    peak memory of four teachers at batch 128 in bf16, and one profiled
+    epoch's feed share, device busy share and device time by op. Returns
+    the launch counts of the ferplus_baselines runs (the path launches no
+    kernel of the kernel line). With ``dev="cpu"`` (a rehearsal on a
+    machine without a card) the golden is left to
+    ``tests/test_torch_teacher_train.py`` and the rest runs tiny."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mcncrossmodalemotions_torch.data.ferplus import (
+        build_synthetic_ferplus,
+        ferplus_batches,
+    )
+    from mcncrossmodalemotions_torch.data.images import load_frame_batch
+    from mcncrossmodalemotions_torch.data.imdb import TrackImdb
+    from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
+        compute_visual_feats,
+    )
+    from mcncrossmodalemotions_torch.exp.ferplus_baselines import (
+        FerPlusConfig,
+        benchmark_ferplus_models,
+        build_pipeline,
+        ferplus_baselines,
+        load_teacher_from_exp,
+    )
+    from mcncrossmodalemotions_torch.exp.profile_extraction import (
+        DEVICE_TYPES,
+        busy_us,
+    )
+    from mcncrossmodalemotions_torch.models import VGGFace
+    from mcncrossmodalemotions_torch.ops.warp import resize_separable
+    from mcncrossmodalemotions_torch.train.engine import TrainConfig, Trainer
+    from mcncrossmodalemotions_torch.train.state import finetune_lr_scale_fn
+    from mcncrossmodalemotions_torch.zoo import (
+        prepare_classic_from_base,
+        teacher_loss_fn,
+        teacher_state_dict_from_flax,
+    )
+
+    full = dev == "cuda"
+    missed = []  # golden gates missed: the phase fails at its end
+    if full:
+        gold = np.load(TRAIN_GOLDEN)
+        for tag, dtype in (("fp64", torch.float64), ("fp32", torch.float32),
+                           ("bf16", torch.bfloat16)):
+            got = golden_train_run(dtype, dev)
+            errs = train_golden_errors(got, gold, tag)
+            print(f"  {card}: train golden {tag} against JAX's float64: "
+                  f"losses {got['losses'].tolist()} (JAX "
+                  f"{gold['losses_fp64'].tolist()}); " + ", ".join(
+                      f"{k} {e:.3e} (gate {g:.3e})"
+                      for k, (e, g) in errs.items()), flush=True)
+            missed += [f"{tag} {k} {e:.3e} > {g:.3e}"
+                       for k, (e, g) in errs.items() if not e <= g]
+        # the resize that float64 took on the host, on the card
+        data = torch.from_numpy(golden_train_batch()["data"]).float()
+        host = resize_separable(data, 224, 224)
+        diff = resize_separable(data.to(dev), 224, 224).cpu() - host
+        err, scale = float(diff.abs().max()), float(host.abs().max())
+        print(f"  {card}: the golden batch's resize to 224 on the card vs "
+              f"the host: {int((diff != 0).sum())} of {diff.numel()} values "
+              f"differ, max abs {err:.3e} (gate {RESIZE_RTOL * scale:.3e})",
+              flush=True)
+        if not err <= RESIZE_RTOL * scale:
+            missed.append(f"resize {err:.3e}")
+        torch.cuda.empty_cache()
+    else:
+        print("  train golden: held on the CPU by "
+              "tests/test_torch_teacher_train.py")
+
+    # ferplus_baselines with the senet50-ferplus defaults (tiny on the CPU)
+    size = dict() if full else dict(batch_size=8, input_size=48,
+                                    tiny_model=True)
+    batch = 128 if full else 8
+    imdb = build_synthetic_ferplus(num_images=FERPLUS_IMAGES if full else 40)
+    cfg = FerPlusConfig(lr_epochs=(2,), out_root=str(root / "ferplus"), **size)
+    exp = root / "ferplus" / cfg.exp_name()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    _, first = ferplus_baselines(cfg, imdb, device=dev)
+    longer = dataclasses.replace(cfg, lr_epochs=(3,))
+    _, resumed = ferplus_baselines(longer, imdb, device=dev)
+    train_s = time.perf_counter() - t0
+    history = first + resumed
+    n_train = int((imdb.set_id == 1).sum()) // batch * batch
+    for h in history:
+        print(f"  ferplus epoch {h['epoch']}: train loss "
+              f"{h['train']['loss']:.4f} ({h['train']['num_samples']} images, "
+              f"{h['train']['samples_per_sec']:.1f} images/s, feed_bound_frac "
+              f"{h['train']['feed_bound_frac']}), val classerror "
+              f"{h['val']['classerror']:.4f}", flush=True)
+    check([h["epoch"] for h in history] == [1, 2, 3],
+          f"epochs run {[h['epoch'] for h in history]}: the resume did not "
+          "continue at 3 alone")
+    check(all(np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["loss"])
+              and h["train"]["num_samples"] == n_train for h in history),
+          "ferplus epochs not finite or short")
+    best = min(history, key=lambda h: h["val"]["classerror"])
+    evals = {}
+    for label, subset, use_best in (("val latest", "val", False),
+                                    ("val best", "val", True),
+                                    ("test best", "test", True)):
+        _, stats = ferplus_baselines(longer, imdb, evaluate_only=subset,
+                                     use_best_epoch=use_best, device=dev)
+        evals[label] = stats["accuracy"]
+    bench_kw = dict(out_root=str(root / "ferplus"), tiny_model=cfg.tiny_model,
+                    models=(("senet50-ferplus", "distributions"),),
+                    base_cfg=longer, cache_dir=str(root / "ferplus-cache"),
+                    device=dev)
+    table = benchmark_ferplus_models(imdb, **bench_kw)
+    t0 = time.perf_counter()
+    cached = benchmark_ferplus_models(imdb, **bench_kw)
+    cached_s = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    print(f"  ferplus_baselines: 2 epochs and a resume to 3 in {train_s:.2f} s; "
+          f"eval-only accuracy {evals} (last val epoch "
+          f"{1 - history[-1]['val']['classerror']:.6f}, best epoch "
+          f"{best['epoch']}: {1 - best['val']['classerror']:.6f}); benchmark "
+          f"{table}, again from its cache in {cached_s:.3f} s; launches "
+          f"{counts}", flush=True)
+    check(evals["val latest"] == 1 - history[-1]["val"]["classerror"],
+          "eval-only from the latest checkpoint differs from the last val epoch")
+    check(evals["val best"] == 1 - best["val"]["classerror"],
+          "eval-only from the best checkpoint differs from its val epoch")
+    check(table == cached and table["senet50-ferplus"]["valAcc"]
+          == evals["val latest"], f"benchmark {table} vs cache {cached}")
+    check(not any(counts.values()),
+          f"the teacher's training path launched kernels: {counts}")
+
+    # the trained teacher, reloaded, feeds the dense path
+    pipe, state = load_teacher_from_exp(exp, epoch="best", device=dev)
+    faces = sorted(FACES.glob("*.jpg"))
+    tracks = TrackImdb(track_ids=np.arange(2), labels=np.zeros(2),
+                       set_id=np.ones(2),
+                       frame_paths=[[f.name for f in faces[:6]],
+                                    [f.name for f in faces[6:]]])
+    feats = compute_visual_feats(tracks, pipe, state, batch_size=len(faces),
+                                 frame_root=str(FACES),
+                                 input_size=cfg.input_size, verbose=False,
+                                 device=dev)
+    x = torch.from_numpy(load_frame_batch([str(f) for f in faces],
+                                          cfg.input_size, 8, 1.0)).to(dev)
+    with torch.inference_mode():
+        own = functional_call(pipe, state, (x,)).float().cpu().numpy()
+    same = np.array_equal(np.concatenate(feats), own)
+    print(f"  load_teacher_from_exp('best') -> compute_visual_feats on "
+          f"{len(faces)} fixture frames: logits "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} the reloaded "
+          f"teacher's own forward", flush=True)
+    check(same and own.shape == (len(faces), 8) and np.isfinite(own).all(),
+          "compute_visual_feats of the reloaded teacher differs from its "
+          "own forward")
+    del pipe, state, x
+
+    # a full-width classic base: vgg-m-face-bn with conv biases, imported,
+    # held to the bridge, fine-tuned
+    input_size = 224 if full else 48
+    path = root / "vgg-m-face-bn.mat"
+    t0 = time.perf_counter()
+    v = classic_release(path, num_outputs=2622 if full else 20,
+                        input_size=input_size)
+    t1 = time.perf_counter()
+    model, state = prepare_classic_from_base(path, "vgg-m-face-bn",
+                                             input_size=input_size,
+                                             device=dev)
+    sync(dev)
+    t2 = time.perf_counter()
+    want = teacher_state_dict_from_flax(v)  # with the imported fresh head
+    want.update({k: state[k].cpu() for k in ("prediction.weight",
+                                              "prediction.bias")})
+    bridge = VGGFace("m", use_batchnorm=True, input_size=input_size)
+    bridge.load_state_dict(want, strict=True)
+    bridge.to(dev)
+    xs = (torch.randn(8, input_size, input_size, 3,
+                      generator=torch.Generator().manual_seed(SEED)) * 50).to(dev)
+    for m in (model, bridge):
+        m.dtype = torch.float32
+    with torch.inference_mode():
+        got, ref = (m(xs).float().cpu().numpy() for m in (model, bridge))
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    print(f"  {card}: classic vgg-m-face-bn base: .mat "
+          f"({path.stat().st_size / 2**20:.1f} MiB) written in {t1 - t0:.2f} s, "
+          f"imported in {t2 - t1:.2f} s; fp32 logits vs the "
+          f"bridge's max abs {err:.3e} (max |logit| {scale:.4f}, gate "
+          f"{CLASSIC_RTOL * scale:.3e})", flush=True)
+    check(got.shape == ref.shape and np.isfinite(got).all()
+          and err <= CLASSIC_RTOL * scale, "the imported classic base is off "
+          "the bridge's weights")
+    del model, state, bridge, xs
+    ccfg = FerPlusConfig(model="vgg-m-face-bn", pretrained_mat=str(path),
+                         lr_epochs=(1,), out_root=str(root / "ferplus"),
+                         **dict(size, tiny_model=False))
+    reset_counts(wrappers)
+    _, classic = ferplus_baselines(ccfg, imdb, device=dev)
+    add_counts(counts, read_counts(wrappers))
+    h = classic[0]
+    pipe, _ = load_teacher_from_exp(root / "ferplus" / ccfg.exp_name(),
+                                    device=dev)
+    print(f"  vgg-m-face-bn fine-tuned from the base: train loss "
+          f"{h['train']['loss']:.4f} ({h['train']['num_samples']} images), "
+          f"val classerror {h['val']['classerror']:.4f}; reloaded with the "
+          f"release's mean {tuple(round(c, 4) for c in pipe.mean_rgb)}",
+          flush=True)
+    check(np.isfinite(h["train"]["loss"]) and h["train"]["num_samples"]
+          == n_train, "the classic fine-tune did not train")
+    del pipe
+    if full:
+        torch.cuda.empty_cache()
+
+    # one profiled epoch (SENet50, ferplus_baselines' defaults) and paced train
+    # steps of four teachers at batch 128, bf16
+    big = build_synthetic_ferplus(num_images=PROFILED_IMAGES if full else 40)
+    pcfg = dataclasses.replace(cfg, lr_epochs=(1,))
+    trainer = Trainer(build_pipeline(pcfg), teacher_loss_fn(), TrainConfig(
+        num_epochs=1, batch_size=pcfg.batch_size, learning_rate=0.01),
+        device=dev, lr_scale_fn=finetune_lr_scale_fn(backbone_scale=0.1))
+    tstate = trainer.init_state()
+    sync(dev)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if full else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        _, stats = trainer.run_epoch(tstate, ferplus_batches(
+            big, 1, pcfg.batch_size, shuffle=True, seed=1, drop_remainder=True,
+            augment=True), epoch=1)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    busy = busy_us(prof.events()) / 1e6
+    by_op = sorted((e for e in prof.key_averages()
+                    if e.device_type in DEVICE_TYPES),
+                   key=lambda e: -e.self_device_time_total)
+    print(f"  {card}: profiled epoch (SENet50 bf16, {stats['num_samples']} "
+          f"images in batches of {pcfg.batch_size}): {wall:.3f} s, "
+          f"{stats['num_samples'] / wall:.1f} images/s, feed_bound_frac "
+          f"{stats['feed_bound_frac']}, device busy {busy:.3f} s = "
+          f"{busy / wall:.2%} of the wall", flush=True)
+    summed = sum(e.self_device_time_total for e in by_op) / 1e6
+    print(f"  profiled epoch's device time by op ({summed:.3f} s summed"
+          f"{', the top 10' if by_op else '; no device events'}):", flush=True)
+    for e in by_op[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}", flush=True)
+    del trainer, tstate
+    if full:
+        torch.cuda.empty_cache()
+
+    data = next(ferplus_batches(big, 1, batch, augment=True))
+    for name in TIMED_TEACHERS:
+        tcfg = dataclasses.replace(pcfg, model=name)
+        trainer = Trainer(build_pipeline(tcfg), teacher_loss_fn(), TrainConfig(
+            batch_size=batch), device=dev,
+            lr_scale_fn=finetune_lr_scale_fn(backbone_scale=0.1))
+        tstate = trainer.init_state()
+        _, dev_batch = trainer._host_batch(data, pin=False)
+        dev_batch = {k: t.to(dev) for k, t in dev_batch.items()}
+
+        def train_step():
+            trainer._train_step(tstate, dev_batch, 0.01)
+
+        if full:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, issue, paced = paced_ms(train_step, TRAIN_TIMED,
+                                           TRAIN_SLEEP_CYCLES)
+            peak = torch.cuda.max_memory_allocated()
+            ms = sum(times) / len(times)
+            # back to back, as an epoch runs them: the wall a step, and the
+            # device's busy time and kernels a step (a step whose launches
+            # outrun the card's launch queue cannot be paced behind a sleep)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(TRAIN_TIMED):
+                    train_step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+            busy = busy_us(prof.events()) / 1e3 / TRAIN_TIMED
+            kernels = sum(e.device_type in DEVICE_TYPES
+                          for e in prof.events()) / TRAIN_TIMED
+            how = (f"{paced} of {len(times)} card-paced, min {min(times):.3f}, "
+                   f"max {max(times):.3f} ms; the host issues one in "
+                   f"{min(issue):.3f}-{max(issue):.3f} ms; back to back "
+                   f"{wall:.3f} ms a step = {batch / wall * 1e3:.1f} images/s, "
+                   f"device busy {busy:.3f} ms a step ({busy / wall:.2%}), "
+                   f"{kernels:.0f} kernels a step; peak device memory "
+                   f"{peak / 2**30:.3f} GiB")
+        else:
+            train_step()
+            t0 = time.perf_counter()
+            train_step()
+            wall = ms = (time.perf_counter() - t0) * 1e3
+            how = "host clock"
+        with FlopCounterMode(display=False) as flop:  # one more step, counted
+            train_step()
+        flops = flop.get_total_flops()
+        print(f"  {card}: train step {name} batch {batch} bf16: paced "
+              f"{ms:.3f} ms = {batch / ms * 1e3:.1f} images/s ({how}); "
+              f"{flops / 1e12:.4f} TFLOP a step (2 x multiply-adds, forward "
+              f"and backward), {flops / BF16_OPS_PER_S * 1e3:.3f} ms at the "
+              f"bf16 peak = {flops / BF16_OPS_PER_S * 1e3 / wall:.2%} of the "
+              f"back-to-back step", flush=True)
+        check(all(torch.isfinite(p).all() for p in
+                  tstate.model.parameters()), f"{name}: weights not finite")
+        del trainer, tstate, dev_batch
+        if full:
+            torch.cuda.empty_cache()
+    check(not any(counts.values()),
+          f"the teacher's training path launched kernels: {counts}")
+    check(not missed, f"train golden gates missed: {missed}")
+    return counts
+
+
 def thread_cpu() -> dict:
     """CPU seconds each thread of this process has used so far, by thread
     id: (name, seconds), from /proc (empty where there is none)."""
@@ -1804,6 +2388,10 @@ def main() -> int:
             teacher_counts = teacher_phase(card, Path(tmp), imdb_paths(imdb),
                                            wrappers)
 
+        with phase("teacher-train", walls):
+            teacher_train_counts = teacher_train_phase(card, Path(tmp),
+                                                       wrappers)
+
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
 
@@ -1842,7 +2430,8 @@ def main() -> int:
             "launches": (launches[name] + train_counts[name]
                          + distill_counts[name] + reader_counts[name]
                          + release_counts[name] + analysis_counts[name]
-                         + teacher_counts[name] + probe_counts[name]),
+                         + teacher_counts[name]
+                         + teacher_train_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -9,31 +9,40 @@ package's host modules it keeps as its own copies (``data.audio``,
 
 Layer map of the ported slices (student audio-feature extraction; the
 student's offline distillation training; the Mosaic lowering probes; the
-student's evaluation; the teacher's serving path):
+student's evaluation; the teacher's serving path; the teacher's FER+
+training and evaluation):
 
 - ``ops``     spectrogram frontend (plain PyTorch) and the kernels
               written by hand for Hopper in ``csrc/``: the fused
               spectrogram (``ops/spectrogram_kernel.py``), the 3x3/2
               max pool with its with-index forward and backward
               (``ops/pool.py``) and the probe kernels (``ops/probes.py``),
-              built at first use by ``ops/_build.py``.
+              built at first use by ``ops/_build.py``; the affine warp and
+              resizes of the face pipeline (``ops/warp.py``: the host's
+              numpy augmentation, the device's sampling).
 - ``models``  VGG-M student (eval and train mode) and the
-              waveform->logits pipeline; the ResNet50/SENet50 face
-              teachers (inference) and their face pipeline.
+              waveform->logits pipeline; the face teachers
+              (ResNet50/SENet50, the classic VGG-VD-16 and VGG-M, eval
+              and train mode), their face pipeline with the train-mode
+              fliplr, and surgery on their weights.
 - ``losses``  distillation / classification losses and metrics.
 - ``zoo``     ``build_student``, ``student_loss_fn``, ``build_teacher``,
-              the released-weight loaders and the Flax-variables ->
-              ``state_dict`` weight bridge.
+              ``teacher_loss_fn``, the released-weight loaders, the
+              fine-tuning entry points from base releases and the
+              Flax-variables -> ``state_dict`` weight bridge.
 - ``train``   train state and MatConvNet SGD step, checkpoints, the
               epoch engine with its threaded host feed.
 - ``data``    wav I/O, the native reader's bindings, imdb manifests,
-              synthetic tracks and the EmoVoxCeleb batcher; face frames
+              synthetic tracks and the EmoVoxCeleb batcher; the FER2013+
+              imdb and its host-augmented batches; face frames
               through the port's own JPEG decoder (``data/images.py``,
               ``data/native_faces.py``, ``csrc/dataservice_faces.cc``).
 - ``utils``   config hashing, ETA and metrics logs.
 - ``exp``     bucketed whole-clip feature extraction and offline
               ``run_distillation``; teacher features over face frames and
-              the dense EmoVoxCeleb imdb build.
+              the dense EmoVoxCeleb imdb build; FER+ teacher training,
+              evaluation and the benchmark table (``ferplus_baselines``,
+              ``reproduce_ferplus``).
 - ``tools``   the Mosaic lowering probes as Hopper probes.
 """
 

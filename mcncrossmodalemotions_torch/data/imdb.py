@@ -1,7 +1,7 @@
 """The imdb manifests the port reads and writes (SURVEY.md section 2.3).
 
-The port's copy of ``EmoVoxImdb``, ``TrackImdb`` and their helpers from
-``mcncrossmodalemotions_tpu/data/imdb.py``: typed dataclasses with an npz
+The port's copy of ``EmoVoxImdb``, ``FerPlusImdb``, ``TrackImdb`` and their
+helpers from ``mcncrossmodalemotions_tpu/data/imdb.py``: typed dataclasses with an npz
 round trip (object arrays for ragged per-track data). They write and read
 the same ``.npz`` files, with the same keys, as the JAX package's classes,
 in both directions (``tests/test_torch_host_copies.py``).
@@ -120,6 +120,40 @@ class EmoVoxImdb:
             frame_dir=meta.get("frame_dir", ""),
             classes=tuple(meta["classes"]),
         )
+
+
+@dataclasses.dataclass
+class FerPlusImdb:
+    """FER2013+ manifest: pixel data + rater vote distributions."""
+
+    data: np.ndarray        # [N, H, W, 1] uint8 grayscale
+    hard_labels: np.ndarray  # [N] int (majority emotion)
+    votes: np.ndarray        # [N, 10] float rater votes (cols 8,9 = NF/unknown)
+    set_id: np.ndarray       # [N] int {1 train, 2 val, 3 test}
+    classes: Sequence[str] = ()
+
+    @property
+    def num_images(self) -> int:
+        return len(self.data)
+
+    def subset(self, idx) -> "FerPlusImdb":
+        idx = np.asarray(idx)
+        return FerPlusImdb(self.data[idx], self.hard_labels[idx],
+                           self.votes[idx], self.set_id[idx], self.classes)
+
+    def save(self, path: str | Path) -> None:
+        _save_npz(path, {
+            "data": self.data,
+            "hard_labels": self.hard_labels.astype(np.int32),
+            "votes": self.votes.astype(np.float32),
+            "set_id": self.set_id.astype(np.int32),
+        }, {"classes": list(self.classes)})
+
+    @classmethod
+    def load(cls, path: str | Path) -> "FerPlusImdb":
+        data, meta = _load_npz(path)
+        return cls(data["data"], data["hard_labels"], data["votes"],
+                   data["set_id"], tuple(meta["classes"]))
 
 
 @dataclasses.dataclass

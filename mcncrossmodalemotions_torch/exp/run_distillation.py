@@ -25,9 +25,6 @@ port always runs the K1 wrapper, with the same function.
 from __future__ import annotations
 
 import dataclasses
-import json
-import platform
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -54,7 +51,7 @@ from mcncrossmodalemotions_torch.train.engine import (
 from mcncrossmodalemotions_torch.utils.config import (
     config_hash,
     read_latest_run_config,
-    to_dict,
+    write_run_meta,
 )
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 from mcncrossmodalemotions_torch.zoo import (
@@ -168,22 +165,6 @@ def split_imdb(imdb: EmoVoxImdb, mini_val: float, seed: int = 0):
         keep = max(int(round(len(val_idx) * mini_val)), 1)
         val_idx = np.sort(rng.permutation(val_idx)[:keep])
     return imdb.subset(train_idx), imdb.subset(val_idx), train_idx, val_idx
-
-
-def write_run_meta(exp_dir, cfg, **extra) -> str:
-    """Run-metadata dump (storeMetaInfo, run_distillation.m:227-240): twin
-    ``meta-<stamp>.json`` / ``.txt`` files with the full config, hostname,
-    timestamp and ``extra`` keys. Returns the stamp."""
-    exp_dir = Path(exp_dir)
-    stamp = time.strftime("%Y%m%d-%H%M%S")
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    config = to_dict(cfg)
-    meta = {"config": config, "hostname": platform.node(),
-            "timestamp": stamp, **extra}
-    (exp_dir / f"meta-{stamp}.json").write_text(json.dumps(meta, indent=2))
-    (exp_dir / f"meta-{stamp}.txt").write_text(
-        "\n".join(f"{k}: {v!r}" for k, v in config.items()))
-    return stamp
 
 
 def run_distillation(cfg: DistillationConfig,

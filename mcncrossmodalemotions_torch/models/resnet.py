@@ -1,4 +1,4 @@
-"""ResNet-50 / SE-ResNet-50 facial-emotion teachers, PyTorch (inference).
+"""ResNet-50 / SE-ResNet-50 facial-emotion teachers, PyTorch.
 
 Port of ``mcncrossmodalemotions_tpu/models/resnet.py`` (``SEBlock``,
 ``Bottleneck``, ``ResNet``, ``ResNet50``, ``SENet50``): the architectures of
@@ -21,15 +21,20 @@ module names as ``state_dict`` keys) and the same function, op for op:
 - squeeze-excitation: the squeeze a mean in fp32, fc1 -> ReLU -> fc2 in the
   compute dtype, the sigmoid in fp32 cast back to the compute dtype;
 - the global pool a mean in fp32, the single dropout on the pooled
-  embedding (a constructor field, inactive at inference: the reference's
-  two spatial dropouts are a recorded deviation, PARITY.md), the head an
-  fp32 ``Linear``.
+  embedding (train mode, drawn from the caller's ``torch.Generator``: the
+  reference's two spatial dropouts inside the last bottleneck are a
+  recorded deviation of the JAX package, PARITY.md, copied as it is), the
+  head an fp32 ``Linear``.
 
 Compute runs in ``dtype`` (bf16 by default, fp32 for the tests) with fp32
 parameters. Eval-mode BatchNorm reads the running statistics (not folded
 into the convs): ``F.batch_norm`` computes ``(x - mean) * rsqrt(var + eps)
 * scale + bias`` in fp32 and casts to the compute dtype, as Flax does.
-Training (FER+ fine-tuning) is a later slice: ``train=True`` raises.
+Train mode (FER+ fine-tuning) normalises with the batch statistics of the
+rows where ``pad_mask > 0`` and moves the running ones by Flax's rule
+(``models/vggm.batch_norm_train``: fp32 statistics, the biased variance,
+momentum 0.9), not ``F.batch_norm(training=True)``, whose running variance
+is the unbiased one. ``reset_parameters`` is Flax's scratch init.
 """
 
 from __future__ import annotations
@@ -40,14 +45,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mcncrossmodalemotions_torch.models.vggm import (
+    batch_norm_train,
+    dropout,
+    lecun_normal_,
+)
+
 STAGE_SIZES = {50: (3, 4, 6, 3)}
 BN_EPS = 1e-5
 
-_TRAIN_LATER = ("teacher training (FER+ fine-tuning) is not ported yet; "
-                "see ROADMAP.md queue 1, item 13")
 
-
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False,
+        bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flax BatchNorm: the batch statistics in train mode (over the rows
+    where ``bn_mask > 0``, running statistics updated in place), the
+    running ones in eval mode."""
+    if train:
+        return batch_norm_train(x, bn, bn_mask)
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps)
 
@@ -103,15 +117,17 @@ class Bottleneck(nn.Module):
                                         bias=False)
             self.bn_down = nn.BatchNorm2d(out, eps=BN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(_bn(_conv(x, self.conv1), self.bn1))
-        y = F.relu(_bn(_conv(y, self.conv2), self.bn2))
-        y = _bn(_conv(y, self.conv3), self.bn3)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bn = dict(train=train, bn_mask=bn_mask)
+        y = F.relu(_bn(_conv(x, self.conv1), self.bn1, **bn))
+        y = F.relu(_bn(_conv(y, self.conv2), self.bn2, **bn))
+        y = _bn(_conv(y, self.conv3), self.bn3, **bn)
         if self.se is not None:
             y = self.se(y)
         residual = x
         if self.project:
-            residual = _bn(_conv(x, self.downsample), self.bn_down)
+            residual = _bn(_conv(x, self.downsample), self.bn_down, **bn)
         return F.relu(y + residual)
 
 
@@ -124,9 +140,11 @@ class ResNet(nn.Module):
                  stage_sizes: Optional[Sequence[int]] = None,
                  use_se: bool = False, width: int = 64,
                  dropout_rate: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 head_init_scale: float = 0.01):
         super().__init__()
         self.num_outputs = num_outputs
+        self.head_init_scale = head_init_scale  # ferPlusZoo.m head re-init
         self.stage_sizes = tuple(stage_sizes or STAGE_SIZES[depth])
         self.use_se = use_se
         self.width = width
@@ -148,19 +166,48 @@ class ResNet(nn.Module):
                 in_features = features * 4
         self.prediction = nn.Linear(in_features, num_outputs)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """[B, H, W, 3] -> logits [B, num_outputs] fp32. The weights come
-        from ``load_state_dict`` (the bridge, a release)."""
-        if train:
-            raise NotImplementedError(_TRAIN_LATER)
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax's scratch init, in place: ``lecun_normal`` conv and SE
+        kernels, zero biases, BatchNorm scale 1, bias 0, running mean 0,
+        variance 1, the head ``normal(head_init_scale)``."""
+        for name, module in self.named_modules():
+            if isinstance(module, nn.BatchNorm2d):
+                module.reset_parameters()
+            elif isinstance(module, (nn.Conv2d, nn.Linear)):
+                if name == "prediction":
+                    module.weight.normal_(0.0, self.head_init_scale,
+                                          generator=generator)
+                else:
+                    lecun_normal_(module.weight, generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                return_embedding: bool = False,
+                pad_mask: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None):
+        """[B, H, W, 3] -> logits [B, num_outputs] fp32, and the pooled
+        embedding (before dropout) with ``return_embedding``. ``train``
+        uses the batch statistics of the rows where ``pad_mask > 0`` and
+        updates the running ones, and draws the dropout from
+        ``generator``. The weights come from ``load_state_dict`` (the
+        bridge, a release) or ``reset_parameters``."""
+        bn = dict(train=train, bn_mask=pad_mask)
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
-        x = F.relu(_bn(_conv(x, self.conv1), self.bn1))
+        x = F.relu(_bn(_conv(x, self.conv1), self.bn1, **bn))
         x = stem_pool(x)
         for name in self.blocks:
-            x = getattr(self, name)(x)
-        embedding = x.mean(dim=(2, 3), dtype=torch.float32)  # global pool
-        return F.linear(embedding, self.prediction.weight.float(),
-                        self.prediction.bias.float())
+            x = getattr(self, name)(x, **bn)
+        x = x.mean(dim=(2, 3), dtype=torch.float32)  # global pool
+        embedding = x
+        if train and self.dropout_rate > 0:
+            x = dropout(x, self.dropout_rate, generator)
+        logits = F.linear(x, self.prediction.weight.float(),
+                          self.prediction.bias.float())
+        if return_embedding:
+            return logits, embedding
+        return logits
 
 
 def ResNet50(**kw) -> ResNet:

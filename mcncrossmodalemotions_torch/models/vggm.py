@@ -72,6 +72,18 @@ def temporal_valid_frames(w):
     return w
 
 
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """Flax's ``lecun_normal`` in place: a normal truncated at 2 std with
+    variance 1 / fan_in, fan_in the product of all axes but the first (a
+    conv's ``[O, I, kh, kw]``, a ``Linear``'s ``[out, in]``)."""
+    fan_in = int(np.prod(weight.shape[1:]))
+    std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
                      pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flax train-mode BatchNorm over NCHW ``x``: normalise with the batch
@@ -157,10 +169,7 @@ class VGGMStudent(nn.Module):
         ``normal(head_init_scale)`` for the head, zero biases, BatchNorm
         scale 1, bias 0, running mean 0, running variance 1."""
         for layer in [conv for _, conv in self.convs()] + [self.fc7]:
-            fan_in = int(np.prod(layer.weight.shape[1:]))
-            std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            lecun_normal_(layer.weight, generator)
             if layer.bias is not None:
                 layer.bias.zero_()
         self.prediction.weight.normal_(0.0, self.head_init_scale,

@@ -13,8 +13,10 @@ weakness, run_distillation.m:169); ``find_best_epoch`` is findBestEpoch
 The JAX package's own checkpoints (``net-epoch-N.msgpack``, flax
 serialization of its ``TrainState``) are read by ``load_flax_checkpoint``
 with the port's msgpack reader (``utils/msgpack_lite.py``) and mapped
-through the weight bridge into the same record a ``.pt`` checkpoint holds;
-``read_from_exp`` takes either kind of experiment directory.
+through the weight bridge (the student's or the teacher's mapping) into
+the same record a ``.pt`` checkpoint holds; ``read_from_exp`` takes either
+kind of experiment directory, and ``restore_from_exp`` restores one of its
+checkpoints into a ``TrainState``.
 """
 
 from __future__ import annotations
@@ -34,10 +36,17 @@ from mcncrossmodalemotions_torch.utils import msgpack_lite
 from mcncrossmodalemotions_torch.zoo.bridge import (
     student_params_from_flax,
     student_state_dict_from_flax,
+    teacher_params_from_flax,
+    teacher_state_dict_from_flax,
 )
 
 PORT_SUFFIX = ".pt"
 FLAX_SUFFIX = ".msgpack"  # the JAX package's checkpoints
+# the bridge's (state_dict, velocity) mappings of a JAX TrainState, by model
+_BRIDGES = {
+    "student": (student_state_dict_from_flax, student_params_from_flax),
+    "teacher": (teacher_state_dict_from_flax, teacher_params_from_flax),
+}
 
 
 class CorruptCheckpointError(Exception):
@@ -108,16 +117,17 @@ def read_checkpoint(path: Path) -> dict:
         raise CorruptCheckpointError(f"{path}: {exc}") from exc
 
 
-def load_flax_checkpoint(path: str | Path) -> dict:
+def load_flax_checkpoint(path: str | Path, kind: str = "student") -> dict:
     """Read the JAX package's ``net-epoch-N.msgpack`` (its ``TrainState``:
     params, ``model_state`` with the batch statistics, velocity, step,
     rng) into the port's record: ``model``, the ``state_dict`` of the
-    student or pipeline the params describe (``zoo/bridge.py``),
-    ``velocity`` under the port's parameter names, and ``step``. Every
-    tensor is the file's float32 values bit for bit (a bfloat16 leaf
-    widened exactly). Unreadable or truncated bytes raise
-    :class:`CorruptCheckpointError`; a tree that is not a student's
-    raises ``KeyError``."""
+    ``kind`` of model (``'student'``: the VGG-M or its pipeline;
+    ``'teacher'``: a face teacher or its pipeline) the params describe
+    (``zoo/bridge.py``), ``velocity`` under the port's parameter names,
+    and ``step``. Every tensor is the file's float32 values bit for bit (a
+    bfloat16 leaf widened exactly). Unreadable or truncated bytes raise
+    :class:`CorruptCheckpointError`; a student tree that is not a
+    student's raises ``KeyError``."""
     try:
         tree = msgpack_lite.unpackb(Path(path).read_bytes())
     except msgpack_lite.MsgpackError as exc:
@@ -128,21 +138,32 @@ def load_flax_checkpoint(path: str | Path) -> dict:
                        f"{sorted(tree) if isinstance(tree, dict) else type(tree)})")
     model_state = tree.get("model_state") or {}
     variables = {"params": tree["params"], **model_state}
-    return {"model": student_state_dict_from_flax(variables),
-            "velocity": student_params_from_flax(tree["velocity"]),
+    state_dict, params = _BRIDGES[kind]
+    return {"model": state_dict(variables),
+            "velocity": params(tree["velocity"]),
             "step": int(tree["step"])}
 
 
-def read_from_exp(exp_dir: str | Path,
-                  epoch: int | str | None = None) -> Tuple[int, dict]:
+def exp_suffix(exp_dir: str | Path) -> str:
+    """The checkpoints an experiment directory is read from: the port's
+    (``.pt``) where it has any, else the JAX package's (``.msgpack``)."""
+    return PORT_SUFFIX if list_checkpoints(exp_dir) else FLAX_SUFFIX
+
+
+def read_from_exp(exp_dir: str | Path, epoch: int | str | None = None,
+                  kind: str = "student") -> Tuple[int, dict]:
     """(epoch, record) of one checkpoint of an experiment directory: the
     port's ``.pt`` ones, or, where there are none, the JAX package's
-    ``.msgpack`` ones (``load_flax_checkpoint``). ``epoch`` None takes the
-    latest readable one (last-good fallback), ``'best'`` the
-    ``find_best_epoch`` pick, an int that epoch. Raises
-    ``FileNotFoundError`` when nothing fits."""
-    suffix = PORT_SUFFIX if list_checkpoints(exp_dir) else FLAX_SUFFIX
-    read = read_checkpoint if suffix == PORT_SUFFIX else load_flax_checkpoint
+    ``.msgpack`` ones (``load_flax_checkpoint`` with the ``kind`` of
+    model). ``epoch`` None takes the latest readable one (last-good
+    fallback), ``'best'`` the ``find_best_epoch`` pick, an int that epoch.
+    Raises ``FileNotFoundError`` when nothing fits."""
+    suffix = exp_suffix(exp_dir)
+    if suffix == PORT_SUFFIX:
+        read = read_checkpoint
+    else:
+        def read(path):
+            return load_flax_checkpoint(path, kind)
     ckpts = list_checkpoints(exp_dir, suffix)
     if epoch == "best":
         epoch = find_best_epoch(exp_dir, suffix=suffix)
@@ -164,22 +185,47 @@ def read_from_exp(exp_dir: str | Path,
     return int(epoch), read(path)
 
 
+def _restore(state: TrainState, record: dict, where,
+             generator: bool = True) -> TrainState:
+    """Load ``record`` into ``state`` in place (model, velocity, step and,
+    with ``generator``, the generator, which the record must then hold)
+    and return it."""
+    state.model.load_state_dict(record["model"], strict=True)
+    if set(record["velocity"]) != set(state.velocity):
+        raise KeyError(f"{where}: velocity keys differ from the model's "
+                       "parameters")
+    with torch.no_grad():  # in place: the state's tensors stay where they are
+        for name, v in state.velocity.items():
+            v.copy_(record["velocity"][name])
+    state.step = int(record["step"])
+    if generator:
+        state.generator.set_state(record["generator"])
+    return state
+
+
 def load_checkpoint(path: Path, state: TrainState) -> TrainState:
     """Restore ``path`` into ``state`` in place (model, velocity, step,
     generator) and return it. Unreadable bytes raise
     :class:`CorruptCheckpointError`; a checkpoint that does not fit the
     state raises the underlying error."""
-    blob = read_checkpoint(path)
-    state.model.load_state_dict(blob["model"], strict=True)
-    if set(blob["velocity"]) != set(state.velocity):
-        raise KeyError(f"{path}: velocity keys differ from the model's "
-                       "parameters")
-    with torch.no_grad():  # in place: the state's tensors stay where they are
-        for name, v in state.velocity.items():
-            v.copy_(blob["velocity"][name])
-    state.step = int(blob["step"])
-    state.generator.set_state(blob["generator"])
-    return state
+    return _restore(state, read_checkpoint(path), path)
+
+
+def restore_from_exp(exp_dir: str | Path, state: TrainState,
+                     epoch: int | str | None = None) -> TrainState:
+    """Restore one checkpoint of an experiment directory into ``state`` in
+    place (the model's weights and running statistics, the velocity and
+    the step; the generator stays the state's own: a reload for evaluation
+    draws nothing, and a checkpoint written on the card holds a CUDA
+    generator's state, which a CPU generator cannot take) and return it.
+    The state is a face teacher's (the eval-only runs of
+    ``exp/ferplus_baselines.py``), and the directory the port's (``.pt``)
+    or the JAX package's (``.msgpack``, mapped by the teacher's bridge).
+    ``epoch`` as in ``read_from_exp``; ``FileNotFoundError`` when nothing
+    is restorable, the load's own error when the checkpoint does not fit."""
+    found, record = read_from_exp(exp_dir, epoch, kind="teacher")
+    return _restore(state, record, f"{exp_dir} epoch {found}",
+                    generator=False)
 
 
 def load_latest(exp_dir: str | Path, state: TrainState) -> Tuple[int, TrainState]:

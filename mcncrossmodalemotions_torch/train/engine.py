@@ -133,19 +133,28 @@ def summarize_class_stats(result: Dict[str, Any],
 class Trainer:
     """Epoch orchestrator around the train/eval steps, on one device.
 
-    ``model`` is a port module whose forward takes ``train``,
-    ``pad_mask``, ``use_kernels`` and ``generator`` (the zoo's students).
+    ``model`` is a port module whose forward takes ``train`` and
+    ``generator`` (dropout and the teachers' fliplr draw from the state's
+    generator) and any of ``pad_mask`` and ``use_kernels``, which the step
+    passes where the signature has them: the zoo's students take both, the
+    face teachers' ``FaceTeacherPipeline`` only ``pad_mask``. It has
+    ``reset_parameters(generator)`` for the scratch init. ``lr_scale_fn``
+    maps a parameter's name split at the dots to its learning-rate
+    multiplier (``train.state.finetune_lr_scale_fn``: 1.0 for the head,
+    ``teacher.prediction.weight`` included, less for the backbone).
     """
 
     def __init__(self, model: nn.Module, loss_fn: LossFn, cfg: TrainConfig,
                  class_names: Sequence[str] = (),
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 lr_scale_fn: Optional[Callable] = None):
         self.model = model
         self.cfg = cfg
         self.class_names = class_names
         self.device = torch.device(device)
         sgd = SGDConfig(momentum=cfg.momentum, weight_decay=cfg.weight_decay)
         self._train_step = make_train_step(loss_fn, sgd,
+                                           lr_scale_fn=lr_scale_fn,
                                            remat_policy=cfg.remat_policy,
                                            pass_pad_mask=True)
         self._eval_step = make_eval_step(loss_fn)

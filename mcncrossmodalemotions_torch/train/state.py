@@ -21,6 +21,7 @@ place and returns the same state object.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -102,20 +103,27 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
     """Build ``step(state, batch, lr) -> (state, metrics)``.
 
     The batch dict holds at least ``data``; the loss reads
-    ``logit_target``, ``max_label``, ``pad_mask`` and ``instance_weights``
-    as it needs them. ``pass_pad_mask`` gives ``batch['pad_mask']`` (when
-    present) to the model, so train-mode BatchNorm statistics exclude
-    padded rows. ``use_kernels`` runs the frontend and pool1/pool2 through
-    the kernels on the card (False: their plain versions). ``lr`` is a
-    Python float, which may change every call.
+    ``logit_target``, ``max_label``, ``hard_label``, ``label_dist``,
+    ``pad_mask`` and ``instance_weights`` as it needs them. The model gets
+    ``train=True`` and, of ``generator`` (``state.generator``: dropout,
+    the teachers' fliplr), ``use_kernels`` and ``pad_mask``, those its
+    forward accepts. ``pass_pad_mask`` gives ``batch['pad_mask']`` (when
+    present), so train-mode BatchNorm statistics exclude padded rows.
+    ``use_kernels`` runs the frontend and pool1/pool2 through the kernels
+    on the card (False: their plain versions). ``lr_scale_fn`` maps a
+    parameter's name split at the dots to its learning-rate multiplier.
+    ``lr`` is a Python float, which may change every call.
     """
     resolve_remat_policy(remat_policy)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], lr):
         model = state.model
-        kwargs: Dict[str, Any] = dict(train=True, use_kernels=use_kernels,
-                                      generator=state.generator)
-        if pass_pad_mask and "pad_mask" in batch:
+        # by signature: the students take use_kernels, the teachers do not
+        accepts = inspect.signature(model.forward).parameters
+        kwargs: Dict[str, Any] = dict(train=True, generator=state.generator)
+        if "use_kernels" in accepts:
+            kwargs["use_kernels"] = use_kernels
+        if pass_pad_mask and "pad_mask" in batch and "pad_mask" in accepts:
             kwargs["pad_mask"] = batch["pad_mask"]
         outputs = model(batch["data"], **kwargs)
         loss, metrics = loss_fn(outputs, batch)

@@ -1,7 +1,7 @@
 """Config helpers: dataclass trees to plain dicts, their stable hash, and
 a run's config read back from its experiment directory.
 
-The port's copy of ``to_dict``, ``config_hash`` and
+The port's copy of ``to_dict``, ``config_hash``, ``write_run_meta`` and
 ``read_latest_run_config`` from ``mcncrossmodalemotions_tpu/utils/config.py``,
 so that an experiment directory gets the same name in both packages and
 either package's run metadata reads back alike
@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import platform
+import time
 from pathlib import Path
 from typing import Any
 
@@ -36,6 +38,22 @@ def config_hash(cfg: Any) -> str:
     distinct configs from colliding)."""
     blob = json.dumps(to_dict(cfg), sort_keys=True, default=repr).encode()
     return hashlib.sha1(blob).hexdigest()[:10]
+
+
+def write_run_meta(exp_dir, cfg, **extra) -> str:
+    """Run-metadata dump (storeMetaInfo, run_distillation.m:227-240): twin
+    ``meta-<stamp>.json`` / ``.txt`` files with the full config, hostname,
+    timestamp and ``extra`` keys. Returns the stamp."""
+    exp_dir = Path(exp_dir)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    config = to_dict(cfg)
+    meta = {"config": config, "hostname": platform.node(),
+            "timestamp": stamp, **extra}
+    (exp_dir / f"meta-{stamp}.json").write_text(json.dumps(meta, indent=2))
+    (exp_dir / f"meta-{stamp}.txt").write_text(
+        "\n".join(f"{k}: {v!r}" for k, v in config.items()))
+    return stamp
 
 
 def read_latest_run_config(exp_dir, config_cls):

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX student's Flax variables -> the port's ``state_dict``.
+"""Weight bridge: the JAX models' Flax variables -> the port's ``state_dict``.
 
 The JAX ``VGGMStudent`` keeps ``{'params', 'batch_stats'}`` as nested
 dicts (optionally under ``'net'``, as ``AudioStudentPipeline`` and
@@ -31,6 +31,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from mcncrossmodalemotions_torch.models.vggface import VD16_BLOCKS, fc6_extent
 
 _CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5", "fc6")
 _DENSES = ("fc7", "prediction")
@@ -145,19 +147,23 @@ def random_student_variables(seed: int = 0, fc6: int = 4096, fc7: int = 1024,
 
 
 # ---------------------------------------------------------------------------
-# The face teachers (ResNet50 / SENet50)
+# The face teachers (ResNet50 / SENet50, the classic VGGFace)
 # ---------------------------------------------------------------------------
 
 def teacher_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``ResNet``/``SENet`` variables to the port's ``state_dict``.
+    """Map the JAX face teachers' variables to the port's ``state_dict``:
+    ``ResNet``/``SENet`` and ``VGGFace`` alike, whose port modules carry the
+    Flax module names.
 
-    Both the bare ``ResNet`` tree and the one nested under ``'teacher'`` by
+    Both the bare tree and the one nested under ``'teacher'`` by
     ``FaceTeacherPipeline`` (keys ``teacher.``-prefixed) map: conv kernels
-    HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``Linear`` ``[out, in]``
-    (the SE pair and the head), BatchNorm ``scale/bias`` and ``mean/var``
-    -> ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
-    The port's module names are the Flax ones, so a leaf the port lacks or
-    a key it has and the tree does not fail its strict ``load_state_dict``.
+    HWIO -> OIHW (VGGFace's fc6/fc7 are convs), Dense kernels ``[in, out]``
+    -> ``Linear`` ``[out, in]`` (the SE pair and the head), conv and Dense
+    biases as they are, BatchNorm ``scale/bias`` and ``mean/var`` ->
+    ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
+    A tree without ``batch_stats`` maps its parameters alone. A leaf the
+    port lacks or a key it has and the tree does not fail its strict
+    ``load_state_dict``.
     """
     params, stats = variables["params"], variables.get("batch_stats", {})
 
@@ -186,6 +192,13 @@ def teacher_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         state[f"{key}.running_{name}"] = tensor(leaf)
         state[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return state
+
+
+def teacher_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a teacher's params-shaped tree (the JAX ``TrainState.velocity``,
+    or its ``params``) to the port's parameter names, the keys of the
+    port's velocity."""
+    return teacher_state_dict_from_flax({"params": tree})
 
 
 def random_teacher_variables(seed: int = 0, use_se: bool = True,
@@ -251,3 +264,62 @@ def random_teacher_variables(seed: int = 0, use_se: bool = True,
                 for k, v in tree.items()}
 
     return {"params": f32(params), "batch_stats": f32(stats)}
+
+
+def random_vggface_variables(seed: int = 0, arch: str = "m",
+                             use_batchnorm: bool = True,
+                             width_multiplier: float = 1.0,
+                             fc_features: int = 4096, num_outputs: int = 8,
+                             input_size: int = 224) -> dict:
+    """Seeded ``VGGFace`` weights in the Flax layout (bare tree), numpy
+    only (``np.random.RandomState(seed)``), the shapes of
+    ``models.vggface.VGGFace`` with the same arguments at ``input_size``.
+
+    He-normal conv kernels (conv1 scaled by 1/100 for the mean-subtracted
+    0-255 input); with ``use_batchnorm`` randomised BatchNorm scales,
+    biases, running means and variances and no conv biases, without it
+    small random conv biases; a head that gives O(1) logits."""
+    rng = np.random.RandomState(seed)
+
+    def width(c):
+        return max(8, int(round(c * width_multiplier)))
+
+    if arch == "vd":
+        layers = [(f"conv{b}_{c}", 3, width(w))
+                  for b, ws in enumerate(VD16_BLOCKS, start=1)
+                  for c, w in enumerate(ws, start=1)]
+    elif arch == "m":
+        layers = [("conv1", 7, width(96)), ("conv2", 5, width(256))] + [
+            (f"conv{i}", 3, width(512)) for i in (3, 4, 5)]
+    else:
+        raise ValueError(f"unknown VGGFace arch {arch!r}")
+    fc = width(fc_features)
+    layers += [("fc6", fc6_extent(arch, input_size), fc), ("fc7", 1, fc)]
+    params: dict = {}
+    stats: dict = {}
+    in_ch = 3
+    for name, k, out in layers:
+        gain = 0.01 if in_ch == 3 else 1.0
+        node = {"kernel": rng.normal(0.0, gain * np.sqrt(2.0 / (k * k * in_ch)),
+                                     (k, k, in_ch, out))}
+        if use_batchnorm:
+            params[f"bn_{name}"] = {"scale": rng.uniform(0.5, 1.5, out),
+                                    "bias": rng.normal(0.0, 0.1, out)}
+            stats[f"bn_{name}"] = {"mean": rng.normal(0.0, 0.1, out),
+                                   "var": rng.uniform(0.5, 2.0, out)}
+        else:
+            node["bias"] = rng.normal(0.0, 0.01, out)
+        params[name] = node
+        in_ch = out
+    params["prediction"] = {
+        "kernel": rng.normal(0.0, 1.0 / np.sqrt(fc), (fc, num_outputs)),
+        "bias": rng.normal(0.0, 0.1, num_outputs)}
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.astype(np.float32)
+                for k, v in tree.items()}
+
+    out = {"params": f32(params)}
+    if use_batchnorm:
+        out["batch_stats"] = f32(stats)
+    return out

@@ -1,11 +1,14 @@
 """The port's zoo (``mcncrossmodalemotions_tpu/zoo/registry.py``): the student's
 ``build_student`` (emoVoxZoo.m:25-31, scratch init :202-243),
 ``load_pretrained_student`` (the released weights, emoVoxZoo.m:25-44) and
-``student_loss_fn`` (emoVoxZoo.m:137-169); the ResNet/SENet teachers'
-``build_teacher`` (ferPlusZoo.m:37-92), ``load_pretrained_teacher``
-(ferPlusZoo.m:103-114), ``release_mean_rgb`` and
-``fold_teacher_conv_biases``. The classic VGG face teachers are not ported
-yet (ROADMAP.md queue 1).
+``student_loss_fn`` (emoVoxZoo.m:137-169); the face teachers'
+``build_teacher`` for every name of the reference's teacher zoo
+(ferPlusZoo.m:37-92: the ResNet/SENet teachers and bases, the classic VGG
+face models), ``load_pretrained_teacher`` (ferPlusZoo.m:103-114), the
+fine-tuning entry points ``prepare_teacher_from_base`` and
+``prepare_classic_from_base`` (head-resize surgery, ferPlusZoo.m:116-199),
+``release_mean_rgb``, the conv-bias folds, ``teacher_loss_fn``
+(ferPlusZoo.m:239-255) and the dev-checkpoint registry (ferPlusZoo.m:63-92).
 
 Released ``.mat`` files are read by the port's own copy of the MatConvNet
 importer (``zoo/matconvnet.py``) and reach the model through the weight
@@ -25,6 +28,7 @@ from torch import nn
 from mcncrossmodalemotions_torch.losses import (
     class_error,
     distillation_ce,
+    distribution_ce,
     euclidean_loss,
     huber_loss,
     per_class_stats,
@@ -32,9 +36,11 @@ from mcncrossmodalemotions_torch.losses import (
 )
 from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
 from mcncrossmodalemotions_torch.models.resnet import ResNet, ResNet50, SENet50
+from mcncrossmodalemotions_torch.models.surgery import reinit_head
 from mcncrossmodalemotions_torch.models.teacher_pipeline import (
     FaceTeacherPipeline,
 )
+from mcncrossmodalemotions_torch.models.vggface import VGGFace
 from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, SpecConfig
 from mcncrossmodalemotions_torch.utils.device import resolve_device
@@ -45,13 +51,23 @@ from mcncrossmodalemotions_torch.zoo.bridge import (
 
 STUDENT_MODELS = ("emovoxceleb-student",)
 TEACHER_MODELS = ("resnet50-ferplus", "senet50-ferplus")
-# VGGFace2-pretrained bases (ferPlusZoo.m:37-42): the same architectures
+# VGGFace2-pretrained bases (ferPlusZoo.m:37-42), the starting points of
+# FER+ fine-tuning: the same architectures (prepare_teacher_from_base)
 VGGFACE2_MODELS = ("resnet50_ft-dag", "resnet50_scratch-dag",
                    "senet50_ft-dag", "senet50_scratch-dag")
-# classic pre-ResNet face models (ferPlusZoo.m:44-59): not ported yet
+# classic pre-ResNet face models (ferPlusZoo.m:44-59): VGG-VD-16 and VGG-M
+# stacks (models/vggface.py); '-bn' names carry BatchNorm, the rest take the
+# useBnorm retrofit (build_teacher(use_bnorm=True)). 'resnet50-face-sfew' is
+# a plain ResNet50 and goes with the ResNet names.
 CLASSIC_MODELS = ("vgg_face", "vgg-vd-face", "vgg-vd-face-fer",
                   "vgg-vd-face-sfew", "vgg-vd-face-sfew-dag",
                   "vgg-m-face-bn", "vgg-m-face-bn-fer")
+
+
+def _release_file(mat_path: str | Path) -> None:
+    if not Path(mat_path).is_file():
+        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
+                                "takes a path and downloads nothing)")
 
 
 def build_student(name: str = "emovoxceleb-student", *,
@@ -128,9 +144,7 @@ def load_pretrained_student(mat_path: str | Path, *,
     )
 
     device = resolve_device(device, "load_pretrained_student")
-    if not Path(mat_path).is_file():
-        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
-                                "takes a path and downloads nothing)")
+    _release_file(mat_path)
     with mat_cache_scope():
         variables = fold_conv_biases(import_vggm_student(mat_path))
     params = variables["params"]
@@ -151,16 +165,28 @@ def load_pretrained_student(mat_path: str | Path, *,
 def build_teacher(name: str = "senet50-ferplus", *,
                   num_outputs: int = 8,
                   dropout: float = 0.0,
-                  tiny: bool = False) -> ResNet:
-    """Teacher zoo (ferPlusZoo.m:37-92 registry, 8-way CNTK head): the
-    ResNet/SENet names build ``models.resnet.ResNet``; ``tiny`` gives the
-    JAX zoo's test variant (``stage_sizes=(1, 1)``, ``width=8``). ``dropout``
-    is the single pooled-embedding dropout (inactive at inference). The
-    classic VGG face names raise ``NotImplementedError``."""
+                  use_bnorm: Optional[bool] = None,
+                  tiny: bool = False,
+                  input_size: int = 224) -> nn.Module:
+    """Teacher zoo (ferPlusZoo.m:37-92 registry, 8-way CNTK head).
+
+    The ResNet/SENet names build ``models.resnet.ResNet`` (``tiny``:
+    ``stage_sizes=(1, 1)``, ``width=8``), the classic VGG face names
+    (``CLASSIC_MODELS``) ``models.vggface.VGGFace`` (``tiny``: width 1/16,
+    fc 64) for ``input_size`` inputs (fc6's kernel covers the extent left
+    there). ``dropout`` is the reference's insert_dropout option
+    (ferPlusZoo.m:213-233): the ResNet's single pooled-embedding dropout,
+    VGGFace's after fc6 and fc7. ``use_bnorm`` is the useBnorm retrofit
+    (ferPlusZoo.m:123) of the classics: on for the '-bn' names by default,
+    off for the rest; the ResNets carry BatchNorm and ignore it."""
     if name in CLASSIC_MODELS:
-        raise NotImplementedError(
-            f"{name!r} is a classic VGG face teacher (models/vggface.py of the "
-            "JAX package), not ported yet; see ROADMAP.md queue 1")
+        bn = ("-bn" in name) if use_bnorm is None else use_bnorm
+        kw = dict(arch="m" if name.startswith("vgg-m") else "vd",
+                  use_batchnorm=bn, num_outputs=num_outputs,
+                  dropout_rate=dropout, input_size=input_size)
+        if tiny:
+            kw.update(width_multiplier=1 / 16, fc_features=64)
+        return VGGFace(**kw)
     known = TEACHER_MODELS + VGGFACE2_MODELS + ("resnet50-face-sfew",)
     if name not in known:
         raise KeyError(f"unknown teacher {name!r}; known: "
@@ -224,6 +250,7 @@ def release_mean_rgb(mat_path: str | Path) -> Optional[Tuple[float, ...]]:
 def load_pretrained_teacher(mat_path: str | Path, *,
                             with_pipeline: bool = False,
                             input_size: int = 224,
+                            augment: bool = False,
                             device: torch.device | str = "cuda"
                             ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """Load a released MatConvNet teacher ``.mat`` (classic or ``-v7.3``)
@@ -236,8 +263,9 @@ def load_pretrained_teacher(mat_path: str | Path, *,
     unless the caller asks for the CPU) in eval mode and the ``state_dict``
     a separate copy there. With ``with_pipeline`` the model is a
     ``FaceTeacherPipeline`` whose ``mean_rgb`` is the release's
-    ``normalization.averageImage`` where it has one, and the keys carry
-    its ``teacher.`` prefix. The ResNet computes in bf16; an fp32 caller
+    ``normalization.averageImage`` where it has one, its train-mode fliplr
+    on with ``augment``, and the keys carry its ``teacher.`` prefix. The
+    ResNet computes in bf16; an fp32 caller
     sets its ``dtype`` (the pipeline's ``teacher.dtype``). ``mat_path`` is
     a path; nothing is downloaded.
     """
@@ -247,9 +275,7 @@ def load_pretrained_teacher(mat_path: str | Path, *,
     )
 
     device = resolve_device(device, "load_pretrained_teacher")
-    if not Path(mat_path).is_file():
-        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
-                                "takes a path and downloads nothing)")
+    _release_file(mat_path)
     with mat_cache_scope():  # params and meta from one parse
         arch, variables = import_teacher(mat_path)
         fold_teacher_conv_biases(arch, variables)
@@ -259,13 +285,102 @@ def load_pretrained_teacher(mat_path: str | Path, *,
         if with_pipeline:
             mean = release_mean_rgb(mat_path)
             kw = {"mean_rgb": mean} if mean is not None else {}
-            model = FaceTeacherPipeline(model, input_size=input_size, **kw)
+            model = FaceTeacherPipeline(model, input_size=input_size,
+                                        augment=augment, **kw)
             variables = {"params": {"teacher": variables["params"]},
                          "batch_stats": {"teacher": variables["batch_stats"]}}
     state = teacher_state_dict_from_flax(variables)
     model.load_state_dict(state, strict=True)
     return (model.to(device).eval(),
             {k: v.to(device) for k, v in state.items()})
+
+
+def _loaded(model: nn.Module, state: Dict[str, torch.Tensor],
+            device: torch.device) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    model.load_state_dict(state, strict=True)
+    return model.to(device), {k: v.to(device) for k, v in state.items()}
+
+
+def prepare_teacher_from_base(mat_path: str | Path, *, num_outputs: int = 8,
+                              seed: int = 0,
+                              device: torch.device | str = "cuda"
+                              ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """Fine-tune entry point: a VGGFace2 base ``.mat`` (e.g. the 8631-way
+    ``senet50_ft-dag``) -> a FER+-ready ResNet/SENet.
+
+    The reference's surgery path (ferPlusZoo.m:116-199 prepareFromDagNN):
+    the importer reads the conv/BN stack (the loss layers stay behind),
+    conv biases fold into the BN means, and the classifier is resized to
+    ``num_outputs`` and re-initialised at scale 1/100 with zero biases
+    (``models/surgery.reinit_head``, drawn from a generator seeded by
+    ``seed``). Returns ``(model, state_dict)`` on ``device`` (the card
+    unless the caller asks for the CPU); the backbone's learning-rate
+    scaling comes from ``train.state.finetune_lr_scale_fn``."""
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        import_teacher,
+        mat_cache_scope,
+    )
+
+    device = resolve_device(device, "prepare_teacher_from_base")
+    _release_file(mat_path)
+    with mat_cache_scope():
+        arch, variables = import_teacher(mat_path)
+    fold_teacher_conv_biases(arch, variables)
+    state = reinit_head(teacher_state_dict_from_flax(variables), num_outputs,
+                        seed, scale=1.0 / 100.0)
+    model = ResNet(stage_sizes=arch["stage_sizes"], use_se=arch["use_se"],
+                   width=arch["width"], num_outputs=num_outputs)
+    return _loaded(model, state, device)
+
+
+def fold_classic_conv_biases(variables: dict) -> dict:
+    """Fold the released conv and fc biases into their BN running means, in
+    place, and return ``variables``, for a classic model built with
+    BatchNorm (its convs are bias-free): mean' = mean - bias, the
+    invariance of ``fold_teacher_conv_biases`` (the JAX
+    ``_fold_classic_conv_biases``)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    for k in list(params):
+        bn = f"bn_{k}"
+        if bn in stats:
+            bias = params[k].pop("bias", None)
+            if bias is not None:
+                stats[bn]["mean"] = (np.asarray(stats[bn]["mean"])
+                                     - np.asarray(bias))
+    return variables
+
+
+def prepare_classic_from_base(mat_path: str | Path, name: str, *,
+                              num_outputs: int = 8, seed: int = 0,
+                              use_bnorm: Optional[bool] = None,
+                              input_size: int = 224,
+                              device: torch.device | str = "cuda"
+                              ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """A classic VGG face base ``.mat`` (e.g. the 2622-way ``vgg_face``) ->
+    a FER+-ready ``VGGFace`` (ferPlusZoo.m:44-59 names, :116-199 surgery):
+    ``build_teacher(name, use_bnorm=..., input_size=...)``, the release
+    imported into it (identity BatchNorm retrofitted where the model wants
+    BN and the release has none), the conv biases folded into the BN means
+    for a model with BatchNorm, the classifier resized to ``num_outputs``
+    with the 1/100 re-init and zero biases from ``seed``. Returns
+    ``(model, state_dict)`` on ``device``."""
+    from mcncrossmodalemotions_torch.zoo.matconvnet import (
+        import_classic_teacher,
+        mat_cache_scope,
+    )
+
+    device = resolve_device(device, "prepare_classic_from_base")
+    _release_file(mat_path)
+    model = build_teacher(name, num_outputs=num_outputs, use_bnorm=use_bnorm,
+                          input_size=input_size)
+    with mat_cache_scope():
+        variables = import_classic_teacher(mat_path, model)
+    if model.use_batchnorm:
+        fold_classic_conv_biases(variables)
+    state = reinit_head(teacher_state_dict_from_flax(variables), num_outputs,
+                        seed, scale=1.0 / 100.0)
+    return _loaded(model, state, device)
 
 
 def student_loss_fn(loss_type: str = "hot-cross-ent", *,
@@ -304,3 +419,81 @@ def student_loss_fn(loss_type: str = "hot-cross-ent", *,
         return loss, metrics
 
     return loss_fn
+
+
+def teacher_loss_fn(loss_type: str = "distributions",
+                    num_classes: int = 8) -> Callable:
+    """Teacher loss stack (ferPlusZoo.m:239-255): ``'distributions'``, the
+    cross-entropy against the rater-vote distributions
+    (``batch['label_dist']``), or ``'softmaxlog'`` against the hard label;
+    metrics ``classerror`` (against the hard label), ``class_correct`` and
+    ``class_pop``. Rows with ``batch['pad_mask'] == 0`` drop out."""
+
+    def loss_fn(logits, batch):
+        hard = batch["hard_label"]
+        w = batch.get("pad_mask")
+        if loss_type == "distributions":
+            loss = distribution_ce(logits, batch["label_dist"],
+                                   sample_weight=w)
+        elif loss_type == "softmaxlog":
+            loss = softmax_ce(logits, hard, sample_weight=w)
+        else:
+            raise ValueError(f"unknown loss_type {loss_type!r}")
+        correct, pop = per_class_stats(logits, hard, num_classes,
+                                       sample_weight=w)
+        metrics = {
+            "classerror": class_error(logits, hard, sample_weight=w),
+            "class_correct": correct,
+            "class_pop": pop,
+        }
+        return loss, metrics
+
+    return loss_fn
+
+
+# Dev-checkpoint registry (ferPlusZoo.m:63-92): development model names
+# pinned to training epochs inside their experiment directories, resolved
+# to the checkpoints of this framework's experiment directories (the port's
+# net-epoch-N.pt, or the JAX package's .msgpack, which
+# ``exp.ferplus_baselines.load_teacher_from_exp`` also reads).
+DEV_CHECKPOINTS = {
+    "resnet50_ft-dag-dropout-0.1":
+        ("grimaces/resnet50_ft-dag-dropout-0.1", 17),
+    "resnet50_ft-dag-dropout-0.5":
+        ("grimaces/resnet50_ft-dag-dropout-0.5", 122),
+    "senet50_ft-dag-distributions-dropout-0.5-aug":
+        ("grimaces/senet50_ft-dag-distributions-dropout-0.5-aug", 98),
+    "senet50_ft-dag-distributions-CNTK-dropout-0.5-aug":
+        ("grimaces/senet50_ft-dag-distributions-CNTK-dropout-0.5-aug", 90),
+}
+
+
+def _resolve_dev(name: str) -> Tuple[str, int]:
+    """(exp subdir, pinned epoch) of a dev model name, or KeyError."""
+    if name not in DEV_CHECKPOINTS:
+        raise KeyError(f"unknown dev checkpoint {name!r}; known: "
+                       f"{sorted(DEV_CHECKPOINTS)}")
+    return DEV_CHECKPOINTS[name]
+
+
+def dev_checkpoint_path(name: str, exps_root: str | Path) -> Path:
+    """The port's checkpoint file of a dev model name at its pinned epoch
+    (ferPlusZoo.m:63-92 'net-epoch-N')."""
+    from mcncrossmodalemotions_torch.train.checkpoints import checkpoint_path
+
+    subdir, epoch = _resolve_dev(name)
+    return checkpoint_path(Path(exps_root) / subdir, epoch)
+
+
+def load_dev_checkpoint(name: str, exps_root: str | Path,
+                        device: torch.device | str = "cuda"):
+    """A dev teacher by name at its pinned epoch (name -> exp dir + epoch
+    -> the restored pipeline, losses stripped): ``(model, state_dict)``
+    from ``exp.ferplus_baselines.load_teacher_from_exp``."""
+    from mcncrossmodalemotions_torch.exp.ferplus_baselines import (
+        load_teacher_from_exp,
+    )
+
+    subdir, epoch = _resolve_dev(name)
+    return load_teacher_from_exp(Path(exps_root) / subdir, epoch=epoch,
+                                 device=device)

@@ -15,6 +15,14 @@
   dense tree gives every smoke track its fixture frames, and its teacher
   phase rehearses on the CPU: the golden gates at full width, the dense
   build, its resume and an epoch at tiny sizes.
+- The teacher-train phase rehearses on the CPU: ``ferplus_baselines``,
+  its resume, eval-only and benchmark at tiny width, a classic vgg-m-face-bn
+  base written by ``classic_release`` (full width at 48x48) imported to its
+  seeded weights and fine-tuned, the profiled epoch and the train steps of
+  the four timed teachers with their FLOP count (the golden gates run on
+  the CPU in ``test_torch_teacher_train.py``); it runs after ``teacher``
+  and before ``probes``,
+  and the script's last line is the device line alone.
 """
 
 import shutil
@@ -206,3 +214,35 @@ def test_teacher_phase_rehearses_on_the_cpu(tmp_path):
                                       dev="cpu")
     assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}  # CPU tensors
 
+
+
+def test_teacher_train_phase_rehearses_on_the_cpu(tmp_path):
+    from mcncrossmodalemotions_torch.ops import pool
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+
+    torch.set_num_threads(2)
+    wrappers = {"spectrogram": spectrogram_cuda,
+                "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda}
+    counts = chip_smoke.teacher_train_phase("cpu", tmp_path, wrappers,
+                                            dev="cpu")
+    assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}
+
+
+def test_phases_in_order_and_the_last_line():
+    """teacher-train runs after teacher and before probes, its counts join
+    the kernel line's launches, and the device line is printed last."""
+    import ast
+
+    src = (REPO / "chip_smoke.py").read_text()
+    main = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    phases = [c.args[0].value for c in ast.walk(main)
+              if isinstance(c, ast.Call) and getattr(c.func, "id", "") == "phase"]
+    assert phases == ["device", "build", "data", "k1", "k2", "slice",
+                      "k2-backward", "train", "distill", "reader", "release",
+                      "analysis", "teacher", "teacher-train", "probes"]
+    assert "teacher_train_counts[name]" in ast.get_source_segment(src, main)
+    last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
+    assert 'json.dumps({"ok": True, "device": {' in "\n".join(last)

@@ -5,7 +5,12 @@ their originals on the same inputs.
   ``read_wav``, ``float_to_pcm16``, ``pack_pcm16`` and ``resample_to``
   give equal results, over the wav formats the reader accepts;
 - ``data.imdb``: ``.npz`` manifests round-trip in both directions, with
-  the same keys; ``object_array`` and ``float_tracks`` agree;
+  the same keys (``EmoVoxImdb``, ``FerPlusImdb``, ``TrackImdb``);
+  ``object_array`` and ``float_tracks`` agree;
+- ``data.ferplus`` and the host warp of ``ops.warp``: the synthetic FER+
+  imdb and its augmented batches bitwise equal
+  (``tests/test_torch_ferplus.py`` and ``tests/test_torch_warp.py`` cover
+  every function);
 - ``data.external``: ``build_synthetic_track_imdb`` writes the same wavs
   and returns equal manifests; ``get_rml_imdb`` reads a tree alike;
 - ``data.native``: where the C++ library loads, the same crops as the JAX
@@ -119,6 +124,15 @@ def _track(mod):
         classes=("p", "q"))
 
 
+def _ferplus(mod):
+    rng = np.random.RandomState(3)
+    return mod.FerPlusImdb(
+        data=rng.randint(0, 256, (5, 48, 48, 1)).astype(np.uint8),
+        hard_labels=np.asarray([0, 3, 7, 1, 1], np.int32),
+        votes=rng.randint(0, 6, (5, 10)).astype(np.float32),
+        set_id=np.asarray([1, 1, 2, 3, 3], np.int32), classes=("n", "h"))
+
+
 def _assert_same_imdb(a, b):
     assert type(a).__name__ == type(b).__name__
     for f in dataclasses.fields(a):
@@ -134,11 +148,12 @@ def _assert_same_imdb(a, b):
             assert x == y, f.name
 
 
-@pytest.mark.parametrize("kind", ["emovox", "emovox-frames", "track"])
+@pytest.mark.parametrize("kind", ["emovox", "emovox-frames", "track",
+                                  "ferplus"])
 def test_imdb_npz_round_trips_both_ways(tmp_path, kind):
     make = {"emovox": lambda m: _emovox(m, False),
             "emovox-frames": lambda m: _emovox(m, True),
-            "track": _track}[kind]
+            "track": _track, "ferplus": _ferplus}[kind]
     ours, theirs = make(imdb), make(jimdb)
     cls = type(ours)
     jcls = type(theirs)
@@ -165,6 +180,29 @@ def test_imdb_helpers_and_subsets_equal():
         jimdb.SET_TRAIN, jimdb.SET_UNHEARD_VAL, jimdb.SET_HEARD_VAL)
     _assert_same_imdb(_emovox(imdb, True).subset([2, 0]),
                       _emovox(jimdb, True).subset([2, 0]))
+    _assert_same_imdb(_ferplus(imdb).subset([4, 1]),
+                      _ferplus(jimdb).subset([4, 1]))
+    assert _ferplus(imdb).num_images == _ferplus(jimdb).num_images == 5
+
+
+def test_ferplus_and_host_warp_copies_equal():
+    """The synthetic FER+ imdb and its host-augmented batches (warp at 48
+    and straight to 64), bit for bit."""
+    from mcncrossmodalemotions_torch.data import ferplus
+    from mcncrossmodalemotions_tpu.data import ferplus as jferplus
+
+    ours, theirs = (m.build_synthetic_ferplus(40, seed=2)
+                    for m in (ferplus, jferplus))
+    _assert_same_imdb(ours, theirs)
+    for out_size in (None, 64):
+        kw = dict(subset=1, batch_size=12, shuffle=True, seed=5,
+                  augment=True, augment_out_size=out_size)
+        for a, b in zip(ferplus.ferplus_batches(ours, **kw),
+                        jferplus.ferplus_batches(theirs, **kw)):
+            assert sorted(a) == sorted(b)
+            for key in a:
+                assert a[key].dtype == b[key].dtype, key
+                np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 @pytest.mark.parametrize("classes", [external.RML_CLASSES, ("calm", "loud")])

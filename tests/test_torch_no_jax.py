@@ -9,7 +9,10 @@ classic-``.mat`` release, reads a JAX experiment directory (written here
 by the JAX package), runs the student statistics and the external
 benchmarks without figures, decodes face frames through the port's own
 JPEG library, loads a classic-``.mat`` teacher and runs
-``compute_visual_feats`` and ``build_imdb`` with it, and then inspects
+``compute_visual_feats`` and ``build_imdb`` with it, trains tiny FER+
+teachers with ``ferplus_baselines`` (scratch, and from a VGGFace2 base
+``.mat``), evaluates and reloads them, reloads a JAX package teacher run
+(written here by the JAX package), and then inspects
 ``sys.modules``: no jax, flax, optax or JAX package, and none of
 ``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
 only to read ``-v7.3`` files, to draw, and to read frames where its own
@@ -166,6 +169,33 @@ SCRIPT = textwrap.dedent("""
                            verbose=False, device="cpu")
         assert [w.shape for w in built.wav_logits] == [(3, 8)] * 4
 
+    from mcncrossmodalemotions_torch.data.ferplus import (
+        build_synthetic_ferplus)
+    from mcncrossmodalemotions_torch.exp import ferplus_baselines as fb
+
+    faces_imdb = build_synthetic_ferplus(40)
+    with tempfile.TemporaryDirectory() as d:
+        chip_smoke.teacher_release(Path(d) / "base.mat", stage_sizes=(1, 1),
+                                   width=8)
+        for model, mat in (("vgg-m-face-bn", None),
+                           ("senet50_ft-dag", str(Path(d) / "base.mat"))):
+            cfg = fb.FerPlusConfig(model=model, batch_size=8, input_size=48,
+                                   tiny_model=True, lr_epochs=(1,),
+                                   pretrained_mat=mat, out_root=d)
+            _, history = fb.ferplus_baselines(cfg, faces_imdb, device="cpu")
+            if mat is None:  # a base release's run reloads, no eval-only
+                _, stats = fb.ferplus_baselines(cfg, faces_imdb,
+                                                evaluate_only="val",
+                                                use_best_epoch=True,
+                                                device="cpu")
+                assert stats["accuracy"] == 1 - history[0]["val"]["classerror"]
+            pipe, state = fb.load_teacher_from_exp(Path(d) / cfg.exp_name(),
+                                                   device="cpu")
+    pipe, state = fb.load_teacher_from_exp(sys.argv[2], device="cpu")
+    with torch.inference_mode():
+        out = pipe(torch.zeros(2, 48, 48, 1, dtype=torch.uint8))
+    assert out.shape == (2, 8) and bool(torch.isfinite(out).all())
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN + LAZY)
     assert not leaked, leaked
@@ -197,8 +227,34 @@ def jax_exp_dir(tmp_path):
     return exp_dir
 
 
-def test_torch_package_imports_no_jax(jax_exp_dir):
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(jax_exp_dir)],
+@pytest.fixture
+def jax_teacher_exp_dir(tmp_path):
+    """A JAX FER+ experiment directory: the run metadata of a tiny SENet
+    run and a msgpack checkpoint of its pipeline, written by the JAX
+    package."""
+    import jax
+    import jax.numpy as jnp
+
+    from mcncrossmodalemotions_tpu.exp.ferplus_baselines import FerPlusConfig
+    from mcncrossmodalemotions_tpu.train.checkpoints import save_checkpoint
+    from mcncrossmodalemotions_tpu.train.state import TrainState
+    from mcncrossmodalemotions_tpu.utils.config import write_run_meta
+    from mcncrossmodalemotions_torch.zoo import random_teacher_variables
+
+    cfg = FerPlusConfig(tiny_model=True, input_size=48, out_root=str(tmp_path))
+    exp_dir = tmp_path / cfg.exp_name()
+    write_run_meta(exp_dir, cfg)
+    v = random_teacher_variables(seed=1, stage_sizes=(1, 1), width=8)
+    nested = {k: {"teacher": jax.tree.map(jnp.asarray, t)}
+              for k, t in v.items()}
+    save_checkpoint(exp_dir, 1, TrainState.create(nested, jax.random.PRNGKey(0)),
+                    {"val": {"classerror": 0.5}})
+    return exp_dir
+
+
+def test_torch_package_imports_no_jax(jax_exp_dir, jax_teacher_exp_dir):
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(jax_exp_dir),
+                           str(jax_teacher_exp_dir)],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout

@@ -134,6 +134,20 @@ def test_checkpoint_round_trip_and_mismatch_raises(tmp_path):
         ckpt.load_latest(tmp_path, wrong)
 
 
+def test_resume_requires_the_generator_state(tmp_path):
+    """A training resume restores the dropout generator; a checkpoint
+    without its state raises rather than resume on a fresh stream."""
+    state = engine.TrainState.create(torch.nn.Linear(3, 2),
+                                     torch.Generator().manual_seed(5))
+    path = ckpt.save_checkpoint(tmp_path, 1, state, {})
+    record = ckpt.read_checkpoint(path)
+    del record["generator"]
+    torch.save(record, path)
+    other = engine.TrainState.create(torch.nn.Linear(3, 2), torch.Generator())
+    with pytest.raises(KeyError, match="generator"):
+        ckpt.load_latest(tmp_path, other)
+
+
 @pytest.mark.parametrize("field,value", [("online_teacher", True),
                                          ("remat_policy", "drop_conv1"),
                                          ("mulaw_feed", True),

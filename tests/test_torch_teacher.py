@@ -197,21 +197,24 @@ def test_resize_separable_matches_jax(shape, out):
 
 
 def test_build_teacher_names_and_refusals():
+    """Every zoo name builds (the classic VGG face names too, since the
+    teacher's training slice) and an unknown one raises; the teachers and
+    their pipeline run in train mode (``tests/test_torch_teacher_train.py``
+    holds that mode to Flax)."""
     assert build_teacher("senet50-ferplus", tiny=True).use_se
     assert not build_teacher("resnet50-ferplus", tiny=True).use_se
     full = build_teacher("senet50_ft-dag")
     assert full.stage_sizes == (3, 4, 6, 3) and full.width == 64
-    for name in ("vgg_face", "vgg-m-face-bn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_teacher(name)
+    assert build_teacher("vgg_face").arch == "vd"
+    assert build_teacher("vgg-m-face-bn", tiny=True).use_batchnorm
     with pytest.raises(KeyError):
         build_teacher("alexnet")
     model = build_teacher(tiny=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model(torch.zeros(1, 32, 32, 3), train=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FaceTeacherPipeline(model, input_size=32)(torch.zeros(1, 32, 32, 1),
-                                                  train=True)
+    gen = torch.Generator().manual_seed(0)
+    assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 8)
+    out = FaceTeacherPipeline(model, input_size=32)(
+        torch.zeros(2, 32, 32, 1), train=True, generator=gen)
+    assert out.shape == (2, 8)
 
 
 def test_bridge_refuses_unknown_and_missing_leaves():
