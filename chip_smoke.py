@@ -16,8 +16,10 @@ trained on from it, the student's statistics and external benchmarks;
 the teacher's serving path with full-width SENet50 and ResNet50 (face
 frames decoded by the port, dense EmoVoxCeleb inference); the teacher's
 training path (FER+ fine-tuning and evaluation of SENet50, ResNet50 and
-the classic VGG face teachers); and the two Mosaic probe tools; each path
-with and without the kernels where a comparison applies. Phases:
+the classic VGG face teachers); the whole distillation driver (the online
+step with the frozen teacher inside it, the feed options, the remat
+policies); and the two Mosaic probe tools; each path with and without the
+kernels where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
@@ -149,7 +151,42 @@ with and without the kernels where a comparison applies. Phases:
     the card-paced count, the host's issue time, peak memory and a step's
     FLOP (``torch.utils.flop_counter``) against the bf16 peak. The path
     launches no kernel of the kernel line.
-15. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+15. online: the teacher phase's SENet50 release (``dense.mat``) loaded by
+    ``load_pretrained_teacher(with_pipeline=True)`` in bf16, its built imdb
+    (``wav_logits`` and ``dense_frames`` over the fixture frames), the
+    full-width student from a seeded init, batch 64 of 4 s crops with 4 face
+    frames of 224x224 each (256 frames), hot-cross-ent at T=2, weight decay
+    5e-4. (a) 3 fused steps (``train.distill.make_online_distill_step``):
+    each launches K1 once and K2's with-index forward and backward twice;
+    the in-step targets within max(2 x bf16's own error, 1e-2 x max|target|)
+    of the same teacher's fp32 forward (TF32 off) over the same frames,
+    max-aggregated; with cuDNN deterministic, the whole state (weights,
+    running statistics, velocity) after the 3 fused steps bitwise equal to
+    the offline step's from the same init on the same crops with those
+    targets given (both run ``make_train_step``'s body; the losses' and
+    conv1 update's differences printed); the fused and the offline step's
+    ms (back to back) and peak memory, and the teacher alone over the 256
+    frames (CUDA events behind a device sleep); the host's online batch
+    (one producer thread) in ms with and without frames, the mean of an
+    epoch's batches after the first. (b)
+    ``run_distillation(online_teacher=True)`` for 2 epochs on the built
+    imdb with its train tracks repeated to 12 train batches an epoch:
+    ``-online`` in the experiment's name, checkpoints 1 and 2, finite
+    losses, train batches with frames and val batches without, the exact
+    launches; samples/s and ``feed_bound_frac`` per epoch; a resumed,
+    profiled epoch 3 with its exact launches and the device busy share
+    over its train pass. (c) One epoch each on the distill phase's
+    imdb of ``speed_aug`` with a corpus of 3 synthetic numbered noise wavs,
+    ``mulaw_feed`` and ``time_offsets`` (fixedSegments): exact launches,
+    finite losses, a directory each; the int16 and mu-law train batches
+    read by the port's wav library, bitwise the Python reads. (d) Each of
+    the five remat policies at int16 [128, 64384], 3 steps against no
+    policy from one init with cuDNN deterministic: the state bitwise equal
+    (else the largest difference per tensor printed and held within 0.5
+    relative L2), K2's with-index forward launched 2 + the recomputed
+    pools a step (drop_conv1 0, drop_through_pool1 1, the rest 2), step ms
+    and peak memory per policy.
+16. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -164,7 +201,7 @@ with and without the kernels where a comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher and teacher-train phases, the probe kernels' over the
+analysis, teacher, teacher-train and online phases, the probe kernels' over the
 probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -251,6 +288,18 @@ TRAIN_SLEEP_CYCLES = 8 * QUEUE_CYCLES  # ~400 ms of device sleep ahead of
 CLASSIC_RTOL = 1e-3           # fp32 logits, imported classic vs the bridge
 TIMED_TEACHERS = ("senet50-ferplus", "resnet50-ferplus", "vgg-vd-face",
                   "vgg-m-face-bn")
+ONLINE_BATCH = 64             # the online step: run_distillation.m's batch,
+ONLINE_FRAMES = 4             # 4 face frames a crop: 256 a batch, 224x224
+ONLINE_STEPS = 3              # fused steps against the offline step
+ONLINE_TIMED = 5              # fused and offline steps timed back to back
+ONLINE_EPOCH_BATCHES = 12     # train batches an online epoch at least: the
+                              # built imdb's train tracks repeated
+ONLINE_TRAIN_SPAN = "online train pass"  # profiler span of run_epoch
+NOISE_FILES = 3               # the speed/noise run's corpus of numbered wavs
+REMAT_POLICIES = ("drop_conv1", "drop_through_pool1", "save_pools", "dots",
+                  "nothing")
+REMAT_POOLS = {"drop_conv1": 0, "drop_through_pool1": 1, "save_pools": 2,
+               "dots": 2, "nothing": 2}  # pools recomputed a step
 
 
 class SmokeFailure(RuntimeError):
@@ -522,17 +571,10 @@ def train_phase(card: str, wrappers: dict) -> dict:
         TrainState,
         make_train_step,
     )
-    from mcncrossmodalemotions_torch.zoo import (
-        build_student,
-        random_student_variables,
-        student_loss_fn,
-        student_state_dict_from_flax,
-    )
+    from mcncrossmodalemotions_torch.zoo import student_loss_fn
 
     dev = torch.device("cuda")
-    v = random_student_variables(seed=SEED)
-    init = student_state_dict_from_flax(
-        {"params": {"net": v["params"]}, "batch_stats": {"net": v["batch_stats"]}})
+    new_student, init = student_init(full=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n = DEFAULT_SPEC.crop_samples(400)
     batch = {
@@ -547,7 +589,7 @@ def train_phase(card: str, wrappers: dict) -> dict:
     loss_fn = student_loss_fn("hot-cross-ent", temperature=2.0)
     runs = {}
     for mode in ("kernels", "plain"):
-        model = build_student()  # full width, bf16 compute, fp32 params
+        model = new_student()  # full width, bf16 compute, fp32 params
         model.load_state_dict(init)
         state = TrainState.create(model.to(dev),
                                   torch.Generator(device=dev).manual_seed(SEED))
@@ -641,11 +683,7 @@ def distill_phase(root: Path, wrappers: dict) -> tuple:
     check(len((exp_dir / "metrics.jsonl").read_text().splitlines()) == 2,
           "metrics.jsonl lacks the two epochs")
     n_val = history[0]["val"]["num_samples"]
-    val_batches = -(-n_val // 64)
-    want = {k: 0 for k in wrappers} | {
-        "spectrogram": 2 * (2 + val_batches),
-        "max_pool_3x3s2": 2 * 2 * val_batches,
-        "max_pool_3x3s2_idx": 2 * 2 * 2, "max_pool_3x3s2_bwd": 2 * 2 * 2}
+    want = epoch_launches(wrappers, 2, -(-n_val // 64), epochs=2)
     check(counts == want, f"distill launches {counts}, expected {want}")
     _, history, _ = run_distillation(DistillationConfig(num_epochs=3, **kw),
                                      imdb, device="cuda")
@@ -683,7 +721,7 @@ def probe_work(probe) -> tuple:
 def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
                  work: dict) -> dict:
     """Both probe tools on the card, then each probe kernel against its
-    plain version and timed (phase 14); returns the tools' launch counts."""
+    plain version and timed (phase 16); returns the tools' launch counts."""
     import numpy as np
     import torch
 
@@ -821,6 +859,15 @@ def extraction_launches(wrappers: dict, imdb) -> dict:
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] += v
+
+
+def state_copy(state) -> dict:
+    """A train state's model state_dict (weights and running statistics)
+    and its velocity (``velocity <name>``), cloned."""
+    return ({k: v.detach().clone()
+             for k, v in state.model.state_dict().items()}
+            | {f"velocity {k}": v.detach().clone()
+               for k, v in state.velocity.items()})
 
 
 def student_release(path: Path, seed: int = SEED, fc6: int = 4096,
@@ -1859,7 +1906,7 @@ def dense_tree(root: Path, wav_paths: list, frames: int) -> list:
 
 
 def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
-                  dev="cuda") -> dict:
+                  dev="cuda") -> tuple:
     """The teacher's serving path (phase 13): the port's JPEG decoder on
     the card's host against the golden's libjpeg frames and PIL RGB (bit
     for bit); full-width SENet50 and ResNet50 loaded from classic ``.mat``
@@ -1873,7 +1920,8 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     frames/s at the card's pace, dense frames/s, the dense run's device
     busy share, device time by op and peak memory; one
     ``run_distillation`` epoch on the built imdb.
-    Returns that epoch's launch counts. With ``dev="cpu"`` (a rehearsal on
+    Returns that epoch's launch counts and the built imdb (its teacher is
+    ``root / "dense.mat"``). With ``dev="cpu"`` (a rehearsal on
     a machine without a card) the golden checks run as they are and the
     dense build, its timings and the epoch at tiny sizes."""
     import os
@@ -2124,14 +2172,499 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     check(h["train"]["num_samples"] > 0 and np.isfinite(h["train"]["loss"])
           and np.isfinite(h["val"]["loss"]), "no finite epoch on the dense imdb")
     if dev == "cuda":
-        train_b = h["train"]["num_samples"] // distill_batch
-        val_b = -(-h["val"]["num_samples"] // distill_batch)
-        want = {k: 0 for k in wrappers} | {
-            "spectrogram": train_b + val_b, "max_pool_3x3s2": 2 * val_b,
-            "max_pool_3x3s2_idx": 2 * train_b, "max_pool_3x3s2_bwd": 2 * train_b}
+        want = epoch_launches(wrappers,
+                              h["train"]["num_samples"] // distill_batch,
+                              -(-h["val"]["num_samples"] // distill_batch))
         check(counts == want, f"dense-imdb epoch launches {counts}, "
               f"expected {want}")
-    return counts
+    return counts, imdb
+
+
+def epoch_launches(wrappers: dict, train_batches: int, val_batches: int,
+                   epochs: int = 1) -> dict:
+    """The kernel launches of ``epochs`` epochs of the student: a train
+    step launches K1 once, K2's with-index forward and its backward twice;
+    a val step K1 once and the index-free K2 twice."""
+    return {k: 0 for k in wrappers} | {
+        "spectrogram": epochs * (train_batches + val_batches),
+        "max_pool_3x3s2": epochs * 2 * val_batches,
+        "max_pool_3x3s2_idx": epochs * 2 * train_batches,
+        "max_pool_3x3s2_bwd": epochs * 2 * train_batches}
+
+
+def student_init(full: bool) -> tuple:
+    """(a fresh student pipeline, the seeded init as its state_dict):
+    full width, or the tiny width on the CPU."""
+    from mcncrossmodalemotions_torch.zoo import (
+        build_student,
+        random_student_variables,
+        student_state_dict_from_flax,
+    )
+
+    widths = {} if full else dict(fc6=64, fc7=32)
+    v = random_student_variables(seed=SEED, **widths)
+    return (lambda: build_student(tiny=not full),
+            student_state_dict_from_flax(
+                {"params": {"net": v["params"]},
+                 "batch_stats": {"net": v["batch_stats"]}}))
+
+
+def online_phase(card: str, root: Path, dense_imdb, distill_imdb,
+                 wrappers: dict, dev="cuda") -> dict:
+    """The whole distillation driver (phase 15): the fused online step,
+    ``run_distillation(online_teacher=True)``, the feed options and the
+    remat policies. Returns the launch counts of its main runs (the fused
+    steps, the driver's epochs and the remat steps; not the offline step
+    the fused one is held to). With ``dev="cpu"`` (a rehearsal on a
+    machine without a card) everything runs tiny."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mcncrossmodalemotions_torch.data.audio import write_wav
+    from mcncrossmodalemotions_torch.data.emovox import (
+        BatchConfig,
+        EmoVoxBatcher,
+    )
+    from mcncrossmodalemotions_torch.exp import run_distillation as rd
+    from mcncrossmodalemotions_torch.exp.profile_extraction import busy_us
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.train.checkpoints import list_checkpoints
+    from mcncrossmodalemotions_torch.train.distill import (
+        make_online_distill_step,
+        teacher_targets,
+    )
+    from mcncrossmodalemotions_torch.train.state import (
+        SGDConfig,
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        load_pretrained_teacher,
+        student_loss_fn,
+    )
+
+    full = dev == "cuda"
+    batch_size = ONLINE_BATCH if full else 4
+    seconds = 4.0 if full else 1.0
+    frame_size = 224 if full else 48
+    warmup, timed = (WARMUP_STEPS, ONLINE_TIMED) if full else (0, 1)
+    total = {k: 0 for k in wrappers}
+    teacher, _ = load_pretrained_teacher(root / "dense.mat", with_pipeline=True,
+                                         input_size=frame_size, device=dev)
+    new_student, init = student_init(full)
+    loss_fn = student_loss_fn("hot-cross-ent", temperature=2.0)
+    sgd = SGDConfig(weight_decay=5e-4)
+
+    def fresh_state():
+        model = new_student()
+        model.load_state_dict(init)
+        return TrainState.create(model.to(dev),
+                                 torch.Generator(device=dev).manual_seed(SEED))
+
+    # (a) the fused step against the offline step on its targets
+    bcfg = BatchConfig(num_seconds=seconds, batch_size=batch_size,
+                       frames_per_crop=ONLINE_FRAMES, frame_size=frame_size)
+    host = next(iter(EmoVoxBatcher(dense_imdb, bcfg, train=True,
+                                   seed=SEED).batches(1)))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    batch["pad_mask"] = torch.ones(batch_size, device=dev)
+    frames = batch["frames"]
+    check(tuple(frames.shape) == (batch_size, ONLINE_FRAMES, frame_size,
+                                  frame_size, 1)
+          and frames.dtype == torch.uint8, f"frames {tuple(frames.shape)}")
+    fused = make_online_distill_step(teacher, sgd=sgd)
+    offline = make_train_step(loss_fn, sgd, pass_pad_mask=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs comparable bitwise
+    try:
+        state = fresh_state()
+        w0 = state.model.net.conv1.weight.detach().clone()
+        reset_counts(wrappers)
+        fused_losses = []
+        for _ in range(ONLINE_STEPS):
+            state, m = fused(state, batch, TRAIN_LR)
+            fused_losses.append(m["loss"].item())
+        counts = read_counts(wrappers)
+        add_counts(total, counts)
+        fused_state = state_copy(state)
+        want = {k: 0 for k in wrappers} | {
+            "spectrogram": ONLINE_STEPS, "max_pool_3x3s2_idx": 2 * ONLINE_STEPS,
+            "max_pool_3x3s2_bwd": 2 * ONLINE_STEPS}
+        print(f"  online: {ONLINE_STEPS} fused steps (batch {batch_size} x "
+              f"{ONLINE_FRAMES} frames of {frame_size}x{frame_size}): losses "
+              f"{fused_losses}; launches {counts}", flush=True)
+        if full:  # CPU tensors run the plain versions, which count nothing
+            check(counts == want,
+                  f"fused-step launches {counts}, expected {want}")
+
+        targets = teacher_targets(teacher, frames, 8, "max")
+        offline_batch = {"data": batch["data"], "logit_target": targets,
+                         "max_label": targets.argmax(dim=-1),
+                         "instance_weights": torch.ones_like(targets),
+                         "pad_mask": batch["pad_mask"]}
+        state = fresh_state()
+        offline_losses = []
+        for _ in range(ONLINE_STEPS):
+            state, m = offline(state, offline_batch, TRAIN_LR)
+            offline_losses.append(m["loss"].item())
+        offline_state = state_copy(state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    fused_update = fused_state["net.conv1.weight"] - w0
+    offline_update = offline_state["net.conv1.weight"] - w0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fused_losses, offline_losses))
+    upd = ((fused_update - offline_update).norm()
+           / offline_update.norm()).item()
+    differ = [k for k, a in offline_state.items()
+              if not torch.equal(a, fused_state[k])]
+    verdict = f"DIFFERS in {differ}" if differ else "bitwise equal"
+    print(f"  online vs offline step on the same targets (cuDNN "
+          f"deterministic): losses {offline_losses}; the state after "
+          f"{ONLINE_STEPS} steps {verdict} ({len(offline_state)} tensors with "
+          f"the velocity); loss max rel diff {rel:.3e}, conv1 update rel L2 "
+          f"{upd:.3e}", flush=True)
+    check(all(np.isfinite(fused_losses)), "non-finite fused loss")
+    check(not differ, "the fused step's state differs from the offline "
+          "step's on the same targets")
+    del fused_state, offline_state
+
+    flat = frames.reshape((-1,) + tuple(frames.shape[2:]))
+    per_frame = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        teacher.teacher.dtype = dtype  # ends at bf16, the step's
+        with torch.no_grad():
+            per_frame[tag] = teacher(flat).float().reshape(
+                batch_size, ONLINE_FRAMES, -1)[..., :8].amax(dim=1)
+    scale = per_frame["fp32"].abs().max().item()
+    own = (per_frame["bf16"] - per_frame["fp32"]).abs().max().item()
+    err = (targets - per_frame["fp32"]).abs().max().item()
+    same = (targets - per_frame["bf16"]).abs().max().item()
+    gate = max(2 * own, TEACHER_BF16_RTOL * scale)
+    print(f"  online: in-step targets vs the teacher's own fp32 forward on "
+          f"the {flat.shape[0]} frames, max over each crop's frames: max abs "
+          f"{err:.3e} (gate {gate:.3e}, max |target| {scale:.4f}); vs its "
+          f"bf16 forward apart {same:.3e}; spread over crops "
+          f"{per_frame['fp32'].std(dim=0).mean().item():.4f}", flush=True)
+    check(err <= gate, "in-step teacher targets off the teacher's forward")
+
+    times = {}
+    for name, step, b in (("fused", fused, batch),
+                          ("offline", offline, offline_batch)):
+        state = fresh_state()
+        for _ in range(warmup):
+            state, _ = step(state, b, TRAIN_LR)
+        sync(dev)
+        if full:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = step(state, b, TRAIN_LR)
+        sync(dev)
+        times[name] = ((time.perf_counter() - t0) / timed * 1e3,
+                       torch.cuda.max_memory_allocated() / 2**30 if full else 0)
+        del state
+    if full:
+        def forward():
+            with torch.no_grad():
+                return teacher(flat)
+
+        paced, issue, n_paced = paced_ms(forward, TEACHER_TIMED)
+        teacher_ms = sum(paced) / len(paced)
+        how = (f"CUDA events behind a device sleep, {n_paced} of "
+               f"{len(paced)} card-paced, {min(paced):.3f}-{max(paced):.3f} "
+               f"ms; the host issues one in {min(issue):.3f}-"
+               f"{max(issue):.3f} ms")
+    else:
+        t0 = time.perf_counter()
+        teacher_targets(teacher, frames, 8, "max")
+        teacher_ms, how = (time.perf_counter() - t0) * 1e3, "host clock"
+    for name, (ms, peak) in times.items():
+        print(f"  {card}: {name} step at batch {batch_size}: {ms:.3f} ms = "
+              f"{batch_size / ms * 1e3:.2f} utts/s (mean of {timed} "
+              f"back to back after {warmup}), peak memory {peak:.3f} "
+              f"GiB", flush=True)
+    print(f"  {card}: teacher only (SENet50 bf16 over {flat.shape[0]} "
+          f"frames): {teacher_ms:.3f} ms ({how})", flush=True)
+    del fused, offline, batch, offline_batch, frames, flat
+    if full:
+        torch.cuda.empty_cache()
+
+    # the online runs' imdb: the built imdb with its train tracks repeated
+    # to ONLINE_EPOCH_BATCHES train batches an epoch (on the card)
+    train_idx = np.flatnonzero(dense_imdb.set_id == rd.SET_TRAIN)
+    reps = -(-ONLINE_EPOCH_BATCHES * batch_size // len(train_idx)) if full else 1
+    online_imdb = dense_imdb.subset(np.concatenate(
+        [np.tile(train_idx, reps),
+         np.flatnonzero(dense_imdb.set_id != rd.SET_TRAIN)]))
+    feed = {}
+    for label, k in (("with frames", ONLINE_FRAMES), ("without", 0)):
+        batcher = EmoVoxBatcher(dense_imdb.subset(np.tile(train_idx, reps)),
+                                dataclasses.replace(bcfg, frames_per_crop=k),
+                                train=True, seed=SEED)
+        it, ms = iter(batcher.batches(1, drop_remainder=True)), []
+        while True:
+            t0 = time.perf_counter()
+            if next(it, None) is None:
+                break
+            ms.append((time.perf_counter() - t0) * 1e3)
+        feed[label] = ms[1:] or ms  # the first batch warms the reader up
+    print(f"  {card}: the online batch on the host (one producer thread, as "
+          f"the engine runs it; mean of an epoch's {len(feed['without'])} "
+          f"batches after the first): "
+          f"{sum(feed['with frames']) / len(feed['with frames']):.3f} ms "
+          f"with {batch_size * ONLINE_FRAMES} frames (min "
+          f"{min(feed['with frames']):.3f}, max {max(feed['with frames']):.3f}"
+          f"), {sum(feed['without']) / len(feed['without']):.3f} ms without; "
+          f"the fused step {times['fused'][0]:.3f} ms", flush=True)
+
+    # (b) run_distillation(online_teacher=True): 2 epochs, then a profiled
+    # third; the val pass must ship no frames
+    shipped = []
+
+    class Recording(EmoVoxBatcher):
+        def batches(self, *args, **kwargs):
+            for b in super().batches(*args, **kwargs):
+                shipped.append((self.train, "frames" in b))
+                yield b
+
+    class Marked(rd.Trainer):
+        """The train passes as a profiler span, for the busy share."""
+
+        def run_epoch(self, state, batches, epoch, train=True):
+            if not train:
+                return super().run_epoch(state, batches, epoch, train)
+            with record_function(ONLINE_TRAIN_SPAN):
+                return super().run_epoch(state, batches, epoch, train)
+
+    kw = dict(batch_size=batch_size, num_seconds=seconds,
+              mini_epoch_ratio=1.0, mini_val=1.0, seed=SEED,
+              tiny_model=not full, online_teacher=True,
+              frames_per_crop=ONLINE_FRAMES, frame_size=frame_size,
+              out_root=str(root / "online-exps"))
+    rd_trainer = rd.Trainer
+    rd.EmoVoxBatcher, rd.Trainer = Recording, Marked
+    try:
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        _, history, exp_dir = rd.run_distillation(
+            rd.DistillationConfig(num_epochs=2, **kw), online_imdb,
+            device=dev, teacher_model=teacher)
+        wall = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        add_counts(total, counts)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if full else [])
+        reset_counts(wrappers)
+        with profile(activities=activities) as prof:
+            _, resumed, _ = rd.run_distillation(
+                rd.DistillationConfig(num_epochs=3, **kw), online_imdb,
+                device=dev, teacher_model=teacher)
+            sync(dev)
+        resumed_counts = read_counts(wrappers)
+        add_counts(total, resumed_counts)
+    finally:
+        rd.EmoVoxBatcher, rd.Trainer = EmoVoxBatcher, rd_trainer
+    for h in history + resumed:
+        tr = h["train"]
+        print(f"  online run_distillation epoch {h['epoch']}: train loss "
+              f"{tr['loss']:.4f} ({tr['num_samples']} samples, "
+              f"{tr['samples_per_sec']:.2f} samples/s, feed_bound_frac "
+              f"{tr['feed_bound_frac']}, feed_wait_s {tr['feed_wait_s']}, "
+              f"device_drain_s {tr['device_drain_s']}); val loss "
+              f"{h['val']['loss']:.4f} ({h['val']['num_samples']} samples)",
+              flush=True)
+    # the span is also on the device's timeline (a user annotation over
+    # the kernels it issued): the host's span sets the window, and the
+    # device's copies of it are no device work
+    events = [e for e in prof.events() if e.name != ONLINE_TRAIN_SPAN]
+    spans = [e.time_range for e in prof.events() if e.name == ONLINE_TRAIN_SPAN
+             and e.device_type == DeviceType.CPU]
+    check(len(spans) == 1, f"{len(spans)} host train spans in the profiled "
+          "run")
+    window = (spans[0].start, spans[0].end)
+    busy = busy_us(events, window) / 1e6
+    span_s = (window[1] - window[0]) / 1e6
+    print(f"  {card}: online: 2 epochs in {wall:.3f} s; the profiled epoch "
+          f"3's train pass {span_s:.3f} s, device busy {busy:.3f} s = "
+          f"{busy / span_s:.2%}; launches over epochs 1-2 {counts}, epoch 3 "
+          f"{resumed_counts}", flush=True)
+    check("-online" in exp_dir.name, f"{exp_dir.name} lacks -online")
+    check([h["epoch"] for h in history] == [1, 2]
+          and [h["epoch"] for h in resumed] == [3], "online epochs")
+    check([e for e, _ in list_checkpoints(exp_dir)] == [1, 2, 3],
+          "online checkpoints 1-3 missing")
+    check(all(np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["loss"])
+              for h in history + resumed), "non-finite online loss")
+    check({f for t, f in shipped if t} == {True}
+          and {f for t, f in shipped if not t} == {False},
+          f"frames shipped: {sorted(set(shipped))}")
+    train_b = history[0]["train"]["num_samples"] // batch_size
+    val_b = -(-history[0]["val"]["num_samples"] // batch_size)
+    if full:
+        check(train_b >= ONLINE_EPOCH_BATCHES,
+              f"{train_b} online train batches an epoch")
+        for got, epochs in ((counts, 2), (resumed_counts, 1)):
+            want = epoch_launches(wrappers, train_b, val_b, epochs=epochs)
+            check(got == want, f"online run launches over {epochs} "
+                  f"epoch(s) {got}, expected {want}")
+
+    # (c) the feed options, one short epoch each on the distill imdb
+    noise_dir = root / "noise"
+    for i in range(1, NOISE_FILES + 1):
+        rng = np.random.RandomState(SEED + i)
+        write_wav(noise_dir / f"{i:02d}.wav",
+                  (0.2 * rng.randn(int(5.5 * 16000))).astype(np.float32),
+                  16000)
+    offsets = np.random.RandomState(SEED).uniform(
+        0.0, 2.0, distill_imdb.num_tracks)
+    kw = dict(num_epochs=1, batch_size=batch_size, num_seconds=seconds,
+              mini_epoch_ratio=1.0, seed=SEED, tiny_model=not full,
+              out_root=str(root / "feed-exps"))
+    dirs = set()
+    for label, extra, run_kw in (
+            ("speed + noise corpus", dict(speed_aug=True,
+                                          noise_num=NOISE_FILES,
+                                          noise_dir=str(noise_dir)), {}),
+            ("mu-law feed", dict(mulaw_feed=True), {}),
+            ("fixedSegments", {}, dict(time_offsets=offsets))):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        _, history, exp_dir = rd.run_distillation(
+            rd.DistillationConfig(**kw, **extra), distill_imdb, device=dev,
+            **run_kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        add_counts(total, counts)
+        h = history[0]
+        train_b = h["train"]["num_samples"] // batch_size
+        val_b = -(-h["val"]["num_samples"] // batch_size)
+        want = epoch_launches(wrappers, train_b, val_b)
+        print(f"  {label}: epoch in {wall:.3f} s, train loss "
+              f"{h['train']['loss']:.4f} ({h['train']['num_samples']} "
+              f"samples, feed_bound_frac {h['train']['feed_bound_frac']}), val "
+              f"loss {h['val']['loss']:.4f}; {exp_dir.name}; launches "
+              f"{counts}", flush=True)
+        check(np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["loss"])
+              and train_b > 0, f"{label}: no finite epoch")
+        check([e for e, _ in list_checkpoints(exp_dir)] == [1],
+              f"{label}: checkpoint 1 missing")
+        check(exp_dir not in dirs, f"{label}: shares a directory")
+        dirs.add(exp_dir)
+        if full:
+            check(counts == want, f"{label} launches {counts}, expected {want}")
+    plain_dir = Path(kw["out_root"]) / rd.DistillationConfig(**kw).exp_name()
+    check(plain_dir not in dirs, "a feed option took the plain directory")
+    for fmt, emit in (("int16", {}), ("mulaw8", dict(emit_mulaw=True))):
+        cfg = BatchConfig(num_seconds=seconds, batch_size=batch_size, **emit)
+        batcher = EmoVoxBatcher(distill_imdb, cfg, train=True, seed=SEED)
+        check(batcher.uses_library(), f"{fmt} batches not read by the library")
+        lib = list(batcher.batches(1))
+        os.environ["MCNCME_DISABLE_NATIVE"] = "1"
+        try:
+            python = list(batcher.batches(1))
+        finally:
+            del os.environ["MCNCME_DISABLE_NATIVE"]
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(lib, python)
+                   for k in b) and len(lib) == len(python)
+        print(f"  {fmt} feed: {len(lib)} batches read by the library "
+              f"{'bitwise equal to' if same else 'DIFFERENT from'} the Python "
+              f"reads", flush=True)
+        check(same, f"{fmt} library batches differ from the Python reads")
+
+    # (d) the remat policies at the train step's shape, cuDNN deterministic
+    rows, n = (TRAIN_BATCH, DEFAULT_SPEC.crop_samples(400)) if full else (
+        4, DEFAULT_SPEC.crop_samples(100))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    remat_batch = {
+        "data": (torch.randn(rows, n, device=dev, generator=gen)
+                 * 0.1 * 32767).round().clamp(-32768, 32767).to(torch.int16),
+        "logit_target": torch.randn(rows, 8, device=dev, generator=gen) * 2,
+        "max_label": torch.randint(0, 8, (rows,), device=dev, generator=gen,
+                                   dtype=torch.int32),
+        "pad_mask": torch.ones(rows, device=dev)}
+    policies = REMAT_POLICIES if full else ("drop_conv1", "dots")
+
+    def held_gib(model, policy) -> float:
+        """Memory the forward leaves to the backward: allocated after the
+        loss less before the forward (0 on the CPU)."""
+        sync(dev)
+        before = torch.cuda.memory_allocated() if full else 0
+        out = model(remat_batch["data"], train=True,
+                    pad_mask=remat_batch["pad_mask"], remat_policy=policy)
+        loss, _ = loss_fn(out, remat_batch)
+        sync(dev)
+        held = (torch.cuda.memory_allocated() - before) if full else 0
+        del out, loss
+        return held / 2**30
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    base = None
+    try:
+        for policy in (None,) + tuple(policies):
+            step = make_train_step(loss_fn, SGDConfig(weight_decay=0.0),
+                                   remat_policy=policy, pass_pad_mask=True)
+            state = fresh_state()
+            reset_counts(wrappers)
+            for _ in range(ONLINE_STEPS):
+                state, m = step(state, remat_batch, TRAIN_LR)
+            counts = read_counts(wrappers)
+            add_counts(total, counts)
+            final = state_copy(state)
+            if full:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                state, _ = step(state, remat_batch, TRAIN_LR)
+            sync(dev)
+            ms = (time.perf_counter() - t0) / timed * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30 if full else 0.0
+            held = held_gib(state.model, policy)
+            r = REMAT_POOLS.get(policy, 0)
+            want = {k: 0 for k in wrappers} | {
+                "spectrogram": ONLINE_STEPS,
+                "max_pool_3x3s2_idx": ONLINE_STEPS * (2 + r),
+                "max_pool_3x3s2_bwd": 2 * ONLINE_STEPS}
+            print(f"  {card}: remat {policy}: step {ms:.3f} ms at "
+                  f"[{rows}, {n}] (mean of {timed}, cuDNN "
+                  f"deterministic), peak memory {peak:.3f} GiB, held from "
+                  f"the forward for the backward {held:.3f} GiB; launches "
+                  f"over {ONLINE_STEPS} steps {counts}", flush=True)
+            if full:
+                check(counts == want,
+                      f"remat {policy} launches {counts}, expected {want}")
+            del state, step
+            if policy is None:
+                base = final
+                continue
+            diffs = {k: ((a - base[k]).abs().max().item(),
+                         ((a - base[k]).norm()
+                          / base[k].norm().clamp_min(1e-30)).item())
+                     for k, a in final.items()
+                     if a.is_floating_point() and not torch.equal(a, base[k])}
+            del final
+            if diffs:
+                worst = max(rel for _, rel in diffs.values())
+                print(f"  remat {policy}: state NOT bitwise equal to no "
+                      f"policy; per tensor (max abs, rel L2): {diffs}; "
+                      f"largest rel L2 {worst:.3e} (gate "
+                      f"{TRAIN_UPDATE_RTOL})", flush=True)
+                check(worst <= TRAIN_UPDATE_RTOL,
+                      f"remat {policy} state off no policy's")
+            else:
+                print(f"  remat {policy}: state after {ONLINE_STEPS} steps "
+                      f"bitwise equal to no policy's", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"  online phase: launches over its main runs {total}", flush=True)
+    return total
 
 
 def main() -> int:
@@ -2385,12 +2918,18 @@ def main() -> int:
             del student, student_state
 
         with phase("teacher", walls):
-            teacher_counts = teacher_phase(card, Path(tmp), imdb_paths(imdb),
-                                           wrappers)
+            teacher_counts, dense_imdb = teacher_phase(
+                card, Path(tmp), imdb_paths(imdb), wrappers)
 
         with phase("teacher-train", walls):
             teacher_train_counts = teacher_train_phase(card, Path(tmp),
                                                        wrappers)
+
+        with phase("online", walls):
+            online_counts = online_phase(card, Path(tmp), dense_imdb,
+                                         distill_imdb, wrappers)
+            del dense_imdb
+            torch.cuda.empty_cache()
 
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
@@ -2430,8 +2969,8 @@ def main() -> int:
             "launches": (launches[name] + train_counts[name]
                          + distill_counts[name] + reader_counts[name]
                          + release_counts[name] + analysis_counts[name]
-                         + teacher_counts[name]
-                         + teacher_train_counts[name] + probe_counts[name]),
+                         + teacher_counts[name] + teacher_train_counts[name]
+                         + online_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -1,5 +1,5 @@
-"""Host-side audio I/O: wav header parsing, segment reads, PCM16 packing,
-resampling.
+"""Host-side audio I/O: wav header parsing, segment reads, PCM16 and mu-law
+packing, resampling and speed perturbation.
 
 The port's copy of what it calls from
 ``mcncrossmodalemotions_tpu/data/audio.py`` (MATLAB ``audioread`` /
@@ -18,7 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 MULAW_MU = 255.0
-"""mu of the mu-law feed (``ops.spectrogram.decode_pcm`` decodes it)."""
+"""mu of the mu-law feed (``pack_mulaw8``; ``ops.spectrogram.decode_pcm``
+decodes it)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +122,40 @@ def pack_pcm16(waves: np.ndarray) -> np.ndarray:
     return float_to_pcm16(waves / peak)
 
 
+_MULAW_LUT: Optional[np.ndarray] = None
+
+
+def _mulaw_encode_float(x: np.ndarray) -> np.ndarray:
+    """The companding formula (mu = 255): float in [-1, 1] -> uint8."""
+    y = np.sign(x) * np.log1p(MULAW_MU * np.abs(x)) / np.log1p(MULAW_MU)
+    return np.clip(np.round((y + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+def _mulaw_lut() -> np.ndarray:
+    """int16 -> mu-law table indexed by the uint16 view (two's complement
+    order), built once."""
+    global _MULAW_LUT
+    if _MULAW_LUT is None:
+        idx = np.arange(65536)
+        pcm = np.where(idx < 32768, idx, idx - 65536).astype(np.float32)
+        _MULAW_LUT = _mulaw_encode_float(pcm / 32768.0)
+    return _MULAW_LUT
+
+
+def pack_mulaw8(waves: np.ndarray) -> np.ndarray:
+    """[B, N] float waveforms -> uint8 mu-law device feed (half the int16
+    feed's bytes, ~38 dB SNR on speech).
+
+    The rows are peak-normalised down only and quantised to PCM16 as
+    ``pack_pcm16`` does, then mapped through the 64K lin -> mu-law table;
+    ``ops.spectrogram.decode_pcm`` decodes uint8 as mu-law on the device.
+    The quantisation noise floor fills spectrally empty bins, which the
+    frontend's per-bin instance norm then lifts to unit variance: for
+    broadband signals (speech) only.
+    """
+    return _mulaw_lut()[pack_pcm16(waves).view(np.uint16)]
+
+
 def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:
     """PCM16 mono wav writer (synthetic fixtures)."""
     payload = float_to_pcm16(samples).astype("<i2").tobytes()
@@ -137,6 +172,13 @@ def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:
         f.write(payload)
 
 
+def resample_poly(x: np.ndarray, up: int, down: int) -> np.ndarray:
+    """Rational polyphase resample (MATLAB ``resample(x, p, q)``)."""
+    from scipy.signal import resample_poly as _rp
+
+    return _rp(x, up, down).astype(np.float32)
+
+
 def resample_to(x: np.ndarray, from_fs: int, to_fs: int) -> np.ndarray:
     """Rational polyphase resample between sample rates (MATLAB
     ``resample(x, p, q)``); a no-op when they are equal."""
@@ -144,7 +186,16 @@ def resample_to(x: np.ndarray, from_fs: int, to_fs: int) -> np.ndarray:
         return x
     from fractions import Fraction
 
-    from scipy.signal import resample_poly
-
     frac = Fraction(to_fs, from_fs).limit_denominator(1000)
-    return resample_poly(x, frac.numerator, frac.denominator).astype(np.float32)
+    return resample_poly(x, frac.numerator, frac.denominator)
+
+
+def speed_perturb(x: np.ndarray, factor: float,
+                  max_denominator: int = 100) -> np.ndarray:
+    """Speed perturbation by rational resampling (getBatchEmoVoxCeleb.m:
+    102-108): playing at ``factor`` speed resamples by 1 / factor, so the
+    length becomes N / factor."""
+    from fractions import Fraction
+
+    frac = Fraction(factor).limit_denominator(max_denominator)
+    return resample_poly(x, frac.denominator, frac.numerator)

@@ -108,16 +108,25 @@ def read_crops(paths: Sequence[str], starts: Sequence[int],
     return out
 
 
+PACKED_FORMATS = {"int16": (0, np.int16), "mulaw8": (1, np.uint8)}
+
+
 def read_crops_packed(paths: Sequence[str], starts: Sequence[int],
-                      num_samples: int, num_threads: int = 8) -> np.ndarray:
+                      num_samples: int, num_threads: int = 8, *,
+                      fmt: str = "int16") -> np.ndarray:
     """Threaded segment reads fused with the device-feed quantisation ->
-    [count, n] int16 (``data.audio.pack_pcm16`` of the float read, bit for
-    bit). The library's mu-law mode is not bound: the port feeds PCM16."""
+    [count, n] int16 (``fmt="int16"``: ``data.audio.pack_pcm16`` of the
+    float read) or uint8 mu-law (``fmt="mulaw8"``: ``pack_mulaw8``), bit
+    for bit."""
+    if fmt not in PACKED_FORMATS:
+        raise ValueError(f"unknown feed format {fmt!r}; choose from "
+                         f"{sorted(PACKED_FORMATS)}")
+    mode, dtype = PACKED_FORMATS[fmt]
     lib = _need()
     count, c_paths, c_starts = _c_args(paths, starts)
-    out = np.zeros((count, num_samples), np.int16)
+    out = np.zeros((count, num_samples), dtype)
     failures = lib.ds_read_crops_packed(
-        c_paths, c_starts, num_samples, count, num_threads, 0,  # mode 0: int16
+        c_paths, c_starts, num_samples, count, num_threads, mode,
         out.ctypes.data_as(ctypes.c_void_p))
     if failures:
         raise IOError(f"ds_read_crops_packed: {failures}/{count} files failed")

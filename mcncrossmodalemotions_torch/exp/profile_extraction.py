@@ -27,7 +27,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -37,13 +37,15 @@ BATCH = 64
 REPS = 5
 
 
-def busy_us(events) -> float:
-    """Microseconds in which at least one device event ran."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type in DEVICE_TYPES)
+def busy_us(events, window: Optional[Tuple[float, float]] = None) -> float:
+    """Microseconds in which at least one device event ran; within
+    ``window`` ((start, end) on the events' clock) if one is given."""
+    first, last = window or (float("-inf"), float("inf"))
+    spans = sorted((max(e.time_range.start, first), min(e.time_range.end, last))
+                   for e in events if e.device_type in DEVICE_TYPES)
     total, end = 0.0, float("-inf")
     for lo, hi in spans:
-        if hi > end:
+        if hi > max(lo, end):
             total += hi - max(lo, end)
             end = hi
     return total

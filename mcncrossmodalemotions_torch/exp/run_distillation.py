@@ -1,4 +1,4 @@
-"""Student distillation training (``run_distillation.m``), offline mode.
+"""Student distillation training (``run_distillation.m``).
 
 Port of ``mcncrossmodalemotions_tpu/exp/run_distillation.py``: trains the
 VGG-M speech student to predict the teacher's 8 emotion logits (cached in
@@ -9,17 +9,28 @@ aggregation, mini-val subsampling with seed 0, mini-epochs, an experiment
 directory named from the config (the same name as the JAX module gives) with
 run metadata dumped alongside (:95-105, :227-240).
 
-On the card the host ships int16 crops; decode, spectrogram (the K1
-kernel), instance norm, the student (K2 forward-with-index and backward at
-pool1/pool2), the loss, the backward and the SGD update run on one
-device. ``from_scratch=False`` starts from a released student ``.mat``
+On the card the host ships int16 crops (uint8 mu-law with ``mulaw_feed``);
+decode, spectrogram (the K1 kernel), instance norm, the student (K2
+forward-with-index and backward at pool1/pool2), the loss, the backward and
+the SGD update run on one device. Every option of the JAX driver is here
+but a multi-device ``mesh``:
+
+- ``online_teacher``: the fused step (``train/distill.py``): the batches
+  carry each crop's face frames and the frozen ``teacher_model`` computes
+  the targets inside the step; the val pass ships no frames and scores
+  against the cached ``wav_logits``;
+- ``remat_policy``: the student recomputes activations in the backward
+  (``train/state.py`` ``resolve_remat_policy``), in either step;
+- ``mulaw_feed``, ``speed_aug``, ``noise_num``/``noise_dir``/``noise_vol``
+  and ``time_offsets`` (fixedSegments): the batcher's options
+  (``data/emovox.py``), each part of the experiment's identity.
+
+``from_scratch=False`` starts from a released student ``.mat``
 (``pretrained_student`` is its path; nothing is downloaded), and
 ``load_student_from_exp`` rebuilds a trained student from an experiment
-directory of either package for evaluation. Not ported yet, and refused
-with ``NotImplementedError``: the online (fused-teacher) mode, remat
-policies, speed/noise augmentation, the mu-law feed and fixedSegments.
-``use_pallas_frontend`` only chose the JAX frontend's implementation; the
-port always runs the K1 wrapper, with the same function.
+directory of either package for evaluation. ``use_pallas_frontend`` only
+chose the JAX frontend's implementation; the port always runs the K1
+wrapper, with the same function.
 """
 
 from __future__ import annotations
@@ -33,7 +44,11 @@ import torch
 from torch import nn
 
 from mcncrossmodalemotions_torch import EMOTIONS
-from mcncrossmodalemotions_torch.data.emovox import BatchConfig, EmoVoxBatcher
+from mcncrossmodalemotions_torch.data.emovox import (
+    BatchConfig,
+    EmoVoxBatcher,
+    NoiseConfig,
+)
 from mcncrossmodalemotions_torch.data.imdb import (
     SET_HEARD_VAL,
     SET_TRAIN,
@@ -43,11 +58,13 @@ from mcncrossmodalemotions_torch.data.imdb import (
 from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
 from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
 from mcncrossmodalemotions_torch.train.checkpoints import read_from_exp
+from mcncrossmodalemotions_torch.train.distill import make_online_distill_step
 from mcncrossmodalemotions_torch.train.engine import (
     TrainConfig,
     Trainer,
     logspace_lr,
 )
+from mcncrossmodalemotions_torch.train.state import SGDConfig
 from mcncrossmodalemotions_torch.utils.config import (
     config_hash,
     read_latest_run_config,
@@ -127,23 +144,6 @@ class DistillationConfig:
         return f"{base}{suffix}-{config_hash(identity)}"
 
 
-def _refuse_unported(cfg: DistillationConfig, time_offsets) -> None:
-    refused = {
-        "online_teacher=True (the fused teacher step, train/distill.py)":
-            cfg.online_teacher,
-        f"remat_policy={cfg.remat_policy!r}":
-            cfg.remat_policy not in (None, "none"),
-        "mulaw_feed=True": cfg.mulaw_feed,
-        "speed_aug=True": cfg.speed_aug,
-        "noise_num > 0 (noise-corpus augmentation)": cfg.noise_num > 0,
-        "time_offsets (fixedSegments)": time_offsets is not None,
-    }
-    for what, on in refused.items():
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet")
-
-
 def mini_epoch_size(num_tracks: int, ratio: float, num_devices: int,
                     batch_size: int):
     """epochSize from miniEpochRatio (run_distillation.m:77,154), scaled by
@@ -170,17 +170,30 @@ def split_imdb(imdb: EmoVoxImdb, mini_val: float, seed: int = 0):
 def run_distillation(cfg: DistillationConfig,
                      imdb: Optional[EmoVoxImdb] = None,
                      resume: bool = True, time_offsets=None,
-                     device: torch.device | str = "cuda"):
+                     device: torch.device | str = "cuda", *,
+                     mesh="auto", teacher_model: Optional[nn.Module] = None):
     """Returns (final_state, history, exp_dir).
 
-    Offline mode on one ``device``: the teacher targets are the imdb's
-    cached ``wav_logits``. ``imdb`` None loads
-    ``cfg.data_root/emovoxceleb-imdb.npz``. ``cfg.from_scratch=False``
-    starts from the released student at the path
-    ``cfg.pretrained_student`` (``load_pretrained_student``; the widths
-    are the release's), with the run's dropout rate.
+    On one ``device``. ``imdb`` None loads
+    ``cfg.data_root/emovoxceleb-imdb.npz``. The offline mode trains on the
+    imdb's cached ``wav_logits``; ``cfg.online_teacher`` needs an imdb with
+    ``dense_frames`` and ``teacher_model``, a face teacher with its weights
+    (``load_pretrained_teacher(..., with_pipeline=True)`` or
+    ``exp.ferplus_baselines.load_teacher_from_exp``), which is moved to
+    ``device`` and frozen. ``time_offsets`` ([num_tracks] seconds) is the
+    reference's fixedSegments mode (run_distillation.m:86): pinned crop
+    starts, whole-track targets, and an experiment directory keyed on the
+    offsets. ``cfg.from_scratch=False`` starts from the released student
+    at the path ``cfg.pretrained_student`` (``load_pretrained_student``;
+    the widths are the release's), with the run's dropout rate. ``mesh``
+    None or ``"auto"`` is the one device; a multi-device mesh raises.
     """
-    _refuse_unported(cfg, time_offsets)
+    if mesh is not None and mesh != "auto":
+        raise NotImplementedError(
+            "multi-card training (mesh=) is not ported yet; see ROADMAP.md "
+            "item 15 (torch.distributed)")
+    if cfg.online_teacher and teacher_model is None:
+        raise ValueError("online_teacher=True requires teacher_model")
     if imdb is None:
         imdb_path = Path(cfg.data_root) / "emovoxceleb-imdb.npz"
         if not imdb_path.exists():
@@ -189,17 +202,45 @@ def run_distillation(cfg: DistillationConfig,
                 "exp/fetch_emovoxceleb_imdb (or pass a synthetic imdb)")
         imdb = EmoVoxImdb.load(imdb_path)
 
-    train_imdb, val_imdb, _, _ = split_imdb(imdb, cfg.mini_val, cfg.seed)
+    train_imdb, val_imdb, train_idx, val_idx = split_imdb(
+        imdb, cfg.mini_val, cfg.seed)
+    train_offsets = val_offsets = None
+    if time_offsets is not None:
+        time_offsets = np.asarray(time_offsets, np.float64)
+        train_offsets = time_offsets[train_idx]
+        val_offsets = time_offsets[val_idx]
+    noise = None
+    if cfg.noise_num > 0:
+        if cfg.noise_dir is None:
+            raise ValueError("noise_num > 0 requires noise_dir "
+                             "(meta.noise.noisedir)")
+        noise = NoiseConfig(noise_dir=cfg.noise_dir, num_files=cfg.noise_num,
+                            noise_vol=cfg.noise_vol)
     bcfg = BatchConfig(num_seconds=cfg.num_seconds, batch_size=cfg.batch_size,
                        loss_type=cfg.loss_type,
                        logit_aggregator=cfg.logit_aggregator,
-                       num_pred_emotions=cfg.num_pred_emotions)
-    train_batcher = EmoVoxBatcher(train_imdb, bcfg, train=True, seed=cfg.seed)
-    val_batcher = EmoVoxBatcher(val_imdb, bcfg, train=False, seed=cfg.seed)
+                       num_pred_emotions=cfg.num_pred_emotions,
+                       speed_aug=cfg.speed_aug, noise=noise,
+                       frames_per_crop=(cfg.frames_per_crop
+                                        if cfg.online_teacher else 0),
+                       frame_size=cfg.frame_size, emit_mulaw=cfg.mulaw_feed)
+    train_batcher = EmoVoxBatcher(train_imdb, bcfg, train=True, seed=cfg.seed,
+                                  time_offsets=train_offsets)
+    # the val pass scores against the cached wav_logits in either mode:
+    # frames would more than double its feed for data it never reads
+    val_batcher = EmoVoxBatcher(val_imdb,
+                                dataclasses.replace(bcfg, frames_per_crop=0),
+                                train=False, seed=cfg.seed,
+                                time_offsets=val_offsets)
     epoch_size = mini_epoch_size(train_imdb.num_tracks, cfg.mini_epoch_ratio,
                                  1, cfg.batch_size)
 
     exp_dir = Path(cfg.out_root) / cfg.exp_name()
+    if time_offsets is not None:
+        # fixedSegments trains on other crops and targets: keyed on the
+        # offsets, so a plain run's checkpoints are never resumed
+        exp_dir = exp_dir.with_name(
+            exp_dir.name + f"-fixedseg-{config_hash(tuple(time_offsets))}")
     tcfg = TrainConfig(
         num_epochs=cfg.num_epochs,
         batch_size=cfg.batch_size,
@@ -210,6 +251,8 @@ def run_distillation(cfg: DistillationConfig,
         seed=cfg.seed,
         exp_dir=str(exp_dir),
         resume=resume,
+        # the fused step takes the policy from its builder below
+        remat_policy=None if cfg.online_teacher else cfg.remat_policy,
     )
     if cfg.from_scratch:
         model = build_student(cfg.student, num_outputs=cfg.num_pred_emotions,
@@ -223,9 +266,17 @@ def run_distillation(cfg: DistillationConfig,
         model.net.dropout_rate = cfg.dropout
     loss_fn = student_loss_fn(cfg.loss_type, temperature=cfg.temperature,
                               num_classes=cfg.num_pred_emotions)
+    step_override = None
+    if cfg.online_teacher:
+        step_override = make_online_distill_step(
+            teacher_model.to(device), loss_type=cfg.loss_type,
+            temperature=cfg.temperature, aggregator=cfg.logit_aggregator,
+            num_classes=cfg.num_pred_emotions,
+            sgd=SGDConfig(weight_decay=cfg.weight_decay),
+            remat_policy=cfg.remat_policy)
     trainer = Trainer(model, loss_fn, tcfg,
                       class_names=EMOTIONS[: cfg.num_pred_emotions],
-                      device=device)
+                      device=device, train_step_override=step_override)
     write_run_meta(exp_dir, cfg,
                    num_train_tracks=int(train_imdb.num_tracks),
                    num_val_tracks=int(val_imdb.num_tracks))

@@ -55,11 +55,15 @@ class AudioStudentPipeline(nn.Module):
                 return_embedding: bool = False,
                 pad_mask: Optional[torch.Tensor] = None, *,
                 use_kernels: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                remat_policy: Optional[str] = None):
         """``use_kernels`` runs the spectrogram through K1 and pool1/pool2
-        through K2 on the card; False runs their plain versions."""
+        through K2 on the card; False runs their plain versions.
+        ``remat_policy`` applies to the student (the frontend keeps no
+        activations for the backward)."""
         feats = self.frontend(x, valid_frames=valid_frames,
                               use_kernels=use_kernels)
         return self.net(feats, train=train, valid_frames=valid_frames,
                         return_embedding=return_embedding, pad_mask=pad_mask,
-                        use_kernels=use_kernels, generator=generator)
+                        use_kernels=use_kernels, generator=generator,
+                        remat_policy=remat_policy)

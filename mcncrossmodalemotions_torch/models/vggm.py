@@ -23,6 +23,19 @@ same function:
 Compute runs in ``dtype`` (bf16 by default) with fp32 parameters; pool6
 and the head run in fp32, as in the JAX module.
 
+Rematerialisation (``remat_policy``, the train step's option): the forward
+is a list of stages cut where the JAX module tags its blocks with
+``checkpoint_name`` (``conv1_out``, ``relu1_out``, ``pool1_out``,
+``relu2_out``, ``pool2_out``, ``pool5_out``, ``fc6_out``). A policy names
+runs of stages that ``torch.utils.checkpoint`` (non-reentrant) recomputes
+in the backward instead of keeping their activations (``REMAT_RUNS``);
+``dots`` keeps the matmul outputs of its run (a selective-checkpoint
+policy) and recomputes the convs. A recomputed run computes what the first
+run did: dropout stays outside every run (its generator is not one
+``checkpoint`` restores), and BatchNorm updates its running statistics on
+the first run only. A recomputed pool1/pool2 launches K2's with-index
+forward again.
+
 Train-mode BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9)``, not
 ``nn.BatchNorm2d``'s: statistics in fp32 whatever the input dtype, the
 variance in the biased fast form E[x^2] - E[x]^2 clipped at 0, over the
@@ -33,12 +46,18 @@ rows where ``pad_mask > 0`` only; the running update is
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from mcncrossmodalemotions_torch.ops.pool import (
     max_pool_3x3s2,
@@ -51,6 +70,87 @@ BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 # stddev of a unit normal truncated to [-2, 2]: lecun_normal divides by it
 # so that the truncated draw keeps variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
+
+# The forward's stages, in order. The JAX module tags the outputs of conv1
+# (conv1_out), relu1, pool1, relu2, pool2, pool5 (after conv3-conv5) and
+# fc6; "dropout5"/"dropout7" run only in train mode with a dropout rate.
+_STAGES = ("conv1", "relu1", "pool1", "conv2", "relu2", "pool2", "pool5",
+          "dropout5", "fc6", "fc7", "dropout7", "prediction")
+_RANDOM_STAGES = ("dropout5", "dropout7")
+_DETERMINISTIC = tuple(s for s in _STAGES if s not in _RANDOM_STAGES)
+# Per remat policy (JAX train/state.py resolve_remat_policy), the runs of
+# stages recomputed in the backward; a run's input and output are kept.
+# drop_conv1 drops conv1_out and relu1_out (relu1_out, the run's output,
+# is freed all the same: pool1 keeps only its uint8 winners), and
+# drop_through_pool1 pool1_out too; save_pools keeps only pool1_out,
+# pool2_out, pool5_out and fc6_out; dots and nothing recompute everything
+# (dots keeps the matmul outputs).
+REMAT_RUNS = {
+    "drop_conv1": (("conv1", "relu1"),),
+    "drop_through_pool1": (("conv1", "relu1", "pool1", "conv2"),),
+    "save_pools": (("conv1", "relu1", "pool1"), ("conv2", "relu2", "pool2"),
+                   ("pool5",), ("fc6",), ("fc7", "prediction")),
+    "dots": (_DETERMINISTIC,),
+    "nothing": (_DETERMINISTIC,),
+}
+# jax's dots_with_no_batch_dims_saveable: matmuls without batch dims (fc7,
+# the head); convolutions are not dots
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+Stage = Callable[[torch.Tensor, bool], torch.Tensor]
+
+
+def _checkpointed(fns: Sequence[Stage], x: torch.Tensor,
+                  save_matmuls: bool) -> torch.Tensor:
+    """Run ``fns`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes them from ``x``. Each stage gets ``first``, True on
+    the forward and False on the recompute, so side effects (BatchNorm's
+    running statistics) happen once."""
+    calls: List[None] = []
+
+    def run(h):
+        first = not calls
+        calls.append(None)
+        for fn in fns:
+            h = fn(h, first)
+        return h
+
+    kw = {}
+    if save_matmuls:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
+def _run_stages(stages: Sequence[Tuple[str, Stage]], x: torch.Tensor,
+               remat_policy: Optional[str]) -> torch.Tensor:
+    """Run the named stages in order; under ``remat_policy`` each maximal
+    stretch of one of its runs (``REMAT_RUNS``) is checkpointed."""
+    run_of = {}
+    if remat_policy is not None:
+        for r, run in enumerate(REMAT_RUNS[remat_policy]):
+            run_of.update(dict.fromkeys(run, r))
+    i = 0
+    while i < len(stages):
+        r = run_of.get(stages[i][0])
+        if r is None:
+            x = stages[i][1](x, True)
+            i += 1
+            continue
+        j = i
+        while j < len(stages) and run_of.get(stages[j][0]) == r:
+            j += 1
+        x = _checkpointed([fn for _, fn in stages[i:j]], x,
+                          save_matmuls=remat_policy == "dots")
+        i = j
+    return x
 
 
 def _floor_out(size, kernel, stride):
@@ -85,12 +185,13 @@ def lecun_normal_(weight: torch.Tensor,
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
-                     pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     pad_mask: Optional[torch.Tensor] = None,
+                     update: bool = True) -> torch.Tensor:
     """Flax train-mode BatchNorm over NCHW ``x``: normalise with the batch
     statistics of the rows where ``pad_mask > 0`` (all rows without a
-    mask) and update ``bn``'s running statistics in place. The result is
-    in ``x``'s dtype; statistics and affine run in fp32 (fp64 for an fp64
-    ``x``: Flax promotes to at least fp32)."""
+    mask) and, with ``update``, update ``bn``'s running statistics in
+    place. The result is in ``x``'s dtype; statistics and affine run in
+    fp32 (fp64 for an fp64 ``x``: Flax promotes to at least fp32)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if pad_mask is None:
         mean = xf.mean(dim=(0, 2, 3))
@@ -101,11 +202,12 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
         mean = (xf.sum(dim=(2, 3)) * w).sum(dim=0) / count
         mean2 = (xf.square().sum(dim=(2, 3)) * w).sum(dim=0) / count
     var = torch.clamp(mean2 - mean * mean, min=0.0)
-    with torch.no_grad():  # running statistics: in place, outside autograd
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
-                              + (1.0 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
-                             + (1.0 - BN_MOMENTUM) * var)
+    if update:
+        with torch.no_grad():  # running statistics: in place, no autograd
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                                  + (1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                                 + (1.0 - BN_MOMENTUM) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(x.dtype)
@@ -179,16 +281,19 @@ class VGGMStudent(nn.Module):
             for i in range(1, 7):
                 getattr(self, f"bn{i}").reset_parameters()
 
-    def _conv_bn_relu(self, x: torch.Tensor, i: int, name: str, train: bool,
-                      bn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
         conv = getattr(self, name)
         bias = None if conv.bias is None else conv.bias.to(self.dtype)
-        x = F.conv2d(x, conv.weight.to(self.dtype), bias, conv.stride,
-                     conv.padding)
+        return F.conv2d(x, conv.weight.to(self.dtype), bias, conv.stride,
+                        conv.padding)
+
+    def _bn_relu(self, x: torch.Tensor, i: int, train: bool,
+                 bn_mask: Optional[torch.Tensor],
+                 update: bool = True) -> torch.Tensor:
         if self.use_batchnorm:
             bn = getattr(self, f"bn{i}")
             if train:
-                x = batch_norm_train(x, bn, bn_mask)
+                x = batch_norm_train(x, bn, bn_mask, update)
             else:
                 # mixed-precision eval BN: statistics and affine in fp32,
                 # result in the compute dtype (flax BatchNorm(dtype=bf16)
@@ -196,6 +301,11 @@ class VGGMStudent(nn.Module):
                 x = F.batch_norm(x, bn.running_mean, bn.running_var,
                                  bn.weight, bn.bias, False, 0.0, bn.eps)
         return F.relu(x, inplace=True)
+
+    def _conv_bn_relu(self, x: torch.Tensor, i: int, name: str, train: bool,
+                      bn_mask: Optional[torch.Tensor],
+                      update: bool = True) -> torch.Tensor:
+        return self._bn_relu(self._conv(x, name), i, train, bn_mask, update)
 
     @staticmethod
     def _pool_3x3s2(x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
@@ -208,54 +318,84 @@ class VGGMStudent(nn.Module):
             pool = max_pool_3x3s2_cuda
         return pool(nhwc).permute(0, 3, 1, 2)
 
+    def _pool6(self, x: torch.Tensor, valid_frames) -> torch.Tensor:
+        """Masked temporal mean over the valid fc6 columns (replaces the
+        reference's per-bucket poolSize surgery): [B, C, 1, T'] -> [B, C]
+        fp32."""
+        x = x.float()[:, :, 0, :]  # [B, C, T']
+        t_out = x.shape[-1]
+        if valid_frames is None:
+            return x.mean(dim=-1)
+        valid = temporal_valid_frames(
+            torch.as_tensor(valid_frames, device=x.device))
+        valid = valid.clamp(1, t_out)
+        mask = (torch.arange(t_out, device=x.device)[None, :]
+                < valid[:, None]).to(x.dtype)
+        return (x * mask[:, None, :]).sum(dim=-1) / valid[:, None].to(x.dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 valid_frames: Optional[torch.Tensor] = None,
                 return_embedding: bool = False,
                 pad_mask: Optional[torch.Tensor] = None, *,
                 use_kernels: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                remat_policy: Optional[str] = None):
         """``train`` uses batch statistics (over the rows where
         ``pad_mask > 0``) and updates the running ones, and applies
         dropout drawn from ``generator``. ``use_kernels`` sends pool1/pool2
         through the K2 wrappers (kernels on the card, plain on the CPU);
-        False runs the plain pool."""
+        False runs the plain pool. ``remat_policy`` (one of
+        ``REMAT_RUNS``, under grad) recomputes its runs of stages in the
+        backward."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # [B, 1, F, T]
         x = x.contiguous(memory_format=torch.channels_last)
         drop = train and self.dropout_rate > 0
         bn = dict(train=train, bn_mask=pad_mask)
-        x = self._conv_bn_relu(x, 1, "conv1", **bn)
-        x = self._pool_3x3s2(x, use_kernels)
-        x = self._conv_bn_relu(x, 2, "conv2", **bn)
-        x = self._pool_3x3s2(x, use_kernels)
-        x = self._conv_bn_relu(x, 3, "conv3", **bn)
-        x = self._conv_bn_relu(x, 4, "conv4", **bn)
-        x = self._conv_bn_relu(x, 5, "conv5", **bn)
-        x = F.max_pool2d(x, (5, 3), stride=(3, 2))
-        if drop:
-            x = dropout(x, self.dropout_rate, generator)
-        x = self._conv_bn_relu(x, 6, "fc6", **bn)  # [B, C, 1, T']
+        embedding: List[torch.Tensor] = []
 
-        # pool6: masked temporal mean (replaces per-bucket poolSize surgery)
-        x = x.float()[:, :, 0, :]  # [B, C, T']
-        t_out = x.shape[-1]
-        if valid_frames is None:
-            x = x.mean(dim=-1)
-        else:
-            valid = temporal_valid_frames(
-                torch.as_tensor(valid_frames, device=x.device))
-            valid = valid.clamp(1, t_out)
-            mask = (torch.arange(t_out, device=x.device)[None, :]
-                    < valid[:, None]).to(x.dtype)
-            x = (x * mask[:, None, :]).sum(dim=-1) / valid[:, None].to(x.dtype)
+        def pool(h, first):
+            return self._pool_3x3s2(h, use_kernels)
 
-        x = F.linear(x.to(self.dtype), self.fc7.weight.to(self.dtype),
-                     self.fc7.bias.to(self.dtype))
-        x = F.relu(x)
-        embedding = x.float()  # before dropout, as in the JAX module
-        if drop:
-            x = dropout(x, self.dropout_rate, generator)
-        head = self.prediction  # fp32 whatever the parameters' dtype
-        logits = F.linear(x.float(), head.weight.float(), head.bias.float())
+        def pool5(h, first):
+            for i in (3, 4, 5):
+                h = self._conv_bn_relu(h, i, f"conv{i}", update=first, **bn)
+            return F.max_pool2d(h, (5, 3), stride=(3, 2))
+
+        def fc7(h, first):
+            h = F.relu(F.linear(self._pool6(h, valid_frames).to(self.dtype),
+                                self.fc7.weight.to(self.dtype),
+                                self.fc7.bias.to(self.dtype)))
+            if first:
+                embedding.append(h.float())  # before dropout, as in JAX
+            return h
+
+        def prediction(h, first):
+            head = self.prediction  # fp32 whatever the parameters' dtype
+            return F.linear(h.float(), head.weight.float(), head.bias.float())
+
+        def drop_out(h, first):
+            return dropout(h, self.dropout_rate, generator)
+
+        stages = {
+            "conv1": lambda h, first: self._conv(h, "conv1"),
+            "relu1": lambda h, first: self._bn_relu(h, 1, update=first, **bn),
+            "pool1": pool,
+            "conv2": lambda h, first: self._conv(h, "conv2"),
+            "relu2": lambda h, first: self._bn_relu(h, 2, update=first, **bn),
+            "pool2": pool,
+            "pool5": pool5,
+            "dropout5": drop_out,
+            "fc6": lambda h, first: self._conv_bn_relu(h, 6, "fc6",
+                                                       update=first, **bn),
+            "fc7": fc7,
+            "dropout7": drop_out,
+            "prediction": prediction,
+        }
+        if remat_policy is not None and not torch.is_grad_enabled():
+            remat_policy = None  # nothing to recompute without a backward
+        logits = _run_stages([(name, stages[name]) for name in _STAGES
+                             if drop or name not in _RANDOM_STAGES],
+                            x, remat_policy)
         if return_embedding:
-            return logits, embedding
+            return logits, embedding[0]
         return logits

@@ -65,7 +65,9 @@ class TrainConfig:
     # replacing the reference's `keyboard` drop (getBatchEmoVoxCeleb.m:189-192)
     profile_dir: Optional[str] = None
     nan_check: bool = True
-    remat_policy: Optional[str] = None  # not ported: anything but None raises
+    # recompute activations in the backward (train/state.py
+    # resolve_remat_policy); the students only
+    remat_policy: Optional[str] = None
 
 
 def lr_for_epoch(cfg: TrainConfig, epoch: int) -> float:
@@ -142,21 +144,44 @@ class Trainer:
     maps a parameter's name split at the dots to its learning-rate
     multiplier (``train.state.finetune_lr_scale_fn``: 1.0 for the head,
     ``teacher.prediction.weight`` included, less for the backbone).
+
+    ``train_step_override`` replaces the built train step whole (the fused
+    online-distillation step, ``train.distill.make_online_distill_step``);
+    its builder takes the step's options, so ``lr_scale_fn`` and
+    ``cfg.remat_policy`` beside it raise (the JAX ``Trainer``'s rule), and
+    ``cfg.momentum``/``cfg.weight_decay`` are the builder's to apply. The
+    batches' arrays, face ``frames`` included, reach the device through the
+    same pinned, ``non_blocking`` feed.
     """
 
     def __init__(self, model: nn.Module, loss_fn: LossFn, cfg: TrainConfig,
                  class_names: Sequence[str] = (),
                  device: torch.device | str = "cuda",
-                 lr_scale_fn: Optional[Callable] = None):
+                 lr_scale_fn: Optional[Callable] = None,
+                 train_step_override: Optional[Callable] = None):
         self.model = model
         self.cfg = cfg
         self.class_names = class_names
         self.device = torch.device(device)
-        sgd = SGDConfig(momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-        self._train_step = make_train_step(loss_fn, sgd,
-                                           lr_scale_fn=lr_scale_fn,
-                                           remat_policy=cfg.remat_policy,
-                                           pass_pad_mask=True)
+        if train_step_override is not None:
+            if lr_scale_fn is not None:
+                raise ValueError(
+                    "train_step_override replaces the built step entirely; "
+                    "pass lr_scale_fn to the override's builder, not to "
+                    "Trainer")
+            if cfg.remat_policy is not None:
+                raise ValueError(
+                    "cfg.remat_policy cannot be applied to a "
+                    "train_step_override; pass remat_policy to the "
+                    "override's builder (make_online_distill_step)")
+            self._train_step = train_step_override
+        else:
+            sgd = SGDConfig(momentum=cfg.momentum,
+                            weight_decay=cfg.weight_decay)
+            self._train_step = make_train_step(loss_fn, sgd,
+                                               lr_scale_fn=lr_scale_fn,
+                                               remat_policy=cfg.remat_policy,
+                                               pass_pad_mask=True)
         self._eval_step = make_eval_step(loss_fn)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)

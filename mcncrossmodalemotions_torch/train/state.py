@@ -27,6 +27,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from mcncrossmodalemotions_torch.models.vggm import REMAT_RUNS
+
 
 @dataclasses.dataclass(frozen=True)
 class SGDConfig:
@@ -86,13 +88,27 @@ def apply_sgd_update(state: TrainState, grads: Dict[str, torch.Tensor], lr,
             p.add_(v)
 
 
-def resolve_remat_policy(name: Optional[str]) -> None:
-    """Rematerialisation is not ported: only ``None``/``'none'`` pass."""
-    if name is not None and name != "none":
-        raise NotImplementedError(
-            f"remat policy {name!r}: rematerialisation is not ported to the "
-            "PyTorch package yet (the JAX package's jax.checkpoint policies "
-            "have no counterpart here)")
+def resolve_remat_policy(name: Optional[str]) -> Optional[str]:
+    """Check a remat-policy name (JAX ``resolve_remat_policy``): None or
+    ``'none'`` -> None (keep every activation), else one of the student's
+    policies (``models.vggm.REMAT_RUNS``), which recompute activations in
+    the backward instead of keeping them:
+
+    - ``drop_conv1``: the conv1 + bn1 + relu1 block;
+    - ``drop_through_pool1``: also pool1's output (up to conv2);
+    - ``save_pools``: keep only the pool1, pool2, pool5 and fc6 outputs;
+    - ``dots``: keep the matmul outputs, recompute the convs;
+    - ``nothing``: keep nothing (full remat).
+
+    The same operations run again, so the step's results are those without
+    a policy.
+    """
+    if name is None or name == "none":
+        return None
+    if name not in REMAT_RUNS:
+        raise ValueError(f"unknown remat policy {name!r}; "
+                         f"choose from {['none', *REMAT_RUNS]}")
+    return name
 
 
 def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
@@ -106,15 +122,17 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
     ``logit_target``, ``max_label``, ``hard_label``, ``label_dist``,
     ``pad_mask`` and ``instance_weights`` as it needs them. The model gets
     ``train=True`` and, of ``generator`` (``state.generator``: dropout,
-    the teachers' fliplr), ``use_kernels`` and ``pad_mask``, those its
-    forward accepts. ``pass_pad_mask`` gives ``batch['pad_mask']`` (when
-    present), so train-mode BatchNorm statistics exclude padded rows.
-    ``use_kernels`` runs the frontend and pool1/pool2 through the kernels
-    on the card (False: their plain versions). ``lr_scale_fn`` maps a
+    the teachers' fliplr), ``use_kernels``, ``pad_mask`` and
+    ``remat_policy``, those its forward accepts. ``pass_pad_mask`` gives
+    ``batch['pad_mask']`` (when present), so train-mode BatchNorm
+    statistics exclude padded rows. ``use_kernels`` runs the frontend and
+    pool1/pool2 through the kernels on the card (False: their plain
+    versions). ``remat_policy`` (``resolve_remat_policy``) needs a model
+    whose forward takes it (the students). ``lr_scale_fn`` maps a
     parameter's name split at the dots to its learning-rate multiplier.
     ``lr`` is a Python float, which may change every call.
     """
-    resolve_remat_policy(remat_policy)
+    policy = resolve_remat_policy(remat_policy)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], lr):
         model = state.model
@@ -125,6 +143,12 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
             kwargs["use_kernels"] = use_kernels
         if pass_pad_mask and "pad_mask" in batch and "pad_mask" in accepts:
             kwargs["pad_mask"] = batch["pad_mask"]
+        if policy is not None:
+            if "remat_policy" not in accepts:
+                raise ValueError(f"remat policy {policy!r}: "
+                                 f"{type(model).__name__} has no remat "
+                                 "stages (only the students do)")
+            kwargs["remat_policy"] = policy
         outputs = model(batch["data"], **kwargs)
         loss, metrics = loss_fn(outputs, batch)
         names, params = zip(*model.named_parameters())

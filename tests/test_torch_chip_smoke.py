@@ -20,9 +20,11 @@
   base written by ``classic_release`` (full width at 48x48) imported to its
   seeded weights and fine-tuned, the profiled epoch and the train steps of
   the four timed teachers with their FLOP count (the golden gates run on
-  the CPU in ``test_torch_teacher_train.py``); it runs after ``teacher``
-  and before ``probes``,
-  and the script's last line is the device line alone.
+  the CPU in ``test_torch_teacher_train.py``); it runs after ``teacher``.
+- The online phase rehearses on the CPU at tiny sizes on the teacher
+  phase's outputs; it runs after ``teacher-train`` and before ``probes``,
+  its counts join the kernel line's, and the script's last line is the
+  device line alone.
 """
 
 import shutil
@@ -95,6 +97,9 @@ def test_busy_us_is_the_union_of_device_intervals():
               ev(0, 100, DeviceType.CPU)]
     assert busy_us(events) == 12 + 5
     assert busy_us([]) == 0
+    # within a window: the intervals clipped to it, those outside dropped
+    assert busy_us(events, window=(8, 24)) == 4 + 4
+    assert busy_us(events, window=(13, 19)) == 0
 
 
 def test_synthetic_imdb_defaults_span_the_smoke_buckets(tmp_path):
@@ -209,10 +214,51 @@ def test_teacher_phase_rehearses_on_the_cpu(tmp_path):
                                 tracks_per_class=2)
     wrappers = {"spectrogram": spectrogram_cuda,
                 "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda}
-    counts = chip_smoke.teacher_phase("cpu", tmp_path,
-                                      chip_smoke.imdb_paths(imdb), wrappers,
-                                      dev="cpu")
+    counts, dense = chip_smoke.teacher_phase("cpu", tmp_path,
+                                             chip_smoke.imdb_paths(imdb),
+                                             wrappers, dev="cpu")
     assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}  # CPU tensors
+    assert len(dense.dense_frames) == len(imdb.wav_paths)
+    assert (tmp_path / "dense.mat").is_file()  # the online phase's teacher
+
+
+def test_online_phase_rehearses_on_the_cpu(tmp_path):
+    """The online phase on the teacher phase's outputs at tiny sizes: a
+    tiny SENet ``dense.mat``, its dense imdb over the fixture frames, the
+    distill phase's synthetic imdb; the fused step against the offline
+    one, the online driver with its resume and frame check, the three feed
+    options with the library-vs-Python check, two remat policies."""
+    from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
+    from mcncrossmodalemotions_torch.data.imdb import SET_UNHEARD_VAL
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.ops import pool
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    torch.set_num_threads(2)
+    tracks = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5,),
+                                  tracks_per_class=2)
+    chip_smoke.teacher_release(tmp_path / "dense.mat", stage_sizes=(1, 1),
+                               width=8)
+    model, state = load_pretrained_teacher(tmp_path / "dense.mat",
+                                           with_pipeline=True, device="cpu")
+    speakers = chip_smoke.dense_tree(tmp_path / "vox",
+                                     chip_smoke.imdb_paths(tracks), 3)
+    dense = build_imdb(tmp_path / "vox", model, state, batch_size=8,
+                       set_assignment={speakers[-1]: SET_UNHEARD_VAL},
+                       verbose=False, device="cpu")
+    distill = build_synthetic_imdb(tmp_path / "wav", num_speakers=3,
+                                   tracks_per_speaker=4,
+                                   duration_range=(1.2, 2.0))
+    wrappers = {"spectrogram": spectrogram_cuda,
+                "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda}
+    counts = chip_smoke.online_phase("cpu", tmp_path, dense, distill,
+                                     wrappers, dev="cpu")
+    assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}
 
 
 
@@ -231,8 +277,9 @@ def test_teacher_train_phase_rehearses_on_the_cpu(tmp_path):
 
 
 def test_phases_in_order_and_the_last_line():
-    """teacher-train runs after teacher and before probes, its counts join
-    the kernel line's launches, and the device line is printed last."""
+    """teacher-train runs after teacher, online after it and before probes,
+    their counts join the kernel line's launches, and the device line is
+    printed last."""
     import ast
 
     src = (REPO / "chip_smoke.py").read_text()
@@ -242,7 +289,9 @@ def test_phases_in_order_and_the_last_line():
               if isinstance(c, ast.Call) and getattr(c.func, "id", "") == "phase"]
     assert phases == ["device", "build", "data", "k1", "k2", "slice",
                       "k2-backward", "train", "distill", "reader", "release",
-                      "analysis", "teacher", "teacher-train", "probes"]
+                      "analysis", "teacher", "teacher-train", "online",
+                      "probes"]
     assert "teacher_train_counts[name]" in ast.get_source_segment(src, main)
+    assert "online_counts[name]" in ast.get_source_segment(src, main)
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
     assert 'json.dumps({"ok": True, "device": {' in "\n".join(last)

@@ -3,7 +3,8 @@
 Both read the same ``build_synthetic_imdb`` tree. Where the native C++
 reader loads, the JAX batcher takes it (its rows are bit-identical to the
 Python path's); the test turns it off on the JAX side so that the
-restated Python logic is what is compared. Batches must be bitwise equal:
+restated Python logic is what is compared against the port's own wav
+library. Batches must be bitwise equal:
 train (shuffled, random crops) and val (in order, start-anchored), two
 epochs, seed 0, keys ``data`` (int16), ``logit_target``, ``max_label``.
 """
@@ -114,17 +115,51 @@ def test_stream_rng_matches_jax(seed):
 
 
 @pytest.mark.parametrize("option", [dict(speed_aug=True), dict(noise_aug=True),
-                                    dict(noise=object()),
+                                    dict(noise=("/corpus", 3)),
                                     dict(frames_per_crop=4),
                                     dict(emit_mulaw=True)])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        emovox.BatchConfig(**option)
+def test_unported_options_raise(imdb, option):
+    """The options the batcher once refused are ported: the config is the
+    JAX one's, a batcher on a set without face frames refuses
+    ``frames_per_crop`` up front, and the others change the train batches
+    (``tests/test_torch_feed_options.py`` holds them bitwise to JAX's)."""
+    t_opt, j_opt = dict(option), dict(option)
+    if "noise" in option:
+        t_opt["noise"] = emovox.NoiseConfig(*option["noise"])
+        j_opt["noise"] = jemovox.NoiseConfig(*option["noise"])
+    cfg = emovox.BatchConfig(num_seconds=1.0, batch_size=5, **t_opt)
+    jcfg = jemovox.BatchConfig(num_seconds=1.0, batch_size=5, **j_opt)
+    assert cfg.noise_enabled == jcfg.noise_enabled
+    for field in dataclasses.fields(jcfg):
+        if field.name not in ("spec", "noise"):
+            assert getattr(cfg, field.name) == getattr(jcfg, field.name)
+    if "frames_per_crop" in option:
+        with pytest.raises(ValueError, match="dense_frames"):
+            emovox.EmoVoxBatcher(imdb, cfg)
+        return
+    if "noise" in option:
+        return  # no corpus here: the feed-option tests read one
+    base = next(iter(emovox.EmoVoxBatcher(
+        imdb, emovox.BatchConfig(num_seconds=1.0, batch_size=5)).batches(1)))
+    got = next(iter(emovox.EmoVoxBatcher(imdb, cfg).batches(1)))
+    assert got["data"].dtype == (np.uint8 if cfg.emit_mulaw else np.int16)
+    assert not np.array_equal(got["data"].astype(np.int32),
+                              base["data"].astype(np.int32))
 
 
 def test_unported_batcher_and_imdb_options_raise(imdb, tmp_path):
-    with pytest.raises(NotImplementedError):
+    """fixedSegments and face frames, once refused, are ported; a
+    ``time_offsets`` of the wrong length raises."""
+    with pytest.raises(ValueError, match="offsets"):
         emovox.EmoVoxBatcher(imdb, emovox.BatchConfig(),
-                             time_offsets=np.zeros(imdb.num_tracks))
-    with pytest.raises(NotImplementedError):
-        emovox.build_synthetic_imdb(tmp_path, with_frames=True)
+                             time_offsets=np.zeros(imdb.num_tracks - 1))
+    pinned = emovox.EmoVoxBatcher(imdb, emovox.BatchConfig(num_seconds=1.0),
+                                  time_offsets=np.zeros(imdb.num_tracks))
+    assert pinned.time_offsets.dtype == np.float64
+    framed = emovox.build_synthetic_imdb(tmp_path / "wav", num_speakers=1,
+                                         tracks_per_speaker=2,
+                                         duration_range=(1.0, 1.2),
+                                         with_frames=True)
+    assert len(framed.dense_frames) == 2
+    assert all((tmp_path / "frames" / f).is_file()
+               for track in framed.dense_frames for f in track)

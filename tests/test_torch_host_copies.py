@@ -4,6 +4,10 @@ their originals on the same inputs.
 - ``data.audio``: ``write_wav`` writes the same bytes; ``wav_info``,
   ``read_wav``, ``float_to_pcm16``, ``pack_pcm16`` and ``resample_to``
   give equal results, over the wav formats the reader accepts;
+- ``data.audio`` also: ``pack_mulaw8`` and its table, ``resample_poly``
+  and ``speed_perturb`` bitwise;
+- ``data.splits``: identity splits generated, applied from a speaker
+  mapping, exported and reloaded bitwise alike, leaks refused alike;
 - ``data.imdb``: ``.npz`` manifests round-trip in both directions, with
   the same keys (``EmoVoxImdb``, ``FerPlusImdb``, ``TrackImdb``);
   ``object_array`` and ``float_tracks`` agree;
@@ -98,6 +102,70 @@ def test_write_wav_same_bytes_and_packing_equal(tmp_path):
     for fs in (16000, 22050, 44100, 8000):
         np.testing.assert_array_equal(audio.resample_to(rows[1], fs, 16000),
                                       jaudio.resample_to(rows[1], fs, 16000))
+
+
+def test_mulaw_resample_and_speed_perturb_equal():
+    rng = np.random.RandomState(1)
+    rows = rng.randn(3, 700).astype(np.float32) * np.array([[0.01], [0.5], [4.0]])
+    got, ref = audio.pack_mulaw8(rows), jaudio.pack_mulaw8(rows)
+    assert got.dtype == ref.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(audio._mulaw_lut(), jaudio._mulaw_lut())
+    x = np.linspace(-1, 1, 101, dtype=np.float32)
+    np.testing.assert_array_equal(audio._mulaw_encode_float(x),
+                                  jaudio._mulaw_encode_float(x))
+    for up, down in ((1, 1), (2, 3), (147, 160), (160, 147)):
+        np.testing.assert_array_equal(audio.resample_poly(rows[1], up, down),
+                                      jaudio.resample_poly(rows[1], up, down))
+    for factor in (0.95, 0.987654, 1.0, 1.0312, 1.05):
+        got = audio.speed_perturb(rows[1], factor)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, jaudio.speed_perturb(rows[1], factor))
+    np.testing.assert_array_equal(audio.speed_perturb(rows[1], 1.03, 10),
+                                  jaudio.speed_perturb(rows[1], 1.03, 10))
+
+
+def _split_imdb(mod, n_speakers=9, tracks=(3, 7, 12)):
+    speakers = [f"id{s:03d}" for s in range(n_speakers)
+                for _ in range(tracks[s % len(tracks)])]
+    return mod.EmoVoxImdb(
+        wav_paths=np.asarray([f"{spk}/{i:04d}.wav"
+                              for i, spk in enumerate(speakers)], dtype=object),
+        speaker=np.asarray(speakers, dtype=object),
+        set_id=np.ones(len(speakers), np.int32),
+        wav_logits=[np.zeros((2, 8), np.float32)] * len(speakers))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_identity_splits_equal(tmp_path, seed):
+    from mcncrossmodalemotions_torch.data import splits
+    from mcncrossmodalemotions_tpu.data import splits as jsplits
+
+    speakers = list(_split_imdb(imdb).speaker)
+    for kw in ({}, dict(unheard_fraction=0.34, heard_val_fraction=0.2)):
+        got = splits.generate_identity_splits(speakers, seed=seed, **kw)
+        ref = jsplits.generate_identity_splits(speakers, seed=seed, **kw)
+        assert got.dtype == ref.dtype == np.int32
+        np.testing.assert_array_equal(got, ref)
+    mapping = {f"id{s:03d}": (2 if s in (1, 4) else 1) for s in range(9)}
+    for speaker_to_set in (None, mapping):
+        t = splits.apply_splits(_split_imdb(imdb), speaker_to_set,
+                                heard_val_fraction=0.25, seed=seed)
+        j = jsplits.apply_splits(_split_imdb(jimdb), speaker_to_set,
+                                 heard_val_fraction=0.25, seed=seed)
+        np.testing.assert_array_equal(t.set_id, j.set_id)
+        assert {1, 2, 3} <= set(t.set_id.tolist())
+    splits.export_split_manifest(t, tmp_path / "t.json")
+    jsplits.export_split_manifest(j, tmp_path / "j.json")
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    for mod, path in ((splits, "j.json"), (jsplits, "t.json")):
+        back = mod.load_split_manifest(_split_imdb(imdb), tmp_path / path)
+        np.testing.assert_array_equal(back.set_id, t.set_id)
+    leak = _split_imdb(imdb)
+    leak.set_id = np.where(np.arange(leak.num_tracks) % 2, 1, 2).astype(np.int32)
+    for mod in (splits, jsplits):
+        with pytest.raises(AssertionError, match="unheard speakers leak"):
+            mod.validate_splits(leak)
 
 
 def _emovox(mod, with_frames: bool):

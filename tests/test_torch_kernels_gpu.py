@@ -494,3 +494,52 @@ def test_extraction_runs_on_the_card_from_host_weights(cuda, tmp_path):
                                  state, batch_size=3, verbose=False)
     assert spectrogram_kernel.spectrogram_cuda.launches == before + 2
     assert len(logits) == 6 and all(np.isfinite(l).all() for l in logits)
+
+
+@pytest.mark.parametrize("policy", ["drop_conv1", "save_pools", "dots"])
+def test_remat_policy_launches_and_state(cuda, policy):
+    """Three steps of the tiny student at int16 [4, 16384] with a remat
+    policy against none, cuDNN deterministic for both: the state bitwise
+    equal, and per step K1 once, K2's backward twice and its with-index
+    forward twice plus once for each pool the policy recomputes."""
+    from mcncrossmodalemotions_torch.train.state import (
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+
+    recomputed = {"drop_conv1": 0, "save_pools": 2, "dots": 2}[policy]
+    gen = torch.Generator().manual_seed(0)
+    batch = {"data": (torch.randn(4, 16384, generator=gen) * 3000).to(torch.int16),
+             "logit_target": torch.randn(4, 8, generator=gen),
+             "max_label": torch.tensor([1, 5, 2, 7], dtype=torch.int32),
+             "pad_mask": torch.tensor([1.0, 1.0, 0.0, 1.0])}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    wrappers = (spectrogram_kernel.spectrogram_cuda,
+                pool.max_pool_3x3s2_idx_cuda, pool.max_pool_3x3s2_bwd_cuda)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in (None, policy):
+            model = build_student(tiny=True, dropout=0.5,
+                                  generator=torch.Generator().manual_seed(1))
+            state = TrainState.create(
+                model.to(cuda), torch.Generator(device=cuda).manual_seed(2))
+            step = make_train_step(student_loss_fn(), remat_policy=name,
+                                   pass_pad_mask=True)
+            before = [w.launches for w in wrappers]
+            for lr in (1e-2, 5e-3, 2e-3):
+                state, _ = step(state, batch, lr)
+            torch.cuda.synchronize()
+            runs[name] = (state, [w.launches - b
+                                  for w, b in zip(wrappers, before)])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert runs[None][1] == [3, 6, 6]
+    assert runs[policy][1] == [3, 3 * (2 + recomputed), 6]
+    plain, remat = runs[None][0], runs[policy][0]
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(remat.model.state_dict()[k], v), k
+    for k, v in plain.velocity.items():
+        assert torch.equal(remat.velocity[k], v), k

@@ -154,9 +154,31 @@ def test_resume_requires_the_generator_state(tmp_path):
                                          ("speed_aug", True),
                                          ("noise_num", 2)])
 def test_unported_modes_raise(imdb, tmp_path, field, value):
-    cfg = rd.DistillationConfig(out_root=str(tmp_path), **{field: value})
-    with pytest.raises(NotImplementedError):
-        rd.run_distillation(cfg, imdb, device="cpu")
+    """The modes the driver once refused are ported: each builds its run
+    (0 epochs) in the JAX package's directory; what it needs and lacks
+    raises ValueError as in the JAX driver, and only a multi-device mesh
+    is refused."""
+    kw = dict(TINY_RUN, num_epochs=0, out_root=str(tmp_path), **{field: value})
+    cfg = rd.DistillationConfig(**kw)
+    needs = {"online_teacher": "teacher_model", "noise_num": "noise_dir"}
+    if field in needs:
+        with pytest.raises(ValueError, match=needs[field]):
+            rd.run_distillation(cfg, imdb, device="cpu")
+        extra = {"noise_num": dict(noise_dir=str(tmp_path))}.get(field, {})
+        cfg = rd.DistillationConfig(**kw, **extra)
+    teacher = None
+    if field == "online_teacher":
+        imdb = dataclasses.replace(imdb, dense_frames=[
+            np.asarray(["f.jpg"], dtype=object)] * imdb.num_tracks)
+        teacher = torch.nn.Identity()
+    state, history, exp_dir = rd.run_distillation(cfg, imdb, device="cpu",
+                                                  teacher_model=teacher)
+    assert history == [] and state.step == 0
+    assert exp_dir.name == jrd.DistillationConfig(
+        **dataclasses.asdict(cfg)).exp_name()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        rd.run_distillation(cfg, imdb, device="cpu", mesh=object(),
+                            teacher_model=teacher)
 
 
 def test_engine_helpers_match_jax(imdb):

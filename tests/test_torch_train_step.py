@@ -201,10 +201,20 @@ def test_euclidean_head_and_bnorm_free_student():
 
 
 def test_remat_policies_are_refused():
-    tstate.resolve_remat_policy(None)
-    tstate.resolve_remat_policy("none")
-    with pytest.raises(NotImplementedError):
-        tstate.make_train_step(student_loss_fn(), remat_policy="drop_conv1")
+    """Rematerialisation is ported (``tests/test_torch_remat.py``): the
+    JAX package's policy names are accepted and an unknown one is refused,
+    as ``jax``'s ``resolve_remat_policy`` refuses it."""
+    assert tstate.resolve_remat_policy(None) is None
+    assert tstate.resolve_remat_policy("none") is None
+    assert jstate.resolve_remat_policy("none") is None
+    for name in ("drop_conv1", "drop_through_pool1", "save_pools", "dots",
+                 "nothing"):
+        assert jstate.resolve_remat_policy(name) is not None
+        assert tstate.resolve_remat_policy(name) == name
+        tstate.make_train_step(student_loss_fn(), remat_policy=name)
+    for mod in (tstate, jstate):
+        with pytest.raises(ValueError, match="unknown remat policy"):
+            mod.resolve_remat_policy("drop_everything")
 
 
 def test_dropout_draws_from_the_state_generator():
