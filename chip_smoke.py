@@ -18,8 +18,9 @@ frames decoded by the port, dense EmoVoxCeleb inference); the teacher's
 training path (FER+ fine-tuning and evaluation of SENet50, ResNet50 and
 the classic VGG face teachers); the whole distillation driver (the online
 step with the frozen teacher inside it, the feed options, the remat
-policies); and the two Mosaic probe tools; each path with and without the
-kernels where a comparison applies. Phases:
+policies); the release surface (the artifact registry's tree,
+``verify_release`` and the command line); and the two Mosaic probe tools;
+each path with and without the kernels where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
@@ -186,7 +187,29 @@ kernels where a comparison applies. Phases:
     relative L2), K2's with-index forward launched 2 + the recomputed
     pools a step (drop_conv1 0, drop_through_pool1 1, the rest 2), step ms
     and peak memory per policy.
-16. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+16. verify: a release tree in the artifact registry's layout, hard links
+    to the release phase's full-width student and the teacher phase's
+    SENet50 and ResNet50 ``.mat`` files, and the dense imdb's logits
+    written as a released-logits ``.mat`` in the reference schema (read
+    back bitwise by ``emovox_imdb_from_mat``); ``verify_release`` on the
+    card at its defaults (probes at 224x224 and 4 s, ``download=False``)
+    with a sha manifest of the tree and FER+ csvs of 96 rows in the
+    reference's columns: against the README table (the accuracy gate
+    fails, the teachers being random), then against the measured numbers:
+    PASS, every stage executed but ``container_agreement`` (no ``-v73``
+    sibling: the card's host has no h5py to write one), the released
+    logits' tracks and magnitude those of the imdb; each run launches K1
+    once and the index-free K2 twice (the student's probe); the student's
+    probe logits within 2e-2 x max|logit| of the same probe on the CPU
+    (the plain versions); each release's load time on the card; FAIL on a
+    zeroed student (``import_forward``), one flipped byte in the pinned
+    logits file (``artifacts``, corrupt) and a manifest pin that does not
+    match; ``python -m mcncrossmodalemotions_torch.cli verify-release``
+    exits 0 on the tree and 1 on the bad pin; ``cli.main(["audio-feats",
+    "imdb=<the logits .mat>", "model=<the student .mat>", ...])`` over the
+    126 tracks bitwise ``compute_audio_feats`` (K1 once and K2 twice a
+    chunk).
+17. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -201,8 +224,8 @@ kernels where a comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher, teacher-train and online phases, the probe kernels' over the
-probes run, each read between a reset just before and just after it;
+analysis, teacher, teacher-train, online and verify phases, the probe
+kernels' over the probes run, each read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -278,6 +301,7 @@ F64_UPDATE_RTOL = 1e-5        # float64's first update, relative L2 per
 RESIZE_RTOL = 1e-6            # the pipeline's fp32 resize on the card vs the
                               # host's, of the largest value (one unit in the
                               # last place is 6e-8)
+FERPLUS_CSV_ROWS = 96         # the verify phase's FER+ csvs: 32 train, val, test
 FERPLUS_IMAGES = 384          # ferplus_baselines' synthetic FER+ set: 268 train
                               # images, 2 batches of 128 an epoch
 PROFILED_IMAGES = 2048        # the profiled epoch's set: 11 batches of 128
@@ -721,7 +745,7 @@ def probe_work(probe) -> tuple:
 def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
                  work: dict) -> dict:
     """Both probe tools on the card, then each probe kernel against its
-    plain version and timed (phase 16); returns the tools' launch counts."""
+    plain version and timed (phase 17); returns the tools' launch counts."""
     import numpy as np
     import torch
 
@@ -871,12 +895,13 @@ def state_copy(state) -> dict:
 
 
 def student_release(path: Path, seed: int = SEED, fc6: int = 4096,
-                    fc7: int = 1024) -> dict:
+                    fc7: int = 1024, zeroed: bool = False) -> dict:
     """Write a classic (v5) MatConvNet student ``.mat`` from seeded weights,
     every conv and fc6 with a nonzero bias and its BN mean moved by that
     bias, so the release computes what the seeded weights compute (the
-    importer folds the bias back: mean - bias). Returns the seeded weights
-    in the Flax layout."""
+    importer folds the bias back: mean - bias). ``zeroed`` writes every
+    filter and bias as zeros (the BatchNorms kept): a broken release whose
+    logits are constant. Returns the seeded weights in the Flax layout."""
     import numpy as np
     import scipy.io
 
@@ -898,6 +923,9 @@ def student_release(path: Path, seed: int = SEED, fc6: int = 4096,
     named["fc7f"], named["fc7b"] = p["fc7"]["kernel"][None, None], p["fc7"]["bias"]
     named["fc8f"] = p["prediction"]["kernel"][None, None]
     named["fc8b"] = p["prediction"]["bias"]
+    if zeroed:
+        named = {k: np.zeros_like(w) if k[-1] in "fb" and not k.startswith("bn")
+                 else w for k, w in named.items()}
     arr = np.zeros((len(named),), dtype=[("name", object), ("value", object)])
     for i, item in enumerate(named.items()):
         arr[i] = item
@@ -2667,6 +2695,328 @@ def online_phase(card: str, root: Path, dense_imdb, distill_imdb,
     return total
 
 
+def logits_release(path: Path, imdb) -> None:
+    """Write ``imdb`` (an EmoVoxImdb with dense frames) as a released-logits
+    ``.mat`` in the reference schema (classic container): ``images.name``,
+    ``.sp``, ``.set``, the flat ``.denseFrames`` with their 1-based
+    ``.denseFramesWavIds``, and the ``wavLogits`` cell."""
+    import numpy as np
+    import scipy.io
+
+    cells = np.empty(len(imdb.wav_logits), dtype=object)
+    for i, l in enumerate(imdb.wav_logits):
+        cells[i] = np.asarray(l, np.float32)
+    frames = [str(f) for track in imdb.dense_frames for f in track]
+    ids = [i + 1 for i, track in enumerate(imdb.dense_frames) for _ in track]
+    images = {"name": np.asarray(list(imdb.wav_paths), dtype=object),
+              "sp": np.asarray(list(imdb.speaker), dtype=object),
+              "set": np.asarray(imdb.set_id, np.float64),
+              "denseFrames": np.asarray(frames, dtype=object),
+              "denseFramesWavIds": np.asarray(ids, np.float64)}
+    scipy.io.savemat(path, {"images": images, "wavLogits": cells})
+
+
+def write_release_tree(tree: Path, *, student, teacher, imdb) -> dict:
+    """A release tree in the artifact registry's layout
+    (``<tree>/<kind>/<filename>``): ``student(path)`` and ``teacher(path,
+    use_se)`` put the student's and each FER+ teacher's ``.mat`` at their
+    registry paths (write, copy or link), and the released logits are
+    ``imdb``'s (``logits_release``). Returns {artifact name: path}."""
+    from mcncrossmodalemotions_torch.zoo.artifacts import artifact_path
+
+    paths = {name: artifact_path(name, tree) for name in (
+        "emovoxceleb-student", "resnet50-ferplus", "senet50-ferplus",
+        "emovoxceleb-logits")}
+    for path in paths.values():
+        path.parent.mkdir(parents=True, exist_ok=True)
+    student(paths["emovoxceleb-student"])
+    teacher(paths["resnet50-ferplus"], False)
+    teacher(paths["senet50-ferplus"], True)
+    logits_release(paths["emovoxceleb-logits"], imdb)
+    return paths
+
+
+def fer_csvs(root: Path, rows: int, seed: int = SEED) -> tuple:
+    """FER2013 and FER+ csvs in the reference's columns (Kaggle's
+    ``emotion,pixels,Usage``; FERPlus's ``Usage,Image name,<10 vote
+    columns>``): ``rows`` random 48x48 faces, a third each Training,
+    PublicTest (val) and PrivateTest (test), each with a clear majority
+    among the 8 emotions. Returns (fer_csv, ferplus_csv)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    usages = [("Training", "PublicTest", "PrivateTest")[3 * i // rows]
+              for i in range(rows)]
+    fer, plus = root / "fer2013.csv", root / "fer2013new.csv"
+    with open(fer, "w") as f:
+        f.write("emotion,pixels,Usage\n")
+        for u in usages:
+            pix = " ".join(map(str, rng.randint(0, 256, 48 * 48)))
+            f.write(f"0,{pix},{u}\n")
+    with open(plus, "w") as f:
+        f.write("Usage,Image name,neutral,happiness,surprise,sadness,anger,"
+                "disgust,fear,contempt,unknown,NF\n")
+        for i, u in enumerate(usages):
+            votes = rng.randint(0, 3, 10)
+            votes[rng.randint(0, 8)] += 7
+            f.write(f"{u},fer{i:07d}.png,{','.join(map(str, votes))}\n")
+    return str(fer), str(plus)
+
+
+def verify_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+                 student_mat: Path, teacher_mats: dict, dev="cuda") -> dict:
+    """The release surface (phase 16): a release tree in the registry's
+    layout, linked to the release phase's student (``student_mat``) and the
+    teacher phase's SENet50 and ResNet50 (``teacher_mats``, keyed by
+    registry name), with the dense imdb's logits as the released-logits
+    ``.mat`` (read back bitwise); ``verify_release`` at its defaults on
+    ``dev`` with a sha manifest of the tree and FER+ csvs of
+    ``FERPLUS_CSV_ROWS`` rows, first against the README table (the accuracy
+    gate fails: the teachers are random) and then against those measured
+    numbers (PASS, every stage executed but container agreement); the
+    student's probe against the same probe on the CPU; three broken trees
+    that must FAIL; the CLI's exit codes in a subprocess; and
+    ``cli.main(["audio-feats", ...])`` bitwise the driver. Returns the
+    launch counts of the two good runs and the CLI's extraction. With
+    ``dev="cpu"`` (a rehearsal without a card) the same, on the files
+    given."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch import cli
+    from mcncrossmodalemotions_torch.data.imdb import (
+        emovox_imdb_from_mat,
+        float_tracks,
+    )
+    from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        compute_audio_feats,
+    )
+    from mcncrossmodalemotions_torch.exp.verify_release import (
+        RELEASE_MODELS,
+        probe_logits,
+        verify_release,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        load_pretrained_student,
+        load_pretrained_teacher,
+    )
+    from mcncrossmodalemotions_torch.zoo.artifacts import (
+        _file_sha256,
+        artifact_path,
+    )
+
+    full = dev == "cuda"
+    counts = {k: 0 for k in wrappers}
+    tree = root / "release-tree"
+    t0 = time.perf_counter()
+    paths = write_release_tree(
+        tree, student=lambda p: os.link(student_mat, p),
+        teacher=lambda p, use_se: os.link(
+            teacher_mats["senet50-ferplus" if use_se else "resnet50-ferplus"],
+            p),
+        imdb=dense_imdb)
+    back = emovox_imdb_from_mat(paths["emovoxceleb-logits"])
+    same = (list(back.wav_paths) == list(dense_imdb.wav_paths)
+            and np.array_equal(back.set_id, dense_imdb.set_id)
+            and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in
+                    zip(back.wav_logits, dense_imdb.wav_logits))
+            and [list(f) for f in back.dense_frames]
+            == [list(f) for f in dense_imdb.dense_frames])
+    print(f"  release tree: {', '.join(f'{n} {p.stat().st_size / 2**20:.1f} MiB' for n, p in paths.items())}; "
+          f"the logits .mat ({len(back.wav_paths)} tracks) reads back "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} the dense "
+          "imdb", flush=True)
+    check(same, "the released-logits .mat does not read back to the imdb")
+    manifest = root / "release-pins.json"
+    manifest.write_text(json.dumps({n: _file_sha256(p)
+                                    for n, p in paths.items()}))
+    fer_csv, ferplus_csv = fer_csvs(root, FERPLUS_CSV_ROWS)
+    print(f"  tree, manifest and FER+ csvs ({FERPLUS_CSV_ROWS} rows) written "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def run(tag: str, **kw) -> tuple:
+        kw = dict(artifact_root=str(tree), download=False,
+                  out_root=str(root / f"verify-{tag}"), device=dev) | kw
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(sys.stdout):
+            report = verify_release(**kw)
+        sync(dev)
+        return report, read_counts(wrappers), time.perf_counter() - t0
+
+    want = {k: 0 for k in wrappers}
+    if full:  # the student's probe: one batch through the frontend
+        want |= {"spectrogram": 1, "max_pool_3x3s2": 2}
+    good = dict(fer_csv=fer_csv, ferplus_csv=ferplus_csv,
+                sha_manifest=str(manifest))
+    first, launches, wall = run("readme", **good)
+    check(launches == want, f"verify launches {launches}, expected {want}")
+    add_counts(counts, launches)
+    measured = first["stages"]["ferplus_accuracy"].get("results", {})
+    print(f"  {card}: verify-release against the README table: "
+          f"{'PASS' if first['pass'] else 'FAIL'} in {wall:.2f} s, failed "
+          f"{first['failed']}, measured {measured}; launches {launches}",
+          flush=True)
+    check(first["failed"] == ["ferplus_accuracy"]
+          and sorted(measured) == sorted(m for m in RELEASE_MODELS
+                                         if m != "emovoxceleb-student"),
+          f"the README table's run: failed {first['failed']}")
+    report, launches, wall = run("measured", expected_accuracy=measured,
+                                 **good)
+    check(launches == want, f"verify launches {launches}, expected {want}")
+    add_counts(counts, launches)
+    skip = report["stages"]["container_agreement"]
+    print(f"  {card}: verify-release against the measured accuracies: "
+          f"{'PASS' if report['pass'] else 'FAIL'} in {wall:.2f} s, executed "
+          f"{report['executed']}; container_agreement {skip['status']}: "
+          f"{skip.get('reason')} (h5py on this host: "
+          f"{importlib.util.find_spec('h5py') is not None}); launches "
+          f"{launches}", flush=True)
+    for stage in ("artifacts", "import_forward"):
+        for row in report["stages"][stage]["rows"]:
+            print(f"    {stage} {row['name']}: {row['status']} "
+                  + ", ".join(f"{k} {row[k]}" for k in (
+                      "manifest", "logit_std", "logit_absmax") if k in row))
+    check(report["pass"] and report["executed"] == [
+        "artifacts", "import_forward", "released_logits",
+        "ferplus_accuracy"] and report["skipped"] == ["container_agreement"],
+        f"verify-release on the good tree: {report['failed']}, "
+        f"{report['unverified']}")
+    logits = report["stages"]["released_logits"]
+    check(logits["tracks"] == len(dense_imdb.wav_paths)
+          and logits["logit_absmax"] == max(
+              float(np.abs(w).max()) for w in dense_imdb.wav_logits),
+          f"released_logits {logits}")
+
+    # the student's probe on the card against the same probe on the CPU
+    spec = dict(probe_image_size=224, probe_wav_seconds=4.0)
+    t0 = time.perf_counter()
+    got = probe_logits("emovoxceleb-student", paths["emovoxceleb-student"],
+                       np.random.RandomState(0), device=dev, **spec)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = probe_logits("emovoxceleb-student", paths["emovoxceleb-student"],
+                       np.random.RandomState(0), device="cpu", **spec)
+    cpu_s = time.perf_counter() - t0
+    row = next(r for r in report["stages"]["import_forward"]["rows"]
+               if r["name"] == "emovoxceleb-student")
+    scale, diff = float(np.abs(ref).max()), float(np.abs(got - ref).max())
+    print(f"  {card}: student probe {got.shape} (load + forward {card_s:.2f} "
+          f"s on {dev}, {cpu_s:.2f} s on the CPU): max abs {diff:.3e} against "
+          f"the CPU's plain versions, max |logit| {scale:.3f}, rel "
+          f"{diff / scale:.3e} (gate {SLICE_REL_TOL}); std {np.std(got):.6f} "
+          f"vs the report's {row['logit_std']:.6f}", flush=True)
+    check(diff <= SLICE_REL_TOL * scale, "the student's probe on the card "
+          "disagrees with the CPU's")
+    check(abs(np.std(got) - row["logit_std"]) <= 1e-3 * row["logit_std"],
+          "the report's student row is not the probe's")
+    loads = {}
+    for name in RELEASE_MODELS:
+        load = (load_pretrained_student if name == "emovoxceleb-student"
+                else load_pretrained_teacher)
+        t0 = time.perf_counter()
+        model, _ = load(paths[name], download=False, device=dev)
+        sync(dev)
+        loads[name] = time.perf_counter() - t0
+        del model
+    print(f"  {card}: load on {dev} (s): " + ", ".join(
+        f"{n} {v:.2f}" for n, v in loads.items()), flush=True)
+
+    # broken trees
+    broken = root / "broken-tree"
+    zeroed = artifact_path("emovoxceleb-student", broken)
+    zeroed.parent.mkdir(parents=True)
+    student_release(zeroed, fc6=4096 if full else 64,
+                    fc7=1024 if full else 32, zeroed=True)
+    report, _, _ = run("zeroed", artifact_root=str(broken),
+                       models=("emovoxceleb-student",),
+                       check_logits_imdb=False)
+    row = report["stages"]["import_forward"]["rows"][0]
+    print(f"  zeroed student: {'PASS' if report['pass'] else 'FAIL'}, failed "
+          f"{report['failed']}: {row.get('error')}", flush=True)
+    check(not report["pass"] and report["failed"] == ["import_forward"]
+          and "constant" in row.get("error", ""), "a zeroed student passed")
+    logits_path = paths["emovoxceleb-logits"]
+    blob = bytearray(logits_path.read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    logits_path.write_bytes(bytes(blob))
+    report, _, _ = run("flipped", models=())
+    row = report["stages"]["artifacts"]["rows"][0]
+    print(f"  one flipped byte in the pinned logits: "
+          f"{'PASS' if report['pass'] else 'FAIL'}, failed {report['failed']}, "
+          f"{row['name']} {row['status']}", flush=True)
+    check(not report["pass"] and report["failed"] == ["artifacts"]
+          and row["status"] == "corrupt", "a flipped byte passed")
+    blob[len(blob) // 2] ^= 0xFF
+    logits_path.write_bytes(bytes(blob))
+    bad_pins = root / "bad-pins.json"
+    bad_pins.write_text(json.dumps({"emovoxceleb-student": "0" * 64}))
+    report, _, _ = run("bad-pin", models=("emovoxceleb-student",),
+                       check_logits_imdb=False, sha_manifest=str(bad_pins))
+    row = report["stages"]["artifacts"]["rows"][0]
+    print(f"  a manifest pin that does not match: "
+          f"{'PASS' if report['pass'] else 'FAIL'}, failed {report['failed']}, "
+          f"{row['status']}", flush=True)
+    check(not report["pass"] and row["status"] == "corrupt"
+          and "manifest" in row["error"], "a wrong manifest pin passed")
+
+    # the CLI: exit codes in a subprocess, audio-feats in this process
+    for tag, extra, code in (
+            ("good", [], 0),
+            ("bad", ["models=emovoxceleb-student", "check_logits_imdb=false",
+                     f"sha_manifest={bad_pins}"], 1)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcncrossmodalemotions_torch.cli",
+             "verify-release", f"root={tree}", "download=false",
+             f"out_root={root / f'verify-cli-{tag}'}", f"device={dev}",
+             *extra], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        verdict = [l for l in proc.stdout.splitlines()
+                   if l.startswith("verify-release:")]
+        print(f"  python -m mcncrossmodalemotions_torch.cli verify-release "
+              f"({tag} tree): exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s: {verdict}", flush=True)
+        check(proc.returncode == code, f"the CLI on the {tag} tree exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    feats = root / "cli-feats.npz"
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(sys.stdout):
+        rc = cli.main(["audio-feats", f"imdb={paths['emovoxceleb-logits']}",
+                       f"root={Path(dense_imdb.wav_dir).parent}",
+                       f"model={paths['emovoxceleb-student']}",
+                       f"feats={feats}", f"batch_size={BATCH}",
+                       f"device={dev}"])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    check(rc == 0, f"cli audio-feats exited {rc}")
+    if full:
+        want = extraction_launches(wrappers, dense_imdb)
+        check(launches == want, f"cli audio-feats launches {launches}, "
+              f"expected {want}")
+    add_counts(counts, launches)
+    got = float_tracks(np.load(feats, allow_pickle=True)["logits"])
+    model, state = load_pretrained_student(paths["emovoxceleb-student"],
+                                           with_frontend=False, device=dev)
+    ref = compute_audio_feats(dense_imdb, model, state, batch_size=BATCH,
+                              verbose=False, device=dev)
+    same = len(got) == len(ref) == len(dense_imdb.wav_paths) and all(
+        np.array_equal(a, b) for a, b in zip(got, ref))
+    print(f"  {card}: cli audio-feats over the released logits' "
+          f"{len(got)} tracks in {wall:.2f} s, launches {launches}: logits "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} "
+          "compute_audio_feats", flush=True)
+    check(same, "cli audio-feats differs from compute_audio_feats")
+    del model, state
+    if full:
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2928,8 +3278,15 @@ def main() -> int:
         with phase("online", walls):
             online_counts = online_phase(card, Path(tmp), dense_imdb,
                                          distill_imdb, wrappers)
-            del dense_imdb
             torch.cuda.empty_cache()
+
+        with phase("verify", walls):
+            verify_counts = verify_phase(
+                card, Path(tmp), dense_imdb, wrappers,
+                Path(tmp) / "emovoxceleb-student.mat",
+                {f"{arch}-ferplus": Path(tmp) / f"{arch}-release.mat"
+                 for arch in ("senet50", "resnet50")})
+            del dense_imdb
 
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
@@ -2970,7 +3327,8 @@ def main() -> int:
                          + distill_counts[name] + reader_counts[name]
                          + release_counts[name] + analysis_counts[name]
                          + teacher_counts[name] + teacher_train_counts[name]
-                         + online_counts[name] + probe_counts[name]),
+                         + online_counts[name] + verify_counts[name]
+                         + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

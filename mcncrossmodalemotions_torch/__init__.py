@@ -10,7 +10,8 @@ package's host modules it keeps as its own copies (``data.audio``,
 Layer map of the ported slices (student audio-feature extraction; the
 student's offline distillation training; the Mosaic lowering probes; the
 student's evaluation; the teacher's serving path; the teacher's FER+
-training and evaluation):
+training and evaluation; the whole distillation driver; the release
+surface):
 
 - ``ops``     spectrogram frontend (plain PyTorch) and the kernels
               written by hand for Hopper in ``csrc/``: the fused
@@ -28,8 +29,9 @@ training and evaluation):
 - ``losses``  distillation / classification losses and metrics.
 - ``zoo``     ``build_student``, ``student_loss_fn``, ``build_teacher``,
               ``teacher_loss_fn``, the released-weight loaders, the
-              fine-tuning entry points from base releases and the
-              Flax-variables -> ``state_dict`` weight bridge.
+              fine-tuning entry points from base releases, the
+              Flax-variables -> ``state_dict`` weight bridge and the
+              released-artifact registry (``zoo/artifacts.py``).
 - ``train``   train state and MatConvNet SGD step, checkpoints, the
               epoch engine with its threaded host feed.
 - ``data``    wav I/O, the native reader's bindings, imdb manifests,
@@ -37,13 +39,17 @@ training and evaluation):
               imdb and its host-augmented batches; face frames
               through the port's own JPEG decoder (``data/images.py``,
               ``data/native_faces.py``, ``csrc/dataservice_faces.cc``).
-- ``utils``   config hashing, ETA and metrics logs.
+- ``utils``   dotted-path config overrides and hashing, ETA and
+              metrics logs.
 - ``exp``     bucketed whole-clip feature extraction and offline
               ``run_distillation``; teacher features over face frames and
               the dense EmoVoxCeleb imdb build; FER+ teacher training,
               evaluation and the benchmark table (``ferplus_baselines``,
-              ``reproduce_ferplus``).
+              ``reproduce_ferplus``); the release gate
+              (``verify_release``).
 - ``tools``   the Mosaic lowering probes as Hopper probes.
+- ``cli``     ``python -m mcncrossmodalemotions_torch.cli``: every
+              driver as a command with dotted overrides.
 """
 
 __version__ = "0.1.0"

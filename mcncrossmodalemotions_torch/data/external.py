@@ -1,12 +1,14 @@
-"""External benchmark datasets (mcnDatasets' ``getRmlImdb``), audio only.
+"""External benchmark datasets (mcnDatasets' ``getRmlImdb``,
+``getEnterfaceImdb``, ``getAfewImdb``).
 
-The port's copy of the audio branch of
-``mcncrossmodalemotions_tpu/data/external.py``: the RML/eNTERFACE layout
-scan (``<root>/<emotion>/<track>.wav``, compute_audio_feats.m:63-81) and
-the tone-coded synthetic builder the tests and ``chip_smoke.py`` drive.
-Face frames are not written here: no ported path reads them. The same
-seed gives the same wav bytes and the same manifest as the JAX builder
-(``tests/test_torch_host_copies.py``).
+The port's copy of ``mcncrossmodalemotions_tpu/data/external.py`` but its
+synthetic face frames: the RML/eNTERFACE layout scan
+(``<root>/<emotion>/<track>.wav`` with an optional ``<track>/`` frame
+directory, compute_audio_feats.m:63-81), AFEW's predefined split
+(``<root>/{Train,Val}/<emotion>/<track>.wav``), and the tone-coded
+synthetic builder the tests and ``chip_smoke.py`` drive. The same seed
+gives the same wav bytes and the same manifest as the JAX builder, and
+the same tree the same manifests (``tests/test_torch_host_copies.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from mcncrossmodalemotions_torch.data.audio import write_wav
 from mcncrossmodalemotions_torch.data.imdb import TrackImdb
 
 RML_CLASSES = ("anger", "disgust", "fear", "happiness", "sadness", "surprise")
+ENTERFACE_CLASSES = RML_CLASSES
+AFEW_CLASSES = ("anger", "disgust", "fear", "happiness", "neutral",
+                "sadness", "surprise")
 
 
 def _scan_emotion_dirs(root: Path, classes: Sequence[str], set_value: int):
@@ -57,6 +62,42 @@ def _track_imdb(root: Path, classes: Sequence[str]) -> TrackImdb:
 def get_rml_imdb(root: str | Path) -> TrackImdb:
     """RML emotion dataset manifest (6 classes, CV splits downstream)."""
     return _track_imdb(Path(root), RML_CLASSES)
+
+
+def get_enterface_imdb(root: str | Path) -> TrackImdb:
+    """eNTERFACE'05 manifest (the layout and classes of RML)."""
+    return get_rml_imdb(root)
+
+
+def get_afew_imdb(root: str | Path, drop_tracks_with_no_dets: bool = True,
+                  subsample_stride: int = 1) -> TrackImdb:
+    """AFEW manifest with its predefined Train(1)/Val(2) split.
+
+    ``drop_tracks_with_no_dets`` drops tracks with empty frame lists (all
+    of them kept where none has frames: the audio-only layout);
+    ``subsample_stride`` thins the frame lists (getAfewImdb options,
+    compute_audio_feats.m:67-73).
+    """
+    root = Path(root)
+    parts = [_scan_emotion_dirs(root / subset, AFEW_CLASSES, set_value)
+             for subset, set_value in (("Train", 1), ("Val", 2))]
+    ids, labels, sets, wavs, frames = (sum((p[i] for p in parts), [])
+                                       for i in range(5))
+    if subsample_stride > 1:
+        frames = [f[::subsample_stride] for f in frames]
+    keep = np.arange(len(ids))
+    if drop_tracks_with_no_dets:
+        keep = np.asarray([i for i in keep if len(frames[i]) > 0], np.int64)
+        if len(keep) == 0:
+            keep = np.arange(len(ids))
+    return TrackImdb(
+        track_ids=np.asarray(ids, dtype=object)[keep],
+        labels=np.asarray(labels, np.int32)[keep],
+        set_id=np.asarray(sets, np.int32)[keep],
+        wav_paths=np.asarray(wavs, dtype=object)[keep],
+        frame_paths=[frames[i] for i in keep],
+        classes=AFEW_CLASSES,
+    )
 
 
 def build_synthetic_track_imdb(root: str | Path,

@@ -4,7 +4,11 @@ The port's copy of ``EmoVoxImdb``, ``FerPlusImdb``, ``TrackImdb`` and their
 helpers from ``mcncrossmodalemotions_tpu/data/imdb.py``: typed dataclasses with an npz
 round trip (object arrays for ragged per-track data). They write and read
 the same ``.npz`` files, with the same keys, as the JAX package's classes,
-in both directions (``tests/test_torch_host_copies.py``).
+in both directions (``tests/test_torch_host_copies.py``). Also the reader
+of the released EmoVoxCeleb logits imdb (``emovox_imdb_from_mat``), bitwise
+the JAX package's on both MATLAB containers (``tests/test_torch_artifacts.py``);
+it tells the containers apart by the file's signature
+(``utils/mat73.is_hdf5``), so a classic file reads without ``h5py``.
 """
 
 from __future__ import annotations
@@ -120,6 +124,94 @@ class EmoVoxImdb:
             frame_dir=meta.get("frame_dir", ""),
             classes=tuple(meta["classes"]),
         )
+
+
+def emovox_imdb_from_mat(path: str | Path, wav_dir: str = "",
+                         frame_dir: str = "",
+                         with_frames: bool = True) -> EmoVoxImdb:
+    """Import the released ``senet50-ferplus-logits.mat`` EmoVoxCeleb imdb.
+
+    Schema (fetch_emovoxceleb_imdb.m buildImdb, SURVEY.md section 2.3):
+    ``images.name`` wav relpaths, ``images.sp`` speaker ids, ``images.set``
+    in {1,2,3}, flat ``images.denseFrames`` + ``images.denseFramesWavIds``
+    (1-based wav ids per frame), and the ``wavLogits`` cell of per-wav
+    [F, 8] logits. Reads the classic container (scipy.io) and MATLAB
+    -v7.3/HDF5 (h5py, imported only for it: the released multi-GB dump's
+    format).
+    """
+    from mcncrossmodalemotions_torch.utils import mat73
+
+    if mat73.is_hdf5(path):
+        return _emovox_from_mat_h5(path, wav_dir, frame_dir, with_frames)
+    return _emovox_from_mat_scipy(path, wav_dir, frame_dir, with_frames)
+
+
+def _group_dense_frames(dense_frames, wav_ids, num_tracks: int):
+    """Flat frame list + 1-based wav ids -> per-track frame-path lists."""
+    if dense_frames is None or len(dense_frames) == 0:
+        return None
+    per_track: list = [[] for _ in range(num_tracks)]
+    for frame, wid in zip(dense_frames, wav_ids):
+        per_track[int(wid) - 1].append(str(frame))
+    return [np.asarray(f, dtype=object) for f in per_track]
+
+
+def _emovox_from_mat_scipy(path, wav_dir, frame_dir, with_frames) -> EmoVoxImdb:
+    import scipy.io
+
+    from mcncrossmodalemotions_torch import EMOTIONS
+
+    mat = scipy.io.loadmat(str(path), struct_as_record=False, squeeze_me=True)
+    images = mat["images"]
+    names = np.asarray([str(n) for n in np.atleast_1d(images.name)],
+                       dtype=object)
+    speakers = np.asarray([str(s) for s in np.atleast_1d(images.sp)],
+                          dtype=object)
+    set_id = np.asarray(np.atleast_1d(images.set), np.int32)
+    wl = mat["wavLogits"]
+    if isinstance(wl, np.ndarray) and wl.dtype != object:
+        # squeeze_me collapses a 1-cell wavLogits to the bare [F, 8]
+        # array; iterating that would yield F per-row "tracks"
+        cells = [np.asarray(wl)]
+    else:
+        cells = list(np.atleast_1d(wl))
+    wav_logits = [np.atleast_2d(np.asarray(l, np.float32)) for l in cells]
+    dense = None
+    if with_frames and hasattr(images, "denseFrames"):
+        dense = _group_dense_frames(
+            [str(f) for f in np.atleast_1d(images.denseFrames)],
+            np.atleast_1d(images.denseFramesWavIds), len(names))
+    return EmoVoxImdb(wav_paths=names, speaker=speakers, set_id=set_id,
+                      wav_logits=wav_logits, dense_frames=dense,
+                      wav_dir=wav_dir, frame_dir=frame_dir, classes=EMOTIONS)
+
+
+def _emovox_from_mat_h5(path, wav_dir, frame_dir, with_frames) -> EmoVoxImdb:
+    """MATLAB -v7.3 (HDF5) layout: cell arrays are object-reference
+    datasets, strings uint16 codepoint matrices, numeric arrays transposed
+    (column-major storage); ``utils/mat73`` undoes each."""
+    import h5py
+
+    from mcncrossmodalemotions_torch import EMOTIONS
+    from mcncrossmodalemotions_torch.utils import mat73
+
+    with h5py.File(str(path), "r") as f:
+        images = f["images"]
+        names = mat73.string_cell(f, images["name"])
+        speakers = mat73.string_cell(f, images["sp"])
+        set_id = np.asarray(images["set"]).reshape(-1).astype(np.int32)
+        # v7.3 stores column-major: a MATLAB [F, 8] single arrives [8, F]
+        wav_logits = [
+            np.atleast_2d(mat73.matlab_array(f, r).astype(np.float32))
+            for r in mat73.cell_refs(f["wavLogits"])]
+        dense = None
+        if with_frames and "denseFrames" in images:
+            frames = mat73.string_cell(f, images["denseFrames"])
+            wav_ids = np.asarray(images["denseFramesWavIds"]).reshape(-1)
+            dense = _group_dense_frames(frames, wav_ids, len(names))
+    return EmoVoxImdb(wav_paths=names, speaker=speakers, set_id=set_id,
+                      wav_logits=wav_logits, dense_frames=dense,
+                      wav_dir=wav_dir, frame_dir=frame_dir, classes=EMOTIONS)
 
 
 @dataclasses.dataclass

@@ -13,8 +13,11 @@ Expected layout:
     <root>/wavs/<speaker>/<track>.wav
     <root>/frames/<speaker>/<track>/*.jpg   (every 6th video frame)
 
-The released prebuilt logits (``download=True`` in the JAX package) arrive
-only as a download, which the port does not make: it raises.
+``fetch_emovoxceleb_imdb(download=True)`` first resolves the released
+prebuilt logits (``senet50-ferplus-logits.mat``, fetch_emovoxceleb_imdb.m:
+288-324) through the artifact registry and converts them
+(``data/imdb.emovox_imdb_from_mat``); on a miss it falls through to the
+teacher build.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ import torch
 from torch import nn
 
 from mcncrossmodalemotions_torch import EMOTIONS
-from mcncrossmodalemotions_torch.data.imdb import EmoVoxImdb
+from mcncrossmodalemotions_torch.data.imdb import (
+    EmoVoxImdb,
+    emovox_imdb_from_mat,
+)
 from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
     VisualFeatureExtractor,
 )
@@ -134,32 +140,43 @@ def fetch_emovoxceleb_imdb(root: str | Path,
                            download: bool = False,
                            **build_kwargs) -> EmoVoxImdb:
     """Load-or-build with two cache levels (in memory, then the ``.npz`` at
-    ``cache_path``), as fetch_emovoxceleb_imdb.m:16-40. On a miss the
-    teacher builds it (``build_imdb``, resumable through
-    ``<cache_path>.partial.npz`` unless ``partial_path`` is given).
-    ``download=True`` (the released logits) raises: the port downloads
-    nothing."""
-    if download:
-        raise NotImplementedError(
-            "the released EmoVoxCeleb logits arrive only as a download, which "
-            "the port does not make; pass a teacher to build the imdb, or a "
-            "cache_path holding one")
+    ``cache_path``), as fetch_emovoxceleb_imdb.m:16-40. On a miss: with
+    ``download=True``, the released prebuilt logits through the artifact
+    registry (``ensure_artifact("emovoxceleb-logits")``, its tracks under
+    ``root/wavs`` and ``root/frames``); else, or when that artifact is
+    unavailable, the teacher builds it (``build_imdb``, resumable through
+    ``<cache_path>.partial.npz`` unless ``partial_path`` is given)."""
     key = f"{root}|{cache_path}"
     if key in _MEMORY_CACHE:
         return _MEMORY_CACHE[key]
     if cache_path and Path(cache_path).exists():
         imdb = EmoVoxImdb.load(cache_path)
     else:
-        if teacher_model is None or teacher_state is None:
-            raise FileNotFoundError(
-                f"no cached imdb at {cache_path!r}; pass a teacher model and "
-                "its state to build it")
-        build_kwargs.setdefault(
-            "partial_path", f"{cache_path}.partial.npz" if cache_path else None)
-        imdb = build_imdb(root, teacher_model, teacher_state, **build_kwargs)
+        imdb = None
+        if download:
+            from mcncrossmodalemotions_torch.zoo.artifacts import (
+                ensure_artifact,
+            )
+
+            mat = ensure_artifact("emovoxceleb-logits")
+            if mat is not None:
+                imdb = emovox_imdb_from_mat(
+                    mat, wav_dir=str(Path(root) / "wavs"),
+                    frame_dir=str(Path(root) / "frames"))
         if imdb is None:
-            raise ValueError("fetch_emovoxceleb_imdb builds the whole imdb: "
-                             "max_frames belongs to build_imdb")
+            if teacher_model is None or teacher_state is None:
+                raise FileNotFoundError(
+                    f"no cached imdb at {cache_path!r}; pass a teacher model "
+                    "and its state to build it, or download=True for the "
+                    "released logits")
+            build_kwargs.setdefault(
+                "partial_path",
+                f"{cache_path}.partial.npz" if cache_path else None)
+            imdb = build_imdb(root, teacher_model, teacher_state,
+                              **build_kwargs)
+            if imdb is None:
+                raise ValueError("fetch_emovoxceleb_imdb builds the whole "
+                                 "imdb: max_frames belongs to build_imdb")
         if cache_path:
             imdb.save(cache_path)
     _MEMORY_CACHE[key] = imdb

@@ -9,16 +9,17 @@ reference's de-facto regression test is rerunning
     senet50-ferplus    val 89.8 %   test 88.8 %
 
     python -m mcncrossmodalemotions_torch.exp.reproduce_ferplus \\
-        --fer-csv fer2013.csv --ferplus-csv fer2013new.csv \\
-        --resnet50-mat resnet50-ferplus.mat --senet50-mat senet50-ferplus.mat
+        --fer-csv fer2013.csv --ferplus-csv fer2013new.csv
 
-parses the csvs into the imdb (``data/ferplus.parse_ferplus_csvs``),
-evaluates both released teachers on val and test on the card through the
-preprocessing chain (gray -> 3 channels, mean subtraction, bilinear
-resize), compares with the table within ``tolerance`` and writes
-``report.json``. The port takes the csv and ``.mat`` paths the caller gives
-and downloads nothing; the csvs are under a Kaggle licence and cannot be
-redistributed (``CSV_SOURCES`` says where they come from).
+resolves the released teacher ``.mat`` weights through the artifact
+registry (download on a miss; ``--no-download`` for offline use, or
+``--resnet50-mat``/``--senet50-mat`` for files elsewhere), parses the csvs
+into the imdb (``data/ferplus.parse_ferplus_csvs``), evaluates both
+released teachers on val and test on the card through the preprocessing
+chain (gray -> 3 channels, mean subtraction, bilinear resize), compares
+with the table within ``tolerance`` and writes ``report.json``. The csvs
+are under a Kaggle licence and cannot be redistributed or downloaded
+(``CSV_SOURCES`` says where they come from).
 """
 
 from __future__ import annotations
@@ -71,15 +72,18 @@ def check_results(results: Dict[str, Dict[str, float]],
     return {"pass": ok, "tolerance": tolerance, "rows": rows}
 
 
-def reproduce_ferplus(fer_csv: str, ferplus_csv: str, mats: Dict[str, str],
+def reproduce_ferplus(fer_csv: str, ferplus_csv: str,
+                      mats: Optional[Dict[str, str]] = None,
                       out_root: str = "exps/reproduce-ferplus",
                       tolerance: float = DEFAULT_TOLERANCE,
+                      download: bool = True,
                       batch_size: int = 128, input_size: int = 224,
                       device: torch.device | str = "cuda") -> dict:
     """Run the reproduction; returns the ``check_results`` report.
-    ``mats`` maps each name of ``MODELS`` to its released ``.mat`` path. A
-    missing csv raises ``FileNotFoundError`` after printing where it comes
-    from."""
+    ``mats`` maps a name of ``MODELS`` to its released ``.mat`` path; a
+    name it leaves out resolves through the artifact registry
+    (``fetch_artifact(name, download=download)``). A missing csv raises
+    ``FileNotFoundError`` after printing where it comes from."""
     from mcncrossmodalemotions_torch.data.ferplus import parse_ferplus_csvs
     from mcncrossmodalemotions_torch.exp.ferplus_baselines import (
         FerPlusConfig,
@@ -90,10 +94,11 @@ def reproduce_ferplus(fer_csv: str, ferplus_csv: str, mats: Dict[str, str],
         if not Path(path).is_file():
             print(f"missing {path}; it is {CSV_SOURCES[key]}", flush=True)
             raise FileNotFoundError(path)
-    missing = [name for name, _ in MODELS if name not in mats]
-    if missing:
-        raise KeyError(f"no .mat path for {missing} (the port downloads "
-                       "nothing)")
+    from mcncrossmodalemotions_torch.zoo.artifacts import fetch_artifact
+
+    mats = {name: str((mats or {}).get(name)
+                      or fetch_artifact(name, download=download))
+            for name, _ in MODELS}
     imdb = parse_ferplus_csvs(fer_csv, ferplus_csv)
     results = benchmark_ferplus_models(
         imdb, out_root=out_root, models=MODELS, pretrained_mats=mats,
@@ -121,21 +126,24 @@ def main(argv=None) -> int:
     p.add_argument("--fer-csv", required=True, help=CSV_SOURCES["fer_csv"])
     p.add_argument("--ferplus-csv", required=True,
                    help=CSV_SOURCES["ferplus_csv"])
-    p.add_argument("--resnet50-mat", required=True,
-                   help="the released resnet50-ferplus .mat")
-    p.add_argument("--senet50-mat", required=True,
-                   help="the released senet50-ferplus .mat")
     p.add_argument("--out-root", default="exps/reproduce-ferplus")
     p.add_argument("--tolerance", type=float, default=DEFAULT_TOLERANCE)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--input-size", type=int, default=224)
+    p.add_argument("--no-download", action="store_true")
+    p.add_argument("--resnet50-mat", default=None,
+                   help="a resnet50-ferplus .mat outside the registry's cache")
+    p.add_argument("--senet50-mat", default=None,
+                   help="a senet50-ferplus .mat outside the registry's cache")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    mats = {name: path for name, path in (
+        ("resnet50-ferplus", args.resnet50_mat),
+        ("senet50-ferplus", args.senet50_mat)) if path}
     report = reproduce_ferplus(
-        args.fer_csv, args.ferplus_csv,
-        {"resnet50-ferplus": args.resnet50_mat,
-         "senet50-ferplus": args.senet50_mat},
+        args.fer_csv, args.ferplus_csv, mats,
         out_root=args.out_root, tolerance=args.tolerance,
+        download=not args.no_download,
         batch_size=args.batch_size, input_size=args.input_size,
         device=args.device)
     return 0 if report["pass"] else 1

@@ -26,7 +26,8 @@ but a multi-device ``mesh``:
   (``data/emovox.py``), each part of the experiment's identity.
 
 ``from_scratch=False`` starts from a released student ``.mat``
-(``pretrained_student`` is its path; nothing is downloaded), and
+(``pretrained_student`` is its path or a registry name, resolved by
+``zoo.resolve_release``), and
 ``load_student_from_exp`` rebuilds a trained student from an experiment
 directory of either package for evaluation. ``use_pallas_frontend`` only
 chose the JAX frontend's implementation; the port always runs the K1
@@ -184,7 +185,8 @@ def run_distillation(cfg: DistillationConfig,
     reference's fixedSegments mode (run_distillation.m:86): pinned crop
     starts, whole-track targets, and an experiment directory keyed on the
     offsets. ``cfg.from_scratch=False`` starts from the released student
-    at the path ``cfg.pretrained_student`` (``load_pretrained_student``;
+    ``cfg.pretrained_student``, a path or a registry name
+    (``load_pretrained_student``;
     the widths are the release's), with the run's dropout rate. ``mesh``
     None or ``"auto"`` is the one device; a multi-device mesh raises.
     """
@@ -198,7 +200,7 @@ def run_distillation(cfg: DistillationConfig,
         imdb_path = Path(cfg.data_root) / "emovoxceleb-imdb.npz"
         if not imdb_path.exists():
             raise FileNotFoundError(
-                f"{imdb_path} not found — build it with the JAX package's "
+                f"{imdb_path} not found — build it with "
                 "exp/fetch_emovoxceleb_imdb (or pass a synthetic imdb)")
         imdb = EmoVoxImdb.load(imdb_path)
 

@@ -4,12 +4,12 @@ Computes the distribution of dominant teacher predictions over
 EmoVoxCeleb (vs an optional comparison set, e.g. AFEW logits) and renders
 the log-scale grouped bar figure (teacher_stats.m:47-84).
 
-The port's copy of ``mcncrossmodalemotions_tpu/exp/teacher_stats.py``
-without the released-artifact fetch: the comparison logits come from the
-caller, or from a local ``afew-logits.mat`` at ``comparison_path``.
-``h5py`` is imported only to read a ``-v7.3`` file (``utils/mat73.py``
-tells the containers apart), ``matplotlib`` only to draw. Held equal by
-``tests/test_torch_analysis.py``.
+The port's copy of ``mcncrossmodalemotions_tpu/exp/teacher_stats.py``: the
+comparison logits come from the caller, from the released
+``afew-logits.mat`` through the artifact registry (``download_afew``), or
+from a local file at ``comparison_path``. ``h5py`` is imported only to read
+a ``-v7.3`` file (``utils/mat73.py`` tells the containers apart),
+``matplotlib`` only to draw. Held equal by ``tests/test_torch_analysis.py``.
 """
 
 from __future__ import annotations
@@ -75,20 +75,27 @@ def teacher_stats(imdb: EmoVoxImdb,
                   comparison_name: str = "AFEW 6.0",
                   fig_path: Optional[str] = None,
                   per: str = "frame",
+                  download_afew: bool = False,
                   comparison_path=None) -> Dict[str, np.ndarray]:
     """Histogram(s) of dominant teacher predictions + optional figure.
 
     ``per='frame'`` is the reference's semantics (argmax per frame row);
     ``per='wav'`` histograms per-track global maxima instead.
-    ``comparison_path`` reads a local released afew-logits.mat
-    (``load_face_logits_mat``) when no comparison_logits are passed; the
-    reference fetched it (fetchLogitsFromInternet, teacher_stats.m:85-121),
-    the port downloads nothing.
+    Without comparison_logits, ``download_afew`` resolves the released
+    afew-logits.mat through the artifact registry
+    (fetchLogitsFromInternet, teacher_stats.m:85-121), and
+    ``comparison_path`` reads a local one (``load_face_logits_mat``).
     """
     if per not in ("frame", "wav"):
         raise ValueError(f"per must be 'frame' or 'wav', got {per!r}")
     hist_fn = (frame_prediction_histogram if per == "frame"
                else dominant_prediction_histogram)
+    if comparison_logits is None and download_afew:
+        from mcncrossmodalemotions_torch.zoo.artifacts import ensure_artifact
+
+        mat = ensure_artifact("afew-logits")
+        if mat is not None:
+            comparison_logits = load_face_logits_mat(mat)
     if comparison_logits is None and comparison_path is not None:
         comparison_logits = load_face_logits_mat(comparison_path)
     hists = {"emovoxceleb": hist_fn(imdb.wav_logits)}

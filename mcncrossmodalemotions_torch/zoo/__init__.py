@@ -1,4 +1,5 @@
 """zoo subpackage: ``build_student``, ``load_pretrained_student``,
+``resolve_release`` (registry names, ``zoo.artifacts``),
 ``student_loss_fn``, ``build_teacher``, ``load_pretrained_teacher``, the
 teacher fine-tuning entry points and ``teacher_loss_fn``, the weight bridge
 and the MatConvNet importer (``zoo.matconvnet``)."""
@@ -23,6 +24,7 @@ from mcncrossmodalemotions_torch.zoo.registry import (
     load_pretrained_teacher,
     prepare_classic_from_base,
     prepare_teacher_from_base,
+    resolve_release,
     student_loss_fn,
     teacher_loss_fn,
 )
@@ -32,7 +34,7 @@ __all__ = ["CLASSIC_MODELS", "STUDENT_MODELS", "TEACHER_MODELS",
            "load_pretrained_student", "load_pretrained_teacher",
            "prepare_classic_from_base", "prepare_teacher_from_base",
            "random_student_variables", "random_teacher_variables",
-           "random_vggface_variables", "student_loss_fn",
+           "random_vggface_variables", "resolve_release", "student_loss_fn",
            "student_params_from_flax", "student_state_dict_from_flax",
            "teacher_loss_fn", "teacher_params_from_flax",
            "teacher_state_dict_from_flax"]

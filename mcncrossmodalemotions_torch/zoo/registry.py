@@ -12,8 +12,9 @@ fine-tuning entry points ``prepare_teacher_from_base`` and
 
 Released ``.mat`` files are read by the port's own copy of the MatConvNet
 importer (``zoo/matconvnet.py``) and reach the model through the weight
-bridge (``zoo/bridge.py``). The port takes a path: it has no release
-registry and downloads nothing.
+bridge (``zoo/bridge.py``). Every loader takes a path or a registry name
+(``resolve_release``: ``zoo/artifacts.py``, download on a miss unless the
+caller passes ``download=False``).
 """
 
 from __future__ import annotations
@@ -64,10 +65,30 @@ CLASSIC_MODELS = ("vgg_face", "vgg-vd-face", "vgg-vd-face-fer",
                   "vgg-m-face-bn", "vgg-m-face-bn-fer")
 
 
-def _release_file(mat_path: str | Path) -> None:
-    if not Path(mat_path).is_file():
-        raise FileNotFoundError(f"{mat_path}: no such release file (the port "
-                                "takes a path and downloads nothing)")
+def resolve_release(name_or_path, download: bool = True):
+    """Map a released-model NAME to a local .mat path (download on a miss,
+    emoVoxZoo.m:74-102 / ferPlusZoo fetchModel); an existing path passes
+    through untouched, and any other string is left for the loader to
+    reject."""
+    if Path(str(name_or_path)).exists():
+        return name_or_path
+    from mcncrossmodalemotions_torch.zoo.artifacts import (
+        ARTIFACTS,
+        fetch_artifact,
+    )
+
+    if str(name_or_path) in ARTIFACTS:
+        return fetch_artifact(str(name_or_path), download=download)
+    return name_or_path
+
+
+def _release_file(mat_path: str | Path, download: bool) -> Path:
+    """``resolve_release``, then a check that the result is a file."""
+    path = Path(resolve_release(mat_path, download=download))
+    if not path.is_file():
+        raise FileNotFoundError(f"{mat_path}: no such release file, and not "
+                                "a name of zoo.artifacts.ARTIFACTS")
+    return path
 
 
 def build_student(name: str = "emovoxceleb-student", *,
@@ -124,6 +145,7 @@ def fold_conv_biases(variables: dict) -> dict:
 def load_pretrained_student(mat_path: str | Path, *,
                             with_frontend: bool = True,
                             spec: SpecConfig = DEFAULT_SPEC,
+                            download: bool = True,
                             device: torch.device | str = "cuda"
                             ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """Load a released MatConvNet student ``.mat`` (classic or ``-v7.3``).
@@ -136,7 +158,8 @@ def load_pretrained_student(mat_path: str | Path, *,
     means (``fold_conv_biases``). With ``with_frontend`` the model is the
     waveform pipeline and the keys carry its ``net.`` prefix; without it,
     the bare spectrogram-input VGG-M that ``compute_audio_feats`` takes.
-    ``mat_path`` is a path; nothing is downloaded.
+    ``mat_path`` may be a registry name ('emovoxceleb-student'), resolved
+    by ``resolve_release``.
     """
     from mcncrossmodalemotions_torch.zoo.matconvnet import (
         import_vggm_student,
@@ -144,7 +167,7 @@ def load_pretrained_student(mat_path: str | Path, *,
     )
 
     device = resolve_device(device, "load_pretrained_student")
-    _release_file(mat_path)
+    mat_path = _release_file(mat_path, download)
     with mat_cache_scope():
         variables = fold_conv_biases(import_vggm_student(mat_path))
     params = variables["params"]
@@ -226,18 +249,20 @@ def fold_teacher_conv_biases(arch: dict, variables: dict) -> dict:
     return variables
 
 
-def release_mean_rgb(mat_path: str | Path) -> Optional[Tuple[float, ...]]:
+def release_mean_rgb(mat_path: str | Path, download: bool = True
+                     ) -> Optional[Tuple[float, ...]]:
     """Per-channel mean from a release's ``normalization.averageImage``, an
     RGB 3-tuple, or None without one. A full HxWx3 average image (the
     classic releases) is reduced to its per-channel means; the VGGFace2
-    dags store a 3-vector."""
+    dags store a 3-vector. ``mat_path`` may be a registry name."""
     from mcncrossmodalemotions_torch.zoo.matconvnet import (
         load_mat_meta,
         mat_cache_scope,
     )
 
     with mat_cache_scope():
-        avg = load_mat_meta(mat_path).get("averageImage")
+        avg = load_mat_meta(_release_file(mat_path, download)).get(
+            "averageImage")
     if avg is None:
         return None
     avg = np.asarray(avg, np.float64)
@@ -251,6 +276,7 @@ def load_pretrained_teacher(mat_path: str | Path, *,
                             with_pipeline: bool = False,
                             input_size: int = 224,
                             augment: bool = False,
+                            download: bool = True,
                             device: torch.device | str = "cuda"
                             ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """Load a released MatConvNet teacher ``.mat`` (classic or ``-v7.3``)
@@ -266,8 +292,8 @@ def load_pretrained_teacher(mat_path: str | Path, *,
     ``normalization.averageImage`` where it has one, its train-mode fliplr
     on with ``augment``, and the keys carry its ``teacher.`` prefix. The
     ResNet computes in bf16; an fp32 caller
-    sets its ``dtype`` (the pipeline's ``teacher.dtype``). ``mat_path`` is
-    a path; nothing is downloaded.
+    sets its ``dtype`` (the pipeline's ``teacher.dtype``). ``mat_path`` may
+    be a registry name ('senet50-ferplus'), resolved by ``resolve_release``.
     """
     from mcncrossmodalemotions_torch.zoo.matconvnet import (
         import_teacher,
@@ -275,7 +301,7 @@ def load_pretrained_teacher(mat_path: str | Path, *,
     )
 
     device = resolve_device(device, "load_pretrained_teacher")
-    _release_file(mat_path)
+    mat_path = _release_file(mat_path, download)
     with mat_cache_scope():  # params and meta from one parse
         arch, variables = import_teacher(mat_path)
         fold_teacher_conv_biases(arch, variables)
@@ -302,7 +328,7 @@ def _loaded(model: nn.Module, state: Dict[str, torch.Tensor],
 
 
 def prepare_teacher_from_base(mat_path: str | Path, *, num_outputs: int = 8,
-                              seed: int = 0,
+                              seed: int = 0, download: bool = True,
                               device: torch.device | str = "cuda"
                               ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """Fine-tune entry point: a VGGFace2 base ``.mat`` (e.g. the 8631-way
@@ -322,7 +348,7 @@ def prepare_teacher_from_base(mat_path: str | Path, *, num_outputs: int = 8,
     )
 
     device = resolve_device(device, "prepare_teacher_from_base")
-    _release_file(mat_path)
+    mat_path = _release_file(mat_path, download)
     with mat_cache_scope():
         arch, variables = import_teacher(mat_path)
     fold_teacher_conv_biases(arch, variables)
@@ -354,7 +380,7 @@ def fold_classic_conv_biases(variables: dict) -> dict:
 def prepare_classic_from_base(mat_path: str | Path, name: str, *,
                               num_outputs: int = 8, seed: int = 0,
                               use_bnorm: Optional[bool] = None,
-                              input_size: int = 224,
+                              input_size: int = 224, download: bool = True,
                               device: torch.device | str = "cuda"
                               ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
     """A classic VGG face base ``.mat`` (e.g. the 2622-way ``vgg_face``) ->
@@ -371,7 +397,7 @@ def prepare_classic_from_base(mat_path: str | Path, name: str, *,
     )
 
     device = resolve_device(device, "prepare_classic_from_base")
-    _release_file(mat_path)
+    mat_path = _release_file(mat_path, download)
     model = build_teacher(name, num_outputs=num_outputs, use_bnorm=use_bnorm,
                           input_size=input_size)
     with mat_cache_scope():

@@ -22,9 +22,14 @@
   the four timed teachers with their FLOP count (the golden gates run on
   the CPU in ``test_torch_teacher_train.py``); it runs after ``teacher``.
 - The online phase rehearses on the CPU at tiny sizes on the teacher
-  phase's outputs; it runs after ``teacher-train`` and before ``probes``,
-  its counts join the kernel line's, and the script's last line is the
-  device line alone.
+  phase's outputs; it runs after ``teacher-train``, its counts join the
+  kernel line's, and the script's last line is the device line alone.
+- The verify phase rehearses on the CPU on tiny releases and a dense imdb
+  (the release tree, ``verify_release`` against the README table and the
+  measured accuracies, the probe on both devices, the three broken trees,
+  the CLI in a subprocess and ``audio-feats`` in process); it runs after
+  ``online`` and before ``probes``, its counts join the kernel line's, and
+  a failed gate in it ends the run (no phase is wrapped in a handler).
 """
 
 import shutil
@@ -276,10 +281,72 @@ def test_teacher_train_phase_rehearses_on_the_cpu(tmp_path):
     assert counts == {"spectrogram": 0, "max_pool_3x3s2_idx": 0}
 
 
+def _verify_inputs(tmp_path):
+    """Tiny stand-ins for what the verify phase takes from earlier phases:
+    the release phase's student, the teacher phase's two teachers and its
+    dense imdb."""
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    torch.set_num_threads(2)
+    tracks = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5, 4.1),
+                                  tracks_per_class=1)
+    student = tmp_path / "emovoxceleb-student.mat"
+    chip_smoke.student_release(student, fc6=64, fc7=32)
+    teachers = {}
+    for arch, use_se in (("senet50", True), ("resnet50", False)):
+        teachers[f"{arch}-ferplus"] = tmp_path / f"{arch}-release.mat"
+        chip_smoke.teacher_release(teachers[f"{arch}-ferplus"], use_se=use_se,
+                                   stage_sizes=(1, 1), width=8)
+    model, state = load_pretrained_teacher(teachers["senet50-ferplus"],
+                                           with_pipeline=True, device="cpu")
+    chip_smoke.dense_tree(tmp_path / "vox", chip_smoke.imdb_paths(tracks), 2)
+    dense = build_imdb(tmp_path / "vox", model, state, batch_size=8,
+                       verbose=False, device="cpu")
+    return dense, student, teachers
+
+
+def _wrappers():
+    from mcncrossmodalemotions_torch.ops import pool
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+
+    return {"spectrogram": spectrogram_cuda,
+            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda}
+
+
+def test_verify_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path / "cache"))
+    dense, student, teachers = _verify_inputs(tmp_path)
+    counts = chip_smoke.verify_phase("cpu", tmp_path, dense, _wrappers(),
+                                     student, teachers, dev="cpu")
+    assert counts == {"spectrogram": 0, "max_pool_3x3s2": 0}  # CPU tensors
+    assert (tmp_path / "verify-measured" / "verify-release.json").is_file()
+    assert (tmp_path / "release-tree" / "model" /
+            "senet50-ferplus.mat").samefile(teachers["senet50-ferplus"])
+
+
+def test_verify_phase_failures_propagate(tmp_path, monkeypatch):
+    """A failed gate in the verify phase raises SmokeFailure out of it."""
+    from mcncrossmodalemotions_torch.exp import verify_release
+
+    dense, student, teachers = _verify_inputs(tmp_path)
+    monkeypatch.setattr(verify_release, "verify_release",
+                        lambda **kw: {"pass": False, "failed": ["artifacts"],
+                                      "stages": {"ferplus_accuracy": {}}})
+    with pytest.raises(chip_smoke.SmokeFailure, match="README table"):
+        chip_smoke.verify_phase("cpu", tmp_path, dense, _wrappers(), student,
+                                teachers, dev="cpu")
+
+
 def test_phases_in_order_and_the_last_line():
-    """teacher-train runs after teacher, online after it and before probes,
-    their counts join the kernel line's launches, and the device line is
-    printed last."""
+    """teacher-train runs after teacher, online after it, verify after
+    online and before probes, their counts join the kernel line's
+    launches, no phase runs inside an exception handler, and the device
+    line is printed last."""
     import ast
 
     src = (REPO / "chip_smoke.py").read_text()
@@ -290,8 +357,9 @@ def test_phases_in_order_and_the_last_line():
     assert phases == ["device", "build", "data", "k1", "k2", "slice",
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
-                      "probes"]
-    assert "teacher_train_counts[name]" in ast.get_source_segment(src, main)
-    assert "online_counts[name]" in ast.get_source_segment(src, main)
+                      "verify", "probes"]
+    for counts in ("teacher_train_counts", "online_counts", "verify_counts"):
+        assert f"{counts}[name]" in ast.get_source_segment(src, main)
+    assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
     assert 'json.dumps({"ok": True, "device": {' in "\n".join(last)

@@ -118,11 +118,11 @@ def test_stream_rng_matches_jax(seed):
                                     dict(noise=("/corpus", 3)),
                                     dict(frames_per_crop=4),
                                     dict(emit_mulaw=True)])
-def test_unported_options_raise(imdb, option):
-    """The options the batcher once refused are ported: the config is the
-    JAX one's, a batcher on a set without face frames refuses
-    ``frames_per_crop`` up front, and the others change the train batches
-    (``tests/test_torch_feed_options.py`` holds them bitwise to JAX's)."""
+def test_feed_options_configure_as_jax(imdb, option):
+    """Each feed option gives the JAX batcher's config; a batcher on a set
+    without face frames refuses ``frames_per_crop`` up front, and the
+    others change the train batches (``tests/test_torch_feed_options.py``
+    holds them bitwise to JAX's)."""
     t_opt, j_opt = dict(option), dict(option)
     if "noise" in option:
         t_opt["noise"] = emovox.NoiseConfig(*option["noise"])

@@ -229,8 +229,14 @@ def test_prepare_from_base_equals_jax(tmp_path, monkeypatch):
     _, jvars = jregistry.prepare_classic_from_base(path, "vgg-m-face-bn",
                                                    download=False)
     _same_backbone(state, jvars)
-    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+    with pytest.raises(FileNotFoundError, match="ARTIFACTS"):
         registry.prepare_classic_from_base(tmp_path / "no.mat", "vgg_face",
+                                           device="cpu")
+    from mcncrossmodalemotions_torch.zoo.artifacts import ArtifactUnavailable
+
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path / "cache"))
+    with pytest.raises(ArtifactUnavailable, match="senet50_ft-dag"):
+        registry.prepare_teacher_from_base("senet50_ft-dag", download=False,
                                            device="cpu")
 
 

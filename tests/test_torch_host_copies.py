@@ -16,11 +16,15 @@ their originals on the same inputs.
   (``tests/test_torch_ferplus.py`` and ``tests/test_torch_warp.py`` cover
   every function);
 - ``data.external``: ``build_synthetic_track_imdb`` writes the same wavs
-  and returns equal manifests; ``get_rml_imdb`` reads a tree alike;
+  and returns equal manifests; ``get_rml_imdb``, ``get_enterface_imdb``
+  and ``get_afew_imdb`` read a tree alike;
 - ``data.native``: where the C++ library loads, the same crops as the JAX
   bindings and as the Python reads; switched off, the extractor reads in
   Python;
 - ``utils.config``: ``to_dict`` and ``config_hash`` agree;
+  ``override``/``parse_overrides`` give equal configs (or the same error)
+  and ``struct2str`` the same text, over dotted paths and value tokens
+  drawn by hypothesis;
 - ``utils.logging``: ``MetricsLogger`` and ``Eta`` write the same lines.
 """
 
@@ -33,9 +37,12 @@ from typing import Optional, Tuple
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from mcncrossmodalemotions_torch.data import audio, external, imdb, native
 from mcncrossmodalemotions_torch.exp import compute_audio_feats as tfeats
+from mcncrossmodalemotions_torch.exp.ferplus_baselines import FerPlusConfig
 from mcncrossmodalemotions_torch.exp.run_distillation import DistillationConfig
 from mcncrossmodalemotions_torch.utils import config, logging
 from mcncrossmodalemotions_tpu.data import audio as jaudio
@@ -293,6 +300,29 @@ def test_synthetic_track_imdb_equal(tmp_path, classes):
                       jexternal.get_rml_imdb(tmp_path / "j"))
 
 
+@pytest.mark.parametrize("with_frames", [False, True])
+def test_enterface_and_afew_getters_equal(tmp_path, with_frames):
+    """The port's eNTERFACE and AFEW scanners read a tree the JAX builder
+    wrote (AFEW's Train/Val layout, with and without face frames) as the
+    JAX scanners do: dropping frameless tracks, thinning frame lists."""
+    jexternal.build_synthetic_track_imdb(
+        tmp_path / "afew", classes=jexternal.AFEW_CLASSES, tracks_per_class=3,
+        duration=0.2, with_frames=with_frames, afew_layout=True)
+    jexternal.build_synthetic_track_imdb(tmp_path / "ent", tracks_per_class=2,
+                                         duration=0.2)
+    assert external.AFEW_CLASSES == jexternal.AFEW_CLASSES
+    assert external.ENTERFACE_CLASSES == jexternal.ENTERFACE_CLASSES
+    _assert_same_imdb(external.get_enterface_imdb(tmp_path / "ent"),
+                      jexternal.get_enterface_imdb(tmp_path / "ent"))
+    for kw in ({}, {"subsample_stride": 2}, {"drop_tracks_with_no_dets": False}):
+        ours = external.get_afew_imdb(tmp_path / "afew", **kw)
+        theirs = jexternal.get_afew_imdb(tmp_path / "afew", **kw)
+        _assert_same_imdb(ours, theirs)
+        assert sorted(set(ours.set_id)) == [1, 2]
+        for a, b in zip(ours.frame_paths, theirs.frame_paths):
+            assert list(a) == list(b)
+
+
 @pytest.fixture
 def tracks(tmp_path):
     return external.build_synthetic_track_imdb(
@@ -365,6 +395,78 @@ class _Outer:
 def test_config_hash_and_to_dict_equal(cfg):
     assert config.to_dict(cfg) == jconfig.to_dict(cfg)
     assert config.config_hash(cfg) == jconfig.config_hash(cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaves:
+    flag: bool = False
+    count: int = 3
+    rate: float = 0.5
+    name: str = "x"
+    shape: tuple = (1, 2)
+    items: list = dataclasses.field(default_factory=lambda: [1])
+    maybe_flag: Optional[bool] = None
+    maybe_count: Optional[int] = None
+    maybe_rate: Optional[float] = None
+    maybe_name: Optional[str] = None
+    inner: _Inner = _Inner()
+
+
+_PATHS = ["flag", "count", "rate", "name", "shape", "items", "maybe_flag",
+          "maybe_count", "maybe_rate", "maybe_name", "inner", "inner.widths",
+          "inner.name", "inner.nope", "flag.deeper", "nope", ""]
+_TOKENS = st.one_of(
+    st.sampled_from(["true", "False", "YES", "no", "on", "OFF", "1", "0",
+                     "[1, 2]", "[]", "[0.5, \"a\"]", "None", "null", "", " 7 ",
+                     "1e-3", "-4", "nan", "inf", "x=y"]),
+    st.integers(-10**6, 10**6).map(str),
+    st.floats(allow_nan=False, width=32).map(repr),
+    st.text("abc019.-[], ", max_size=8))
+
+
+def _outcome(mod, cfg, *args, **kwargs):
+    """(config dict, struct2str text) of the overrides as text (a parsed
+    'nan' equals itself there), or the error."""
+    try:
+        out = mod.parse_overrides(cfg, *args, **kwargs)
+    except Exception as exc:  # the two copies must raise alike
+        return type(exc).__name__, str(exc)
+    return repr(mod.to_dict(out)), mod.struct2str(out), repr(out)
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(st.lists(st.tuples(st.sampled_from(_PATHS), _TOKENS), max_size=4))
+def test_parse_overrides_and_struct2str_equal(pairs):
+    args = [f"{path}={token}" for path, token in pairs]
+    assert _outcome(config, _Leaves(), *args) == \
+        _outcome(jconfig, _Leaves(), *args)
+    kwargs = {path.replace(".", "__"): token for path, token in pairs if path}
+    assert _outcome(config, _Leaves(), **kwargs) == \
+        _outcome(jconfig, _Leaves(), **kwargs)
+
+
+@settings(max_examples=100, deadline=None, database=None)
+@given(st.lists(st.tuples(st.sampled_from(
+    ["use_bnorm", "data_type", "pretrained_mat", "lr_values", "augment",
+     "input_size", "finetune_lr", "remat_policy", "noise_dir", "noise_num",
+     "mulaw_feed", "temperature", "tiny_model"]), _TOKENS), max_size=4))
+def test_driver_configs_parse_alike(pairs):
+    """The drivers' configs (string annotations under PEP 563, Optional
+    fields) from the same CLI tokens: each package's class, equal dicts."""
+    from mcncrossmodalemotions_tpu.exp.ferplus_baselines import (
+        FerPlusConfig as JFerPlusConfig,
+    )
+    from mcncrossmodalemotions_tpu.exp.run_distillation import (
+        DistillationConfig as JDistillationConfig,
+    )
+
+    for ours, theirs in ((FerPlusConfig, JFerPlusConfig),
+                         (DistillationConfig, JDistillationConfig)):
+        names = {f.name for f in dataclasses.fields(ours)}
+        args = [f"{p}={t}" for p, t in pairs if p in names]
+        got, want = (_outcome(config, ours(), *args),
+                     _outcome(jconfig, theirs(), *args))
+        assert got[:2] == want[:2]
 
 
 def test_metrics_logger_and_eta_write_the_same_lines(tmp_path, monkeypatch):

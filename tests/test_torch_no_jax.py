@@ -12,7 +12,9 @@ JPEG library, loads a classic-``.mat`` teacher and runs
 ``compute_visual_feats`` and ``build_imdb`` with it, trains tiny FER+
 teachers with ``ferplus_baselines`` (scratch, and from a VGGFace2 base
 ``.mat``), evaluates and reloads them, reloads a JAX package teacher run
-(written here by the JAX package), and then inspects
+(written here by the JAX package), lists the artifact registry through
+the CLI (``cli.main(["fetch"])``), runs ``verify_release`` over a tiny
+classic-``.mat`` release tree, and then inspects
 ``sys.modules``: no jax, flax, optax or JAX package, and none of
 ``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
 only to read ``-v7.3`` files, to draw, and to read frames where its own
@@ -195,6 +197,28 @@ SCRIPT = textwrap.dedent("""
     with torch.inference_mode():
         out = pipe(torch.zeros(2, 48, 48, 1, dtype=torch.uint8))
     assert out.shape == (2, 8) and bool(torch.isfinite(out).all())
+
+    import os
+
+    from mcncrossmodalemotions_torch import cli
+    from mcncrossmodalemotions_torch.exp.verify_release import verify_release
+    from mcncrossmodalemotions_torch.zoo.artifacts import artifact_path
+
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["MCN_TPU_ARTIFACT_ROOT"] = d
+        assert cli.main(["fetch"]) == 0
+        chip_smoke.write_release_tree(
+            Path(d), student=lambda p: chip_smoke.student_release(
+                p, fc6=32, fc7=16),
+            teacher=lambda p, use_se: chip_smoke.teacher_release(
+                p, use_se=use_se, stage_sizes=(1, 1), width=8),
+            imdb=built)
+        report = verify_release(artifact_root=d, download=False,
+                                probe_image_size=32, probe_wav_seconds=1.0,
+                                out_root=str(Path(d) / "out"), verbose=False,
+                                device="cpu")
+        assert report["pass"] and report["executed"] == [
+            "artifacts", "import_forward", "released_logits"], report
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN + LAZY)

@@ -321,9 +321,18 @@ def test_pretrained_pipeline_from_waveforms(release):
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
-def test_pretrained_student_takes_a_path_only(tmp_path):
-    with pytest.raises(FileNotFoundError, match="downloads nothing"):
-        load_pretrained_student("emovoxceleb-student", device="cpu")
+def test_pretrained_student_takes_a_path_only(tmp_path, monkeypatch):
+    """A registry name resolves as in the JAX zoo: absent with downloads
+    off, ArtifactUnavailable; a missing path that is no name,
+    FileNotFoundError; without a card the default device raises."""
+    from mcncrossmodalemotions_torch.zoo.artifacts import ArtifactUnavailable
+
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path))
+    with pytest.raises(ArtifactUnavailable, match="emovoxceleb-student"):
+        load_pretrained_student("emovoxceleb-student", download=False,
+                                device="cpu")
+    with pytest.raises(FileNotFoundError, match="ARTIFACTS"):
+        load_pretrained_student(tmp_path / "x.mat", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")

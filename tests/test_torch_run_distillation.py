@@ -153,11 +153,10 @@ def test_resume_requires_the_generator_state(tmp_path):
                                          ("mulaw_feed", True),
                                          ("speed_aug", True),
                                          ("noise_num", 2)])
-def test_unported_modes_raise(imdb, tmp_path, field, value):
-    """The modes the driver once refused are ported: each builds its run
-    (0 epochs) in the JAX package's directory; what it needs and lacks
-    raises ValueError as in the JAX driver, and only a multi-device mesh
-    is refused."""
+def test_modes_build_their_runs_in_jax_dirs(imdb, tmp_path, field, value):
+    """Each mode of the driver builds its run (0 epochs) in the JAX
+    package's directory; what it needs and lacks raises ValueError as in
+    the JAX driver, and only a multi-device mesh is refused."""
     kw = dict(TINY_RUN, num_epochs=0, out_root=str(tmp_path), **{field: value})
     cfg = rd.DistillationConfig(**kw)
     needs = {"online_teacher": "teacher_model", "noise_num": "noise_dir"}
@@ -258,11 +257,31 @@ def test_from_release_starts_from_its_weights_then_trains(imdb, tmp_path):
     assert [h["epoch"] for h in history] == [3]
 
 
-def test_from_release_takes_a_path_not_a_name(imdb, tmp_path):
+def test_from_release_takes_a_path_not_a_name(imdb, tmp_path, monkeypatch):
+    """``pretrained_student`` resolves through the artifact registry as in
+    the JAX driver: the default name from a tree placed by hand (no
+    download: the file is there), a missing path that is no name raises
+    FileNotFoundError, and the name's miss without downloads raises
+    ArtifactUnavailable."""
+    from mcncrossmodalemotions_torch.zoo.artifacts import (
+        ArtifactUnavailable,
+        artifact_path,
+    )
+
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path / "tree"))
     cfg = rd.DistillationConfig(out_root=str(tmp_path), from_scratch=False,
-                                **TINY_RUN)
+                                **dict(TINY_RUN, num_epochs=0))
     assert cfg.pretrained_student == "emovoxceleb-student"
-    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+    with pytest.raises(ArtifactUnavailable):
+        rd.load_pretrained_student(cfg.pretrained_student, download=False,
+                                   device="cpu")
+    path = artifact_path("emovoxceleb-student")
+    path.parent.mkdir(parents=True)
+    chip_smoke.student_release(path, fc6=64, fc7=32)
+    state, history, _ = rd.run_distillation(cfg, imdb, device="cpu")
+    assert history == [] and state.model.net.fc6.weight.shape[0] == 64
+    cfg = dataclasses.replace(cfg, pretrained_student=str(tmp_path / "no.mat"))
+    with pytest.raises(FileNotFoundError, match="ARTIFACTS"):
         rd.run_distillation(cfg, imdb, device="cpu")
 
 

@@ -304,7 +304,13 @@ def test_release_mean_rgb_of_a_full_average_image(tmp_path):
 
 def test_load_pretrained_teacher_takes_a_path_and_the_card(tmp_path,
                                                           monkeypatch):
-    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+    from mcncrossmodalemotions_torch.zoo.artifacts import ArtifactUnavailable
+
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path))
+    with pytest.raises(ArtifactUnavailable, match="senet50-ferplus"):
+        load_pretrained_teacher("senet50-ferplus", download=False,
+                                device="cpu")
+    with pytest.raises(FileNotFoundError, match="ARTIFACTS"):
         load_pretrained_teacher(tmp_path / "senet50-ferplus.mat", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

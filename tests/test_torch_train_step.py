@@ -200,10 +200,10 @@ def test_euclidean_head_and_bnorm_free_student():
     assert out.shape == (2, 8)
 
 
-def test_remat_policies_are_refused():
-    """Rematerialisation is ported (``tests/test_torch_remat.py``): the
-    JAX package's policy names are accepted and an unknown one is refused,
-    as ``jax``'s ``resolve_remat_policy`` refuses it."""
+def test_remat_policy_names_resolve_as_jax():
+    """The JAX package's remat policy names are accepted and an unknown
+    one is refused, as ``jax``'s ``resolve_remat_policy`` refuses it (the
+    policies themselves: ``tests/test_torch_remat.py``)."""
     assert tstate.resolve_remat_policy(None) is None
     assert tstate.resolve_remat_policy("none") is None
     assert jstate.resolve_remat_policy("none") is None

@@ -254,7 +254,7 @@ def test_build_imdb_bounded_and_resumed_is_one_pass(tree, teacher, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_fetch_caches_and_refusals(tree, teacher, tmp_path):
+def test_fetch_caches_and_refusals(tree, teacher, tmp_path, monkeypatch):
     port, state, _, _ = teacher
     cache = str(tmp_path / "imdb.npz")
     imdb = tfetch.fetch_emovoxceleb_imdb(tree, port, state, cache_path=cache,
@@ -271,8 +271,28 @@ def test_fetch_caches_and_refusals(tree, teacher, tmp_path):
     tfetch._MEMORY_CACHE.clear()
     with pytest.raises(FileNotFoundError, match="teacher"):
         tfetch.fetch_emovoxceleb_imdb(tree, cache_path=str(tmp_path / "no.npz"))
-    with pytest.raises(NotImplementedError, match="download"):
-        tfetch.fetch_emovoxceleb_imdb(tree, download=True)
+    # download=True resolves the released logits through the registry (a
+    # release placed by hand here; no URL opens), as the JAX driver does
+    import urllib.error
+    import urllib.request
+
+    import chip_smoke
+    from mcncrossmodalemotions_torch.zoo.artifacts import artifact_path
+
+    def no_network(*args, **kwargs):
+        raise urllib.error.URLError("the tests reach no network")
+
+    monkeypatch.setattr(urllib.request, "urlopen", no_network)
+    monkeypatch.setenv("MCN_TPU_ARTIFACT_ROOT", str(tmp_path / "artifacts"))
+    release = artifact_path("emovoxceleb-logits")
+    release.parent.mkdir(parents=True)
+    chip_smoke.logits_release(release, imdb)
+    got = tfetch.fetch_emovoxceleb_imdb(tree, download=True)
+    assert got.wav_dir == str(Path(tree) / "wavs")
+    assert list(got.wav_paths) == list(imdb.wav_paths)
+    for a, b in zip(got.wav_logits, imdb.wav_logits):
+        np.testing.assert_array_equal(a, b)
+    tfetch._MEMORY_CACHE.clear()
 
 
 def test_refusals(tree, teacher, monkeypatch):
