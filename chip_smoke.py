@@ -19,8 +19,10 @@ training path (FER+ fine-tuning and evaluation of SENet50, ResNet50 and
 the classic VGG face teachers); the whole distillation driver (the online
 step with the frozen teacher inside it, the feed options, the remat
 policies); the release surface (the artifact registry's tree,
-``verify_release`` and the command line); and the two Mosaic probe tools;
-each path with and without the kernels where a comparison applies. Phases:
+``verify_release`` and the command line); data parallelism through
+``torch.distributed`` (two ranks of this script on the one card); and the
+two Mosaic probe tools; each path with and without the kernels where a
+comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
@@ -209,7 +211,24 @@ each path with and without the kernels where a comparison applies. Phases:
     "imdb=<the logits .mat>", "model=<the student .mat>", ...])`` over the
     126 tracks bitwise ``compute_audio_feats`` (K1 once and K2 twice a
     chunk).
-17. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+17. ddp: two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), each this script started with ``--ddp-worker`` (the
+    parent holds a CUDA context, which a fork cannot carry), against the
+    same work in this process: the full-width student through ``Trainer``
+    at int16 [128, 64384], hot-cross-ent at T=2, bf16, kernels on, 3 steps
+    at 64 rows a rank and a ragged batch of 127 rows padded to 128 (the
+    ranks' weights, running statistics and velocity bitwise equal after
+    every step, the global losses within 1e-2 relative of one process,
+    each rank launching K1 once and K2's with-index forward and backward
+    twice a step); the online step (SENet50 bf16 from the teacher phase's
+    ``dense.mat``, batch 64 x 4 frames of 224x224, 32 rows a rank, 2
+    steps, bitwise equal ranks, the same launches); the dense build over
+    the teacher phase's frames (every rank's logits bitwise the other's,
+    within 1e-2 x max|logit| of the one-process build, no kernel of the
+    line launched); one student step in a 1-rank NCCL group (its loss
+    within 1e-2 of one process's first); each rank's step ms and peak
+    memory beside one process's.
+18. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -224,8 +243,9 @@ each path with and without the kernels where a comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher, teacher-train, online and verify phases, the probe
-kernels' over the probes run, each read between a reset just before and just after it;
+analysis, teacher, teacher-train, online, verify and ddp phases (the ddp
+phase's over every rank), the probe kernels' over the probes run, each
+read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -324,6 +344,11 @@ REMAT_POLICIES = ("drop_conv1", "drop_through_pool1", "save_pools", "dots",
                   "nothing")
 REMAT_POOLS = {"drop_conv1": 0, "drop_through_pool1": 1, "save_pools": 2,
                "dots": 2, "nothing": 2}  # pools recomputed a step
+DDP_RANKS = 2                 # the ddp phase's ranks, both on the one card
+DDP_STEPS = 3                 # full student steps (64 rows a rank), then one
+DDP_RAGGED = TRAIN_BATCH - 1  # ragged batch, padded to a multiple of 2
+DDP_ONLINE_STEPS = 2          # online steps at batch 64 (32 rows a rank)
+DDP_TIMEOUT = 600             # seconds a ddp worker process may take
 
 
 class SmokeFailure(RuntimeError):
@@ -3017,6 +3042,378 @@ def verify_phase(card: str, root: Path, dense_imdb, wrappers: dict,
     return counts
 
 
+def ddp_batches(full: bool) -> list:
+    """The ddp phase's student batches, made on the host from ``SEED`` as
+    every rank makes them: ``DDP_STEPS`` full batches of int16 4 s crops
+    (``TRAIN_BATCH`` rows; 4 rows of 1 s on the CPU) and a ragged one of
+    one row fewer."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+
+    rows = TRAIN_BATCH if full else 4
+    n = DEFAULT_SPEC.crop_samples(400 if full else 100)
+    rng = np.random.RandomState(SEED)
+    out = []
+    for b in [rows] * DDP_STEPS + [rows - 1]:
+        target = (rng.randn(b, 8) * 2).astype(np.float32)
+        wav = (rng.randn(b, n) * 0.1 * 32767).round().clip(-32768, 32767)
+        out.append({"data": wav.astype(np.int16), "logit_target": target,
+                    "max_label": target.argmax(-1).astype(np.int32)})
+    return out
+
+
+def ddp_online_batches(full: bool) -> list:
+    """The online steps' batches: ``ONLINE_BATCH`` crops with
+    ``ONLINE_FRAMES`` uint8 face frames of 224x224 each (4 crops, 48x48
+    frames on the CPU), from ``SEED + 1``."""
+    import numpy as np
+
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+
+    rows, size = (ONLINE_BATCH, 224) if full else (4, 48)
+    n = DEFAULT_SPEC.crop_samples(400 if full else 100)
+    rng = np.random.RandomState(SEED + 1)
+    return [{"data": (rng.randn(rows, n) * 3000).astype(np.int16),
+             "frames": rng.randint(0, 256, (rows, ONLINE_FRAMES, size, size,
+                                            1), np.uint8)}
+            for _ in range(DDP_ONLINE_STEPS)]
+
+
+def state_digest(state) -> str:
+    """sha256 of a train state's weights, running statistics and velocity,
+    bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in (list(state.model.state_dict().values())
+              + list(state.velocity.values())):
+        h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_steps(trainer, state, batches, dev, wrappers) -> dict:
+    """``Trainer.run_epoch`` over one batch at a time: the losses (the
+    global batch's), the state's digest after each step, each step's wall
+    ms (synchronised), the launches and the peak memory."""
+    import torch
+
+    losses, digests, ms = [], [], []
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(wrappers)
+    for b in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        state, stats = trainer.run_epoch(state, [b], epoch=1)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(stats["loss"])
+        digests.append(state_digest(state))
+    counts = read_counts(wrappers)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if torch.device(dev).type == "cuda" else 0.0)
+    return dict(losses=losses, digests=digests, ms=ms, counts=counts,
+                peak_gib=peak)
+
+
+def ddp_student_run(dev, wrappers: dict, mesh=None, steps=None) -> dict:
+    """The full-width student (the tiny one on the CPU) from the seeded
+    init, hot-cross-ent at T=2, weight decay 0, ``TRAIN_LR``, through
+    ``Trainer`` over ``ddp_batches`` (the first ``steps``): one process
+    without ``mesh``, else this rank's shard of each batch."""
+    import torch
+
+    from mcncrossmodalemotions_torch.train.engine import TrainConfig, Trainer
+    from mcncrossmodalemotions_torch.zoo import student_loss_fn
+
+    full = torch.device(dev).type == "cuda"
+    new_student, init = student_init(full)
+    model = new_student()
+    model.load_state_dict(init)
+    trainer = Trainer(model, student_loss_fn("hot-cross-ent", temperature=2.0),
+                      TrainConfig(learning_rate=TRAIN_LR, weight_decay=0.0,
+                                  log_every=1000, resume=False),
+                      device=dev, mesh=mesh)
+    return ddp_steps(trainer, trainer.init_state(scratch=False),
+                     ddp_batches(full)[:steps], dev, wrappers)
+
+
+def ddp_online_run(root: Path, dev, wrappers: dict, mesh) -> dict:
+    """The fused online step (the teacher phase's SENet50 ``dense.mat`` in
+    bf16, frozen, scoring this rank's frames) through ``Trainer`` over
+    ``ddp_online_batches``."""
+    import torch
+
+    from mcncrossmodalemotions_torch.train.distill import (
+        make_online_distill_step,
+    )
+    from mcncrossmodalemotions_torch.train.engine import TrainConfig, Trainer
+    from mcncrossmodalemotions_torch.train.state import SGDConfig
+    from mcncrossmodalemotions_torch.zoo import (
+        load_pretrained_teacher,
+        student_loss_fn,
+    )
+
+    full = torch.device(dev).type == "cuda"
+    teacher, _ = load_pretrained_teacher(root / "dense.mat", with_pipeline=True,
+                                         input_size=224 if full else 48,
+                                         device=dev)
+    step = make_online_distill_step(teacher, sgd=SGDConfig(weight_decay=5e-4),
+                                    mesh=mesh)
+    new_student, init = student_init(full)
+    model = new_student()
+    model.load_state_dict(init)
+    trainer = Trainer(model, student_loss_fn(),
+                      TrainConfig(learning_rate=TRAIN_LR, log_every=1000,
+                                  resume=False),
+                      device=dev, train_step_override=step, mesh=mesh)
+    return ddp_steps(trainer, trainer.init_state(scratch=False),
+                     ddp_online_batches(full), dev, wrappers)
+
+
+def ddp_worker(argv: list) -> int:
+    """One rank of the ddp phase (``chip_smoke.py --ddp-worker <rank>
+    <world> <port> <out.json> <root> <device> <backend>``): joins the
+    group on ``127.0.0.1:<port>``, runs the student steps and, with two
+    ranks, the online steps and the dense build, and writes what it saw
+    to ``out.json`` (rank 0 the dense logits beside it)."""
+    import faulthandler
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    rank, world, port = (int(a) for a in argv[:3])
+    out, root, dev, backend = Path(argv[3]), Path(argv[4]), argv[5], argv[6]
+    faulthandler.dump_traceback_later(DDP_TIMEOUT, exit=True)
+    full = torch.device(dev).type == "cuda"
+    if full:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(2)
+    address = f"127.0.0.1:{port}"
+    if world == 1:  # initialize_multihost joins no group for one process
+        if backend == "nccl":
+            torch.cuda.set_device(torch.device(dev))
+        dist.init_process_group(backend, init_method=f"tcp://{address}",
+                                world_size=1, rank=0)
+    else:
+        initialize_multihost(address, world, rank, backend=backend)
+    mesh = make_mesh(world, device=dev)
+    wrappers = kernel_wrappers()
+    result = {"rank": rank, "backend": dist.get_backend(),
+              "student": ddp_student_run(dev, wrappers, mesh,
+                                         steps=1 if world == 1 else None)}
+    if world > 1:
+        result["online"] = ddp_online_run(root, dev, wrappers, mesh)
+        model, state = load_pretrained_teacher(root / "dense.mat",
+                                               with_pipeline=True, device=dev)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        imdb = build_imdb(root / "vox", model, state, verbose=False,
+                          batch_size=TEACHER_BATCH if full else 8, mesh=mesh)
+        sync(dev)
+        logits = np.concatenate(imdb.wav_logits)
+        result["dense"] = {"s": time.perf_counter() - t0,
+                           "frames": int(logits.shape[0]),
+                           "counts": read_counts(wrappers),
+                           "digest": hashlib.sha256(logits.tobytes())
+                           .hexdigest()}
+        if rank == 0:
+            np.save(out.with_suffix(".npy"), logits)
+    out.write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(root: Path, world: int, dev: str, backend: str) -> list:
+    """Run ``world`` ddp workers (this script, ``--ddp-worker``) to their
+    end and return their results; a run is started again only after a
+    failure that looks like the port being taken (the free-port probe is
+    bind-then-close). Any other failure or a timeout fails the phase."""
+    import socket
+
+    outs = [root / f"ddp-{backend}-{world}-{r}.json" for r in range(world)]
+    for attempt in range(3):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+             str(r), str(world), str(port), str(outs[r]), str(root), dev,
+             backend], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DDP_TIMEOUT + 60)[0]
+                            .decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise SmokeFailure(f"a ddp worker ({backend}, {world} rank(s)) "
+                               "timed out")
+        if all(p.returncode == 0 for p in procs):
+            return [json.loads(o.read_text()) for o in outs]
+        bindish = any(k in log.lower() for log in logs
+                      for k in ("address already in use", "failed to connect"))
+        if not bindish or attempt == 2:
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode:
+                    print(f"  ddp rank {r} ({backend}) exit {p.returncode}:\n"
+                          + log[-4000:], flush=True)
+            raise SmokeFailure(f"a ddp worker ({backend}) failed")
+
+
+def ddp_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+              dev="cuda") -> dict:
+    """Data parallelism through ``torch.distributed`` (phase 17): the same
+    work in one process and in two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device), each rank started as this script
+    with ``--ddp-worker`` (the parent already holds a CUDA context, which
+    a fork cannot carry). (a) The full-width student, int16 [128, 64384],
+    hot-cross-ent at T=2, bf16, kernels on, through ``Trainer``: 3 steps
+    at 64 rows a rank, then a ragged batch of 127 rows padded to 128; the
+    ranks' states bitwise equal after every step, the global losses within
+    ``TRAIN_LOSS_RTOL`` of the one-process run on the card, each rank
+    launching K1 once and K2's with-index forward and backward twice a
+    step; (b) the online step, SENet50 bf16, batch 64 x 4 frames (32 a
+    rank), 2 steps, the ranks bitwise equal and launching as the student;
+    (c) the dense build over the teacher phase's frames on 2 ranks: every
+    rank holds all logits, bitwise the other's, within the teacher gate's
+    floor (``TEACHER_BF16_RTOL`` x max|logit|) of the one-process build;
+    (d) one student step in a 1-rank NCCL group, its loss within
+    ``TRAIN_LOSS_RTOL`` of the one-process first step. Prints each rank's
+    step ms and peak memory beside one process's. Returns the launches of
+    every rank's runs. With ``dev="cpu"`` (a rehearsal without a card) the
+    same at tiny sizes over gloo."""
+    import numpy as np
+    import torch
+
+    full = dev == "cuda"
+    rank_dev = "cuda:0" if full else "cpu"
+    rows = len(ddp_batches(full)[0]["data"])
+    one = ddp_student_run(dev, wrappers)
+    if full:
+        torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(root, DDP_RANKS, rank_dev, "gloo")
+    ranks_s = time.perf_counter() - t0
+    nccl = spawn_ranks(root, 1, rank_dev, "nccl" if full else "gloo")[0]
+    check([r["rank"] for r in ranks] == list(range(DDP_RANKS))
+          and all(r["backend"] == "gloo" for r in ranks)
+          and nccl["backend"] == ("nccl" if full else "gloo"),
+          f"ddp groups: {[r['backend'] for r in ranks]}, {nccl['backend']}")
+
+    def per_step(name: str, want: dict, steps: int) -> None:
+        for r in ranks:
+            got = r[name]["counts"]
+            print(f"  ddp {name} rank {r['rank']}: launches {got}")
+            if full:  # CPU tensors run the plain versions
+                check(got == {k: steps * v for k, v in want.items()},
+                      f"ddp {name} rank {r['rank']} launches {got}")
+        digests = [r[name]["digests"] for r in ranks]
+        check(len(digests[0]) == steps and all(d == digests[0]
+                                               for d in digests),
+              f"ddp {name}: the ranks' states differ")
+
+    step_launches = {k: 0 for k in wrappers} | {
+        "spectrogram": 1, "max_pool_3x3s2_idx": 2, "max_pool_3x3s2_bwd": 2}
+    steps = DDP_STEPS + 1
+    per_step("student", step_launches, steps)
+    per_step("online", step_launches, DDP_ONLINE_STEPS)
+    got = ranks[0]["student"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, one["losses"]))
+    print(f"  ddp student: global losses {got}, one process {one['losses']}: "
+          f"max rel diff {rel:.3e} (gate {TRAIN_LOSS_RTOL}); states bitwise "
+          f"equal on the {DDP_RANKS} ranks after each of {steps} steps")
+    check(all(np.isfinite(got)) and rel <= TRAIN_LOSS_RTOL,
+          "ddp student losses off the one-process run")
+    print(f"  ddp online: losses {ranks[0]['online']['losses']}, states "
+          f"bitwise equal on the {DDP_RANKS} ranks after each of "
+          f"{DDP_ONLINE_STEPS} steps")
+    check(all(np.isfinite(ranks[0]["online"]["losses"])),
+          "ddp online loss not finite")
+    for r in ranks:
+        s = r["student"]
+        print(f"  {card}: ddp rank {r['rank']} of {DDP_RANKS} on one card "
+              f"(gloo), {rows // DDP_RANKS} rows: student step ms "
+              f"{[round(v, 3) for v in s['ms']]} (the last the ragged "
+              f"batch), mean of steps 2-{DDP_STEPS} "
+              f"{np.mean(s['ms'][1:DDP_STEPS]):.3f} ms, peak "
+              f"{s['peak_gib']:.3f} GiB; online step ms "
+              f"{[round(v, 3) for v in r['online']['ms']]}, peak "
+              f"{r['online']['peak_gib']:.3f} GiB", flush=True)
+    print(f"  {card}: one process, {rows} rows: student step ms "
+          f"{[round(v, 3) for v in one['ms']]}, mean of steps 2-{DDP_STEPS} "
+          f"{np.mean(one['ms'][1:DDP_STEPS]):.3f} ms, peak "
+          f"{one['peak_gib']:.3f} GiB; the two ranks' processes "
+          f"{ranks_s:.2f} s end to end", flush=True)
+
+    dense = [r["dense"] for r in ranks]
+    want = np.concatenate(dense_imdb.wav_logits)
+    logits = np.load(root / f"ddp-gloo-{DDP_RANKS}-0.npy")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(logits - want).max())
+    print(f"  ddp dense: {dense[0]['frames']} frames in {dense[0]['s']:.3f} s "
+          f"on rank 0; logits vs the one-process build: max abs {err:.3e} "
+          f"(gate {TEACHER_BF16_RTOL * scale:.3e}); launches "
+          f"{[d['counts'] for d in dense]}", flush=True)
+    check(logits.shape == want.shape and err <= TEACHER_BF16_RTOL * scale,
+          "ddp dense logits off the one-process build")
+    check(all(d["digest"] == dense[0]["digest"] for d in dense),
+          "ddp dense: the ranks' logits differ")
+    check(not any(v for d in dense for v in d["counts"].values()),
+          "the dense build launched kernels of the kernel line")
+
+    s = nccl["student"]
+    rel = abs(s["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    print(f"  ddp {nccl['backend']}: one step in a 1-rank group, loss "
+          f"{s['losses'][0]} vs one process {one['losses'][0]} (rel "
+          f"{rel:.3e}); launches {s['counts']}; step {s['ms'][0]:.3f} ms",
+          flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, "the NCCL step's loss is off")
+    if full:
+        check(s["counts"] == step_launches, f"NCCL launches {s['counts']}")
+    total = {k: 0 for k in wrappers}
+    for counts in [r[n]["counts"] for r in ranks for n in ("student", "online")
+                   ] + [s["counts"]]:
+        add_counts(total, counts)
+    return total
+
+
+def kernel_wrappers() -> dict:
+    """The kernel line's wrappers by name, each counting its launches."""
+    from mcncrossmodalemotions_torch.ops import pool, probes
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+
+    return {"spectrogram": spectrogram_cuda,
+            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
+            "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
+            "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda,
+            "probe_gather": probes.probe_gather,
+            "probe_select_matmul": probes.probe_select_matmul,
+            "probe_col_candidates": probes.probe_col_candidates}
+
+
 def main() -> int:
     import torch
 
@@ -3034,7 +3431,7 @@ def main() -> int:
     from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
         compute_audio_feats,
     )
-    from mcncrossmodalemotions_torch.ops import _build, pool, probes
+    from mcncrossmodalemotions_torch.ops import _build, pool
     from mcncrossmodalemotions_torch.ops.spectrogram import (
         DEFAULT_SPEC,
         preemphasis,
@@ -3051,13 +3448,7 @@ def main() -> int:
     cfg = DEFAULT_SPEC
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    wrappers = {"spectrogram": spectrogram_cuda,
-                "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
-                "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
-                "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda,
-                "probe_gather": probes.probe_gather,
-                "probe_select_matmul": probes.probe_select_matmul,
-                "probe_col_candidates": probes.probe_col_candidates}
+    wrappers = kernel_wrappers()
 
     with phase("device", walls):
         smi = subprocess.run(
@@ -3286,6 +3677,9 @@ def main() -> int:
                 Path(tmp) / "emovoxceleb-student.mat",
                 {f"{arch}-ferplus": Path(tmp) / f"{arch}-release.mat"
                  for arch in ("senet50", "resnet50")})
+
+        with phase("ddp", walls):
+            ddp_counts = ddp_phase(card, Path(tmp), dense_imdb, wrappers)
             del dense_imdb
 
         with phase("probes", walls):
@@ -3328,7 +3722,7 @@ def main() -> int:
                          + release_counts[name] + analysis_counts[name]
                          + teacher_counts[name] + teacher_train_counts[name]
                          + online_counts[name] + verify_counts[name]
-                         + probe_counts[name]),
+                         + ddp_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,
@@ -3344,6 +3738,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as exc:

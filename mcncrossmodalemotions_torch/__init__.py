@@ -11,7 +11,7 @@ Layer map of the ported slices (student audio-feature extraction; the
 student's offline distillation training; the Mosaic lowering probes; the
 student's evaluation; the teacher's serving path; the teacher's FER+
 training and evaluation; the whole distillation driver; the release
-surface):
+surface; data parallelism across ranks):
 
 - ``ops``     spectrogram frontend (plain PyTorch) and the kernels
               written by hand for Hopper in ``csrc/``: the fused
@@ -34,6 +34,10 @@ surface):
               released-artifact registry (``zoo/artifacts.py``).
 - ``train``   train state and MatConvNet SGD step, checkpoints, the
               epoch engine with its threaded host feed.
+- ``parallel`` synchronous data parallelism over ``torch.distributed``
+              (one process a card): the process group, the rank's mesh
+              and shard of each batch, the all-reduces of the gradients
+              and of the global masked BatchNorm's sums.
 - ``data``    wav I/O, the native reader's bindings, imdb manifests,
               synthetic tracks and the EmoVoxCeleb batcher; the FER2013+
               imdb and its host-augmented batches; face frames

@@ -29,10 +29,17 @@ emo-benchmarks (emo_benchmarks.m, which drives run_cross_val.m — pass
 exp_root= to persist its per-fold mnr params). fetch and verify-release
 resolve and check the released artifacts; bench waits for the port's
 benchmark entry.
+
+On a host with several cards, ``torchrun --nproc_per_node=N -m
+mcncrossmodalemotions_torch.cli <command> ...`` runs one rank a card: each
+rank joins the process group (NCCL; gloo with ``device=cpu``) before the
+command, and distill, ferplus, benchmark-ferplus, fetch-imdb and
+visual-feats run data-parallel over it, rank 0 writing the outputs.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from mcncrossmodalemotions_torch.utils.config import (
@@ -587,6 +594,14 @@ def main(argv=None):
         print("commands:", ", ".join(COMMANDS))
         return 0 if argv and argv[0] in ("-h", "--help") else 1
     device, rest = split_device(argv[1:])
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # one rank of a torchrun job: join the group, and the drivers'
+        # mesh="auto" goes data-parallel over it
+        from mcncrossmodalemotions_torch.parallel.mesh import (
+            initialize_multihost,
+        )
+
+        initialize_multihost(backend="gloo" if device == "cpu" else None)
     return COMMANDS[argv[0]](rest, device)
 
 

@@ -11,7 +11,11 @@ Frames are decoded on the host by the port's own JPEG decoder library
 C++), one batch ahead of the card, and shipped as uint8 through pinned
 memory; the pipeline's resize, channel replication, mean subtraction and
 the teacher run on the device (the card unless the caller passes
-``device="cpu"``).
+``device="cpu"``). Under a data-parallel mesh (``parallel/mesh.py``) each
+batch is padded to a multiple of the world size, each rank decodes and
+scores its rows, the logits are gathered to every rank (the JAX
+extractor's replicated ``out_shardings``) and rank 0 alone writes the
+cache and the resumable partial.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
     _load_feat_cache,
     _save_feat_cache,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import (
+    DataMesh,
+    auto_mesh,
+    barrier,
+    gather_rows,
+    process_index,
+)
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 from mcncrossmodalemotions_torch.utils.logging import Eta
 
@@ -48,8 +59,9 @@ class VisualFeatureExtractor:
     One prefetch thread decodes batch i+1 while the device runs batch i.
     ``crop_ratio`` 1.0 is the reference's external-face default (no
     CropSize, compute_visual_feats.m:123-143); the EmoVoxCeleb build uses
-    1/1.6 (fetch_emovoxceleb_imdb.m:169). The ``mesh`` of the JAX extractor
-    (multi-chip inference) is not ported.
+    1/1.6 (fetch_emovoxceleb_imdb.m:169). With ``mesh`` this is one rank
+    of a data-parallel pass on ``mesh.device`` (``device`` is not read):
+    every rank takes the same frame list and returns all its logits.
     """
 
     model: nn.Module
@@ -59,9 +71,11 @@ class VisualFeatureExtractor:
     input_size: int = 224
     crop_ratio: float = 1.0
     device: torch.device | str = "cuda"
+    mesh: Optional[DataMesh] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device, "VisualFeatureExtractor")
+        self.device = (self.mesh.device if self.mesh is not None else
+                       resolve_device(self.device, "VisualFeatureExtractor"))
         self._state = {k: v.to(self.device) for k, v in self.state.items()}
 
     def _job_key(self, frame_paths: Sequence[str]) -> str:
@@ -87,6 +101,17 @@ class VisualFeatureExtractor:
         if pad > 0:
             batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
         return batch
+
+    def _rank_chunk(self, chunk: Sequence[str]) -> Sequence[str]:
+        """This rank's frames of a chunk padded with its last frame to
+        ``batch_size`` and then to a multiple of the world size (the JAX
+        extractor's ``_pad_batch``); the whole chunk without a mesh."""
+        if self.mesh is None:
+            return chunk
+        world = self.mesh.world_size
+        target = -(-self.batch_size // world) * world
+        padded = list(chunk) + [chunk[-1]] * (target - len(chunk))
+        return padded[self.mesh.rows(target)]
 
     def _forward(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch)
@@ -122,6 +147,9 @@ class VisualFeatureExtractor:
         done = 0
         out: List[np.ndarray] = []
         job_key = self._job_key(frame_paths) if partial_path else ""
+        mesh = self.mesh
+        writer = mesh is None or mesh.rank == 0
+        verbose = verbose and writer
         if partial_path and Path(partial_path).exists():
             data = np.load(partial_path, allow_pickle=False)
             if "key" in data and str(data["key"]) == job_key:
@@ -132,8 +160,12 @@ class VisualFeatureExtractor:
                     print(f"resuming dense inference at {done}/{n} frames")
             elif verbose:
                 print("partial checkpoint does not match this job; restarting")
+        if mesh is not None and partial_path:
+            barrier(mesh)  # every rank read the partial before rank 0 moves it
 
         def flush():
+            if not writer:
+                return
             merged = np.concatenate(out) if out else np.zeros((0, 8), np.float32)
             tmp = Path(partial_path).with_suffix(".tmp.npz")
             tmp.parent.mkdir(parents=True, exist_ok=True)
@@ -151,17 +183,21 @@ class VisualFeatureExtractor:
             if keep < len(chunks):
                 chunks, truncated = chunks[:keep], True
         if not chunks:
-            if partial_path:
-                Path(partial_path).unlink(missing_ok=True)  # job complete
+            self._settle(partial_path, writer)  # job complete
             return np.concatenate(out) if out else np.zeros((0, 8), np.float32)
         effective_every = max(checkpoint_every, len(chunks) // 20)
         with ThreadPoolExecutor(max_workers=1) as prefetcher:
-            future = prefetcher.submit(self._decode, chunks[0])
+            future = prefetcher.submit(self._decode,
+                                       self._rank_chunk(chunks[0]))
             for ci, chunk in enumerate(chunks):
                 batch = future.result()
                 if ci + 1 < len(chunks):  # decode the next batch meanwhile
-                    future = prefetcher.submit(self._decode, chunks[ci + 1])
-                logits = self._forward(self._pad_batch(batch))
+                    future = prefetcher.submit(
+                        self._decode, self._rank_chunk(chunks[ci + 1]))
+                if mesh is None:
+                    logits = self._forward(self._pad_batch(batch))
+                else:
+                    logits = gather_rows(self._forward(batch), mesh)
                 out.append(logits[: len(chunk)].float().cpu().numpy())
                 if eta:
                     eta.tick(len(chunk))
@@ -169,10 +205,19 @@ class VisualFeatureExtractor:
                     flush()
         if truncated:
             flush()  # bounded run: persist progress, leave the partial
+            if mesh is not None:
+                barrier(mesh)  # the next call's ranks read the whole partial
             return None
-        if partial_path:
-            Path(partial_path).unlink(missing_ok=True)  # complete
+        self._settle(partial_path, writer)  # complete
         return np.concatenate(out)
+
+    def _settle(self, partial_path: Optional[str], writer: bool) -> None:
+        """A finished job deletes its partial (rank 0), and under a mesh
+        every rank waits for that, so no later call resumes from it."""
+        if partial_path and writer:
+            Path(partial_path).unlink(missing_ok=True)
+        if self.mesh is not None and partial_path:
+            barrier(self.mesh)
 
 
 def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
@@ -185,7 +230,7 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
                          frame_root: str = "",
                          limit: Optional[int] = None,
                          crop_ratio: float = 1.0,
-                         mesh=None,
+                         mesh="auto",
                          clobber: bool = False,
                          input_size: int = 224,
                          max_frames_per_process: Optional[int] = None,
@@ -202,26 +247,32 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
     package reads the other's; with ``feat_path`` the dense pass is also
     resumable through ``<feat_path>.partial.npz``. ``clobber`` recomputes,
     overwrites the cache and discards a stale partial; ``limit`` caps the
-    tracks of a dev run, which is never cached. ``mesh`` (multi-chip
-    inference) and ``max_frames_per_process`` (bounded worker processes)
-    are not ported and raise.
+    tracks of a dev run, which is never cached. ``mesh="auto"`` scores the
+    frames data-parallel over an initialised process group's ranks
+    (``parallel.mesh.auto_mesh``), each rank returning every track's
+    logits and rank 0 alone writing; in one process it is the one device.
+    ``max_frames_per_process`` (bounded worker processes) is not ported
+    and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-card inference (mesh=) is not "
-                                  "ported yet; see ROADMAP.md queue 1, item 15")
     if max_frames_per_process:
         raise NotImplementedError(
             "max_frames_per_process (exp/dense_chunked.py of the JAX package) "
             "is not ported: no leak that it works around has been measured "
             "on the card's host; see ROADMAP.md")
-    if model_name != "random":
+    if mesh == "auto":
+        mesh = auto_mesh(batch_size, device)
+    if model_name != "random" and mesh is None:
         resolve_device(device, "compute_visual_feats")
     if feat_path and Path(feat_path).exists() and not clobber:
         logits = _load_feat_cache(feat_path, len(imdb.frame_paths), model_name)
         if logits is not None:
             return logits
+    writer = process_index() == 0
     if feat_path and clobber:
-        Path(f"{feat_path}.partial.npz").unlink(missing_ok=True)
+        if writer:
+            Path(f"{feat_path}.partial.npz").unlink(missing_ok=True)
+        if mesh is not None:
+            barrier(mesh)  # no rank resumes the stale partial
     tracks = imdb.frame_paths
     if limit:
         tracks = tracks[:limit]
@@ -237,7 +288,7 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
         extractor = VisualFeatureExtractor(model, state, batch_size=batch_size,
                                            crop_ratio=crop_ratio,
                                            input_size=input_size,
-                                           device=device)
+                                           device=device, mesh=mesh)
         all_logits = extractor.frame_logits(flat, verbose=verbose,
                                             partial_path=partial)
         logits, offset = [], 0
@@ -245,6 +296,6 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
             f = len(track)
             logits.append(all_logits[offset:offset + f])
             offset += f
-    if feat_path and not limit:  # a limit= dev run is never cached
+    if feat_path and not limit and writer:  # a limit= dev run is never cached
         _save_feat_cache(feat_path, logits, model_name)
     return logits

@@ -21,8 +21,9 @@ directory name, so both packages resolve one experiment directory.
 - ``load_teacher_from_exp``: the trained teacher of an experiment directory
   of either package, for ``compute_visual_feats`` and the dense build.
 
-Multi-card training (``mesh``) is not ported: ``None`` and ``"auto"`` mean
-the one device, any other mesh raises.
+``mesh="auto"`` (the default) trains and evaluates data-parallel over the
+ranks of an initialised process group (``parallel/mesh.py``), with the
+global masked BatchNorm, and in one process on one device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from mcncrossmodalemotions_torch.data.ferplus import (
 from mcncrossmodalemotions_torch.models.teacher_pipeline import (
     FaceTeacherPipeline,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import auto_mesh, process_index
 from mcncrossmodalemotions_torch.train import checkpoints as ckpt_lib
 from mcncrossmodalemotions_torch.train.engine import TrainConfig, Trainer
 from mcncrossmodalemotions_torch.train.state import finetune_lr_scale_fn
@@ -128,13 +130,6 @@ class FerPlusConfig:
         return f"ferplus-{self.model}-{self.loss_type}-{config_hash(identity)}"
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None and mesh != "auto":
-        raise NotImplementedError(
-            "multi-card teacher training (mesh=) is not ported yet; see "
-            "ROADMAP.md queue 1, item 15 (scale-out)")
-
-
 def build_pipeline(cfg: FerPlusConfig) -> FaceTeacherPipeline:
     """The scratch pipeline of ``cfg``: ``build_teacher`` with the run's
     dropout, useBnorm and input size, the head init at 1/100."""
@@ -207,9 +202,13 @@ def ferplus_baselines(cfg: FerPlusConfig, imdb: FerPlusImdb,
     ``ValueError``: an untrained teacher is never reported. Training writes
     the run metadata (``load_teacher_from_exp`` rebuilds from it) and
     resumes from the newest readable checkpoint unless ``resume`` is
-    False."""
-    _one_device(mesh)
-    device = resolve_device(device, "ferplus_baselines")
+    False. ``mesh="auto"`` goes data-parallel over an initialised process
+    group's ranks (each on its card; ``parallel.mesh.auto_mesh``), None
+    forces one process, a ``DataMesh`` is used as it is."""
+    if mesh == "auto":
+        mesh = auto_mesh(cfg.batch_size, device)
+    device = (mesh.device if mesh is not None
+              else resolve_device(device, "ferplus_baselines"))
     if cfg.dev:
         keep = np.concatenate([np.where(imdb.set_id == s)[0][:1000]
                                for s in (1, 2, 3)])
@@ -241,7 +240,7 @@ def ferplus_baselines(cfg: FerPlusConfig, imdb: FerPlusImdb,
                 if cfg.finetune_lr != 1.0 else None)
     trainer = Trainer(model, teacher_loss_fn(cfg.loss_type, cfg.num_classes),
                       tcfg, class_names=EMOTIONS, device=device,
-                      lr_scale_fn=lr_scale)
+                      lr_scale_fn=lr_scale, mesh=mesh)
 
     if evaluate_only is not None:
         subset = _SUBSET_IDS[evaluate_only]
@@ -320,7 +319,7 @@ def benchmark_ferplus_models(imdb: FerPlusImdb, out_root: str = "exps",
                                          device=device)
             row[f"{subset}Acc"] = stats["accuracy"]
         results[model_name] = row
-        if cache:
+        if cache and process_index() == 0:  # one writer in a parallel job
             cache.parent.mkdir(parents=True, exist_ok=True)
             cache.write_text(json.dumps(row))
         print(f"{model_name}: val {row['valAcc']:.3f} test {row['testAcc']:.3f}")

@@ -37,6 +37,7 @@ from mcncrossmodalemotions_torch.data.imdb import (
 from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
     VisualFeatureExtractor,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import auto_mesh, process_index
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 
 CROP_RATIO = 1.0 / 1.6  # fetch_emovoxceleb_imdb.m:169 CropSize
@@ -68,7 +69,7 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
                set_assignment: Optional[Dict[str, int]] = None,
                batch_size: int = 128,
                limit: Optional[int] = None,
-               mesh=None,
+               mesh="auto",
                partial_path: Optional[str] = None,
                max_frames: Optional[int] = None,
                max_frames_per_process: Optional[int] = None,
@@ -82,17 +83,20 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
     set (1/2/3, default 1); ``limit`` caps the tracks (the opts.limit dev
     pattern, :62). ``partial_path`` makes the pass resumable; with it,
     ``max_frames`` bounds the frames of this call, which returns None until
-    a call finishes the job. ``mesh`` and ``max_frames_per_process`` are
-    not ported and raise.
+    a call finishes the job. ``mesh="auto"`` scores the frames
+    data-parallel over an initialised process group's ranks, each on its
+    card, every rank returning the whole imdb (``compute_visual_feats``);
+    in one process it is the one device. ``max_frames_per_process`` is not
+    ported and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-card inference (mesh=) is not "
-                                  "ported yet; see ROADMAP.md queue 1, item 15")
     if max_frames_per_process:
         raise NotImplementedError(
             "max_frames_per_process (exp/dense_chunked.py of the JAX package) "
             "is not ported; see ROADMAP.md")
-    device = resolve_device(device, "build_imdb")
+    if mesh == "auto":
+        mesh = auto_mesh(batch_size, device)
+    device = (mesh.device if mesh is not None
+              else resolve_device(device, "build_imdb"))
     root = Path(root)
     wav_root, frame_root = root / "wavs", root / "frames"
     wav_paths = sorted(str(p.relative_to(wav_root))
@@ -110,7 +114,8 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
               f"({len(wav_paths)} tracks)")
     extractor = VisualFeatureExtractor(teacher_model, teacher_state,
                                        batch_size=batch_size,
-                                       crop_ratio=CROP_RATIO, device=device)
+                                       crop_ratio=CROP_RATIO, device=device,
+                                       mesh=mesh)
     all_logits = extractor.frame_logits(flat, verbose=verbose,
                                         partial_path=partial_path,
                                         max_frames=max_frames)
@@ -177,7 +182,7 @@ def fetch_emovoxceleb_imdb(root: str | Path,
             if imdb is None:
                 raise ValueError("fetch_emovoxceleb_imdb builds the whole "
                                  "imdb: max_frames belongs to build_imdb")
-        if cache_path:
+        if cache_path and process_index() == 0:  # one writer in a job
             imdb.save(cache_path)
     _MEMORY_CACHE[key] = imdb
     return imdb

@@ -12,8 +12,9 @@ run metadata dumped alongside (:95-105, :227-240).
 On the card the host ships int16 crops (uint8 mu-law with ``mulaw_feed``);
 decode, spectrogram (the K1 kernel), instance norm, the student (K2
 forward-with-index and backward at pool1/pool2), the loss, the backward and
-the SGD update run on one device. Every option of the JAX driver is here
-but a multi-device ``mesh``:
+the SGD update run on the card, or on each card of a data-parallel job
+(``mesh="auto"`` under ``torchrun``: the reference's ``gpus=[1 2]``,
+run_distillation.m:88,179-181). Every option of the JAX driver is here:
 
 - ``online_teacher``: the fused step (``train/distill.py``): the batches
   carry each crop's face frames and the frozen ``teacher_model`` computes
@@ -58,6 +59,7 @@ from mcncrossmodalemotions_torch.data.imdb import (
 )
 from mcncrossmodalemotions_torch.models.pipeline import AudioStudentPipeline
 from mcncrossmodalemotions_torch.models.vggm import VGGMStudent
+from mcncrossmodalemotions_torch.parallel.mesh import auto_mesh
 from mcncrossmodalemotions_torch.train.checkpoints import read_from_exp
 from mcncrossmodalemotions_torch.train.distill import make_online_distill_step
 from mcncrossmodalemotions_torch.train.engine import (
@@ -175,7 +177,7 @@ def run_distillation(cfg: DistillationConfig,
                      mesh="auto", teacher_model: Optional[nn.Module] = None):
     """Returns (final_state, history, exp_dir).
 
-    On one ``device``. ``imdb`` None loads
+    On ``device`` (or the rank's, under a mesh). ``imdb`` None loads
     ``cfg.data_root/emovoxceleb-imdb.npz``. The offline mode trains on the
     imdb's cached ``wav_logits``; ``cfg.online_teacher`` needs an imdb with
     ``dense_frames`` and ``teacher_model``, a face teacher with its weights
@@ -187,13 +189,20 @@ def run_distillation(cfg: DistillationConfig,
     offsets. ``cfg.from_scratch=False`` starts from the released student
     ``cfg.pretrained_student``, a path or a registry name
     (``load_pretrained_student``;
-    the widths are the release's), with the run's dropout rate. ``mesh``
-    None or ``"auto"`` is the one device; a multi-device mesh raises.
+    the widths are the release's), with the run's dropout rate.
+
+    ``mesh="auto"`` trains data-parallel over the ranks of an initialised
+    process group (``parallel.mesh.auto_mesh``: every rank, which must
+    split ``cfg.batch_size`` evenly; ``initialize_multihost`` or the CLI
+    under ``torchrun`` joins it), each rank on its card, and in one
+    process on ``device``; None forces one process, a ``DataMesh`` is
+    used as it is. The mini-epoch scales with the world size, as the
+    reference's does with its GPUs.
     """
-    if mesh is not None and mesh != "auto":
-        raise NotImplementedError(
-            "multi-card training (mesh=) is not ported yet; see ROADMAP.md "
-            "item 15 (torch.distributed)")
+    if mesh == "auto":
+        mesh = auto_mesh(cfg.batch_size, device)
+    if mesh is not None:
+        device = mesh.device
     if cfg.online_teacher and teacher_model is None:
         raise ValueError("online_teacher=True requires teacher_model")
     if imdb is None:
@@ -235,7 +244,8 @@ def run_distillation(cfg: DistillationConfig,
                                 train=False, seed=cfg.seed,
                                 time_offsets=val_offsets)
     epoch_size = mini_epoch_size(train_imdb.num_tracks, cfg.mini_epoch_ratio,
-                                 1, cfg.batch_size)
+                                 mesh.world_size if mesh else 1,
+                                 cfg.batch_size)
 
     exp_dir = Path(cfg.out_root) / cfg.exp_name()
     if time_offsets is not None:
@@ -275,10 +285,11 @@ def run_distillation(cfg: DistillationConfig,
             temperature=cfg.temperature, aggregator=cfg.logit_aggregator,
             num_classes=cfg.num_pred_emotions,
             sgd=SGDConfig(weight_decay=cfg.weight_decay),
-            remat_policy=cfg.remat_policy)
+            remat_policy=cfg.remat_policy, mesh=mesh)
     trainer = Trainer(model, loss_fn, tcfg,
                       class_names=EMOTIONS[: cfg.num_pred_emotions],
-                      device=device, train_step_override=step_override)
+                      device=device, train_step_override=step_override,
+                      mesh=mesh)
     write_run_meta(exp_dir, cfg,
                    num_train_tracks=int(train_imdb.num_tracks),
                    num_val_tracks=int(val_imdb.num_tracks))

@@ -16,7 +16,10 @@ function and with the same semantics:
 
 Batch-mean reductions; ``sample_weight`` ([B]) gives the weighted mean
 ``sum(w * x) / max(sum(w), 1)``, so that padded rows (weight 0) drop out
-exactly.
+exactly. Under data parallelism each rank holds some rows of the batch:
+``total_weight``, the ``sum(w)`` of the whole batch (all-reduced by the
+step), replaces the local one in the denominator, so each rank's value is
+its share of the global mean and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -38,55 +41,68 @@ def log_softmax_t(logits: torch.Tensor, temperature: float = 1.0,
     return torch.log_softmax(logits / temperature, dim=axis)
 
 
-def _wmean(per_row: torch.Tensor,
-           sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean of per-row terms, optionally weighted by [B] weights."""
-    if sample_weight is None:
+def _wmean(per_row: torch.Tensor, sample_weight: Optional[torch.Tensor],
+           total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of per-row terms, optionally weighted by [B] weights, over
+    ``total_weight`` (the whole batch's summed weight) where given."""
+    if sample_weight is None and total_weight is None:
         return per_row.mean()
-    w = sample_weight.to(per_row.dtype)
-    return (per_row * w).sum() / torch.clamp(w.sum(), min=1.0)
+    num = (per_row if sample_weight is None
+           else per_row * sample_weight.to(per_row.dtype)).sum()
+    den = (sample_weight.to(per_row.dtype).sum() if total_weight is None
+           else total_weight.to(per_row.dtype))
+    return num / torch.clamp(den, min=1.0)
 
 
 def distillation_ce(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                     temperature: float = 2.0,
-                    sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    sample_weight: Optional[torch.Tensor] = None,
+                    total_weight: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """-sum softmax(teacher/T) * log_softmax(student/T), batch mean; not
     rescaled by T^2 (the MATLAB convention)."""
     targets = softmax_t(teacher_logits, temperature)
     logp = log_softmax_t(student_logits, temperature)
-    return -_wmean((targets * logp).sum(dim=-1), sample_weight)
+    return -_wmean((targets * logp).sum(dim=-1), sample_weight, total_weight)
 
 
 def distribution_ce(logits: torch.Tensor, target_probs: torch.Tensor,
-                    sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    sample_weight: Optional[torch.Tensor] = None,
+                    total_weight: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Cross-entropy against probability-distribution targets."""
     logp = torch.log_softmax(logits, dim=-1)
-    return -_wmean((target_probs * logp).sum(dim=-1), sample_weight)
+    return -_wmean((target_probs * logp).sum(dim=-1), sample_weight,
+                   total_weight)
 
 
 def softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
-               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               sample_weight: Optional[torch.Tensor] = None,
+               total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-hot cross-entropy ('softmaxlog'); ``labels`` are int class ids."""
     logp = torch.log_softmax(logits, dim=-1)
     per_row = -logp.gather(-1, labels.long()[:, None])[:, 0]
-    return _wmean(per_row, sample_weight)
+    return _wmean(per_row, sample_weight, total_weight)
 
 
 def euclidean_loss(pred: torch.Tensor, target: torch.Tensor,
                    instance_weights: Optional[torch.Tensor] = None,
-                   sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   sample_weight: Optional[torch.Tensor] = None,
+                   total_weight: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """0.5 * per-sample sum of squares, batch mean; optional per-element
     instance weights."""
     diff = pred - target
     sq = diff * diff
     if instance_weights is not None:
         sq = sq * instance_weights
-    return 0.5 * _wmean(sq.sum(dim=-1), sample_weight)
+    return 0.5 * _wmean(sq.sum(dim=-1), sample_weight, total_weight)
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor, sigma: float = 1.0,
                instance_weights: Optional[torch.Tensor] = None,
-               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               sample_weight: Optional[torch.Tensor] = None,
+               total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Elementwise 0.5*(sigma*d)^2 for |d| < 1/sigma^2, else
     |d| - 0.5/sigma^2; summed per sample, batch mean."""
     d = pred - target
@@ -96,14 +112,16 @@ def huber_loss(pred: torch.Tensor, target: torch.Tensor, sigma: float = 1.0,
     per_elem = torch.where(abs_d < 1.0 / (sigma ** 2), quad, lin)
     if instance_weights is not None:
         per_elem = per_elem * instance_weights
-    return _wmean(per_elem.sum(dim=-1), sample_weight)
+    return _wmean(per_elem.sum(dim=-1), sample_weight, total_weight)
 
 
 def class_error(logits: torch.Tensor, labels: torch.Tensor,
-                sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sample_weight: Optional[torch.Tensor] = None,
+                total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Top-1 classification error in [0, 1]."""
     pred = logits.argmax(dim=-1)
-    return _wmean((pred != labels.long()).float(), sample_weight)
+    return _wmean((pred != labels.long()).float(), sample_weight,
+                  total_weight)
 
 
 def per_class_stats(logits: torch.Tensor, labels: torch.Tensor,

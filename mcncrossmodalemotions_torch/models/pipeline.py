@@ -21,6 +21,7 @@ from mcncrossmodalemotions_torch.ops.spectrogram import (
     SpecConfig,
     waveform_to_input,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 
 class AudioStudentPipeline(nn.Module):
@@ -56,14 +57,16 @@ class AudioStudentPipeline(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None, *,
                 use_kernels: bool = True,
                 generator: Optional[torch.Generator] = None,
-                remat_policy: Optional[str] = None):
+                remat_policy: Optional[str] = None,
+                mesh: Optional[DataMesh] = None):
         """``use_kernels`` runs the spectrogram through K1 and pool1/pool2
         through K2 on the card; False runs their plain versions.
-        ``remat_policy`` applies to the student (the frontend keeps no
-        activations for the backward)."""
+        ``remat_policy`` and ``mesh`` apply to the student (the frontend
+        keeps no activations for the backward and normalises each row on
+        its own)."""
         feats = self.frontend(x, valid_frames=valid_frames,
                               use_kernels=use_kernels)
         return self.net(feats, train=train, valid_frames=valid_frames,
                         return_embedding=return_embedding, pad_mask=pad_mask,
                         use_kernels=use_kernels, generator=generator,
-                        remat_policy=remat_policy)
+                        remat_policy=remat_policy, mesh=mesh)

@@ -50,18 +50,20 @@ from mcncrossmodalemotions_torch.models.vggm import (
     dropout,
     lecun_normal_,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 STAGE_SIZES = {50: (3, 4, 6, 3)}
 BN_EPS = 1e-5
 
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False,
-        bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bn_mask: Optional[torch.Tensor] = None,
+        mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Flax BatchNorm: the batch statistics in train mode (over the rows
-    where ``bn_mask > 0``, running statistics updated in place), the
-    running ones in eval mode."""
+    where ``bn_mask > 0``, the global batch's under ``mesh``, running
+    statistics updated in place), the running ones in eval mode."""
     if train:
-        return batch_norm_train(x, bn, bn_mask)
+        return batch_norm_train(x, bn, bn_mask, mesh=mesh)
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps)
 
@@ -118,8 +120,9 @@ class Bottleneck(nn.Module):
             self.bn_down = nn.BatchNorm2d(out, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        bn = dict(train=train, bn_mask=bn_mask)
+                bn_mask: Optional[torch.Tensor] = None,
+                mesh: Optional[DataMesh] = None) -> torch.Tensor:
+        bn = dict(train=train, bn_mask=bn_mask, mesh=mesh)
         y = F.relu(_bn(_conv(x, self.conv1), self.bn1, **bn))
         y = F.relu(_bn(_conv(y, self.conv2), self.bn2, **bn))
         y = _bn(_conv(y, self.conv3), self.bn3, **bn)
@@ -186,14 +189,16 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 return_embedding: bool = False,
                 pad_mask: Optional[torch.Tensor] = None, *,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[DataMesh] = None):
         """[B, H, W, 3] -> logits [B, num_outputs] fp32, and the pooled
         embedding (before dropout) with ``return_embedding``. ``train``
         uses the batch statistics of the rows where ``pad_mask > 0`` and
         updates the running ones, and draws the dropout from
-        ``generator``. The weights come from ``load_state_dict`` (the
-        bridge, a release) or ``reset_parameters``."""
-        bn = dict(train=train, bn_mask=pad_mask)
+        ``generator``; under ``mesh`` both are the global batch's. The
+        weights come from ``load_state_dict`` (the bridge, a release) or
+        ``reset_parameters``."""
+        bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
         x = F.relu(_bn(_conv(x, self.conv1), self.bn1, **bn))
         x = stem_pool(x)
@@ -202,7 +207,7 @@ class ResNet(nn.Module):
         x = x.mean(dim=(2, 3), dtype=torch.float32)  # global pool
         embedding = x
         if train and self.dropout_rate > 0:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, mesh)
         logits = F.linear(x, self.prediction.weight.float(),
                           self.prediction.bias.float())
         if return_embedding:

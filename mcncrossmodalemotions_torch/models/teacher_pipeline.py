@@ -27,22 +27,27 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from mcncrossmodalemotions_torch.models.vggm import global_rows
 from mcncrossmodalemotions_torch.ops.warp import (
     resize_separable,
     resize_weights,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 VGGFACE2_MEAN_RGB = (131.0912, 103.8827, 91.4953)
 
 
 def random_flip(batch: int, prob: float,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator],
+                mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """[B] bool mask, True with probability ``prob``, drawn from
-    ``generator`` (required) on its device."""
+    ``generator`` (required) on its device; under ``mesh`` drawn for the
+    global batch, this rank's rows kept (``models.vggm.global_rows``)."""
     if generator is None:
         raise ValueError("train-mode fliplr needs an explicit torch.Generator")
-    return torch.rand(batch, generator=generator,
-                      device=generator.device) < prob
+    total, rows = global_rows(batch, mesh)
+    return torch.rand(total, generator=generator,
+                      device=generator.device)[rows] < prob
 
 
 def fliplr(x: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
@@ -101,16 +106,19 @@ class FaceTeacherPipeline(nn.Module):
                 return_embedding: bool = False,
                 pad_mask: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None,
-                flip: Optional[torch.Tensor] = None):
+                flip: Optional[torch.Tensor] = None,
+                mesh: Optional[DataMesh] = None):
         """[B, H, W, 1] uint8 (or float) grayscale -> logits [B, C] fp32
         (and the teacher's embedding with ``return_embedding``). In train
         mode with ``augment`` the rows in ``flip`` (drawn from
         ``generator`` when not given) are mirrored; ``generator`` also
-        feeds the teacher's dropout."""
+        feeds the teacher's dropout. Under ``mesh`` ``x`` is this rank's
+        shard, and the draws and BatchNorm statistics the global batch's."""
         x = x.float()
         if train and self.augment:
             if flip is None:
-                flip = random_flip(x.shape[0], self.flip_prob, generator)
+                flip = random_flip(x.shape[0], self.flip_prob, generator,
+                                   mesh)
             x = fliplr(x, flip)
         if x.shape[1] != self.input_size or x.shape[2] != self.input_size:
             x = resize_separable(x, self.input_size, self.input_size,
@@ -118,4 +126,4 @@ class FaceTeacherPipeline(nn.Module):
                                                 x.device))
         x = x.expand(-1, -1, -1, 3) - self.mean_on(x.device)  # gray -> 3 channels
         return self.teacher(x, train=train, return_embedding=return_embedding,
-                            pad_mask=pad_mask, generator=generator)
+                            pad_mask=pad_mask, generator=generator, mesh=mesh)

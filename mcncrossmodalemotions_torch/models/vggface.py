@@ -48,6 +48,7 @@ from mcncrossmodalemotions_torch.models.vggm import (
     dropout,
     lecun_normal_,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 # Per-block 3x3 conv widths of VGG-VD-16 (vgg_face, Parkhi et al.); a
 # 2x2/2 max pool after each block.
@@ -154,23 +155,25 @@ class VGGFace(nn.Module):
         self.prediction.bias.zero_()
 
     def _conv_bn_relu(self, x: torch.Tensor, name: str, train: bool,
-                      bn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                      bn_mask: Optional[torch.Tensor],
+                      mesh: Optional[DataMesh] = None) -> torch.Tensor:
         conv = getattr(self, name)
         bias = None if conv.bias is None else conv.bias.to(self.dtype)
         x = F.conv2d(x, conv.weight.to(self.dtype), bias, conv.stride,
                      conv.padding)
         if self.use_batchnorm:
-            x = _bn(x, getattr(self, f"bn_{name}"), train, bn_mask)
+            x = _bn(x, getattr(self, f"bn_{name}"), train, bn_mask, mesh)
         return F.relu(x)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 return_embedding: bool = False,
                 pad_mask: Optional[torch.Tensor] = None, *,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[DataMesh] = None):
         """``train`` uses the batch statistics of the rows where
         ``pad_mask > 0``, updates the running ones and draws the dropout
-        from ``generator``."""
-        bn = dict(train=train, bn_mask=pad_mask)
+        from ``generator``; under ``mesh`` both are the global batch's."""
+        bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
         for name, pool in self.layers:
             x = self._conv_bn_relu(x, name, **bn)
@@ -182,7 +185,7 @@ class VGGFace(nn.Module):
         for name in ("fc6", "fc7"):
             x = self._conv_bn_relu(x, name, **bn)
             if drop:
-                x = dropout(x, self.dropout_rate, generator)
+                x = dropout(x, self.dropout_rate, generator, mesh)
         x = x.reshape(x.shape[0], -1).float()  # [B, C, 1, 1] -> [B, C]
         embedding = x
         head = self.prediction

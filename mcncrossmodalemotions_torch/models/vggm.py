@@ -64,6 +64,7 @@ from mcncrossmodalemotions_torch.ops.pool import (
     max_pool_3x3s2_cuda,
     max_pool_3x3s2_train,
 )
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh, all_reduce_sum
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
@@ -186,21 +187,37 @@ def lecun_normal_(weight: torch.Tensor,
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
                      pad_mask: Optional[torch.Tensor] = None,
-                     update: bool = True) -> torch.Tensor:
+                     update: bool = True,
+                     mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Flax train-mode BatchNorm over NCHW ``x``: normalise with the batch
     statistics of the rows where ``pad_mask > 0`` (all rows without a
     mask) and, with ``update``, update ``bn``'s running statistics in
     place. The result is in ``x``'s dtype; statistics and affine run in
-    fp32 (fp64 for an fp64 ``x``: Flax promotes to at least fp32)."""
+    fp32 (fp64 for an fp64 ``x``: Flax promotes to at least fp32).
+
+    Under ``mesh`` ``x`` is this rank's shard of the batch: the masked
+    sums of x and x^2 and the count are summed over the ranks (one
+    differentiable all-reduce) before the mean and variance are formed, so
+    every rank normalises with the GLOBAL batch's statistics and makes the
+    same running update, as Flax under pjit does. A rank whose rows are
+    all padding contributes zeros."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    if pad_mask is None:
+    if pad_mask is None and mesh is None:
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = xf.square().mean(dim=(0, 2, 3))
     else:
-        w = (pad_mask > 0).float()[:, None]
+        w = (torch.ones(x.shape[0], device=x.device) if pad_mask is None
+             else (pad_mask > 0).float())[:, None]
+        s1 = (xf.sum(dim=(2, 3)) * w).sum(dim=0)
+        s2 = (xf.square().sum(dim=(2, 3)) * w).sum(dim=0)
         count = w.sum() * (x.shape[2] * x.shape[3])
-        mean = (xf.sum(dim=(2, 3)) * w).sum(dim=0) / count
-        mean2 = (xf.square().sum(dim=(2, 3)) * w).sum(dim=0) / count
+        if mesh is not None:
+            sums = all_reduce_sum(torch.cat([s1, s2, count[None].to(s1.dtype)]),
+                                  mesh)
+            c = x.shape[1]
+            s1, s2, count = sums[:c], sums[c:2 * c], sums[2 * c]
+        mean = s1 / count
+        mean2 = s2 / count
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     if update:
         with torch.no_grad():  # running statistics: in place, no autograd
@@ -213,15 +230,31 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
     return y.to(x.dtype)
 
 
+def global_rows(rows: int, mesh: Optional[DataMesh]) -> Tuple[int, slice]:
+    """(the global batch's rows, this rank's slice of them) for a shard of
+    ``rows``; (rows, all of them) without a mesh. A random draw made at the
+    global shape and cut to the slice leaves every rank's generator where
+    one process's would be, and gives each rank the rows one process would
+    draw for them."""
+    if mesh is None:
+        return rows, slice(None)
+    total = rows * mesh.world_size
+    return total, mesh.rows(total)
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability 1 - rate and scale by
-    1 / (1 - rate); the draws come from ``generator`` (required)."""
+    1 / (1 - rate); the draws come from ``generator`` (required), at the
+    global batch's shape under ``mesh`` (``global_rows``)."""
     if generator is None:
         raise ValueError("train-mode dropout needs an explicit torch.Generator")
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    mask.bernoulli_(keep, generator=generator)
+    total, rows = global_rows(x.shape[0], mesh)
+    mask = torch.empty((total,) + tuple(x.shape[1:]), dtype=torch.float32,
+                       device=x.device)
+    mask = mask.bernoulli_(keep, generator=generator)[rows]
     return torch.where(mask.bool(), x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -289,11 +322,12 @@ class VGGMStudent(nn.Module):
 
     def _bn_relu(self, x: torch.Tensor, i: int, train: bool,
                  bn_mask: Optional[torch.Tensor],
-                 update: bool = True) -> torch.Tensor:
+                 update: bool = True,
+                 mesh: Optional[DataMesh] = None) -> torch.Tensor:
         if self.use_batchnorm:
             bn = getattr(self, f"bn{i}")
             if train:
-                x = batch_norm_train(x, bn, bn_mask, update)
+                x = batch_norm_train(x, bn, bn_mask, update, mesh)
             else:
                 # mixed-precision eval BN: statistics and affine in fp32,
                 # result in the compute dtype (flax BatchNorm(dtype=bf16)
@@ -304,8 +338,10 @@ class VGGMStudent(nn.Module):
 
     def _conv_bn_relu(self, x: torch.Tensor, i: int, name: str, train: bool,
                       bn_mask: Optional[torch.Tensor],
-                      update: bool = True) -> torch.Tensor:
-        return self._bn_relu(self._conv(x, name), i, train, bn_mask, update)
+                      update: bool = True,
+                      mesh: Optional[DataMesh] = None) -> torch.Tensor:
+        return self._bn_relu(self._conv(x, name), i, train, bn_mask, update,
+                             mesh)
 
     @staticmethod
     def _pool_3x3s2(x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
@@ -339,18 +375,20 @@ class VGGMStudent(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None, *,
                 use_kernels: bool = True,
                 generator: Optional[torch.Generator] = None,
-                remat_policy: Optional[str] = None):
+                remat_policy: Optional[str] = None,
+                mesh: Optional[DataMesh] = None):
         """``train`` uses batch statistics (over the rows where
         ``pad_mask > 0``) and updates the running ones, and applies
         dropout drawn from ``generator``. ``use_kernels`` sends pool1/pool2
         through the K2 wrappers (kernels on the card, plain on the CPU);
         False runs the plain pool. ``remat_policy`` (one of
         ``REMAT_RUNS``, under grad) recomputes its runs of stages in the
-        backward."""
+        backward. Under ``mesh`` ``x`` is this rank's shard: the train-mode
+        statistics and the dropout draws are the global batch's."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # [B, 1, F, T]
         x = x.contiguous(memory_format=torch.channels_last)
         drop = train and self.dropout_rate > 0
-        bn = dict(train=train, bn_mask=pad_mask)
+        bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
         embedding: List[torch.Tensor] = []
 
         def pool(h, first):
@@ -374,7 +412,7 @@ class VGGMStudent(nn.Module):
             return F.linear(h.float(), head.weight.float(), head.bias.float())
 
         def drop_out(h, first):
-            return dropout(h, self.dropout_rate, generator)
+            return dropout(h, self.dropout_rate, generator, mesh)
 
         stages = {
             "conv1": lambda h, first: self._conv(h, "conv1"),

@@ -13,7 +13,9 @@ forward runs under ``torch.no_grad()``, so autograd keeps none of its
 activations (SENet50's over 256 frames would dwarf the student's). The
 student's half is the standard step (``train.state.make_train_step``: the
 same dropout, ``pad_mask``, remat policy and SGD), so the two steps cannot
-drift apart.
+drift apart. Under a data-parallel ``mesh`` each rank's frozen teacher
+scores its own shard's frames, with no collective (eval mode reads the
+running statistics), and the student's half is the data-parallel step.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 from mcncrossmodalemotions_torch.train.state import (
     SGDConfig,
     TrainState,
@@ -64,7 +67,8 @@ def make_online_distill_step(teacher: nn.Module,
                              aggregator: str = "max",
                              num_classes: int = 8,
                              sgd: SGDConfig = SGDConfig(weight_decay=0.0),
-                             remat_policy: Optional[str] = None):
+                             remat_policy: Optional[str] = None,
+                             mesh: Optional[DataMesh] = None):
     """Fused step ``step(state, batch, lr) -> (state, metrics)``: ``batch``
     holds ``data`` ([B, N] waveforms) and ``frames`` ([B, K, H, W, 1]
     uint8). ``teacher`` (a ``FaceTeacherPipeline``, weights loaded, on the
@@ -72,13 +76,14 @@ def make_online_distill_step(teacher: nn.Module,
     ``make_train_step``'s with the distillation loss of ``loss_type`` at
     ``temperature`` and ``remat_policy``; a batch's ``pad_mask`` reaches
     the student's BatchNorm and the loss. The targets' ``max_label`` is
-    their argmax and their ``instance_weights`` ones.
+    their argmax and their ``instance_weights`` ones. ``mesh`` as in
+    ``make_train_step``: ``batch`` is this rank's shard.
     """
     teacher = frozen(teacher)
     loss_fn = student_loss_fn(loss_type, temperature=temperature,
                               num_classes=num_classes)
     inner_step = make_train_step(loss_fn, sgd, remat_policy=remat_policy,
-                                 pass_pad_mask=True)
+                                 pass_pad_mask=True, mesh=mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], lr):
         target = teacher_targets(teacher, batch["frames"], num_classes,

@@ -1,6 +1,7 @@
 """Epoch-loop training engine (``cnn_train_dag`` equivalent), PyTorch.
 
-Port of ``mcncrossmodalemotions_tpu/train/engine.py`` for one device:
+Port of ``mcncrossmodalemotions_tpu/train/engine.py``, on one device or,
+with a ``mesh``, one rank of a data-parallel job (``parallel/mesh.py``):
 per-epoch LR schedule arrays, the engine-level ``epoch_size`` cap
 ("mini-epochs", run_distillation.m:77,154), separate train/val passes,
 running loss averages + per-class accuracy/population stats
@@ -16,6 +17,14 @@ waits on before the step reads the batch. Each epoch records where its
 wall went: ``feed_wait_s`` (the loop waiting on the host feed),
 ``device_drain_s`` (the epoch-end sync that drains queued device work) and
 ``feed_bound_frac`` (feed wait / wall).
+
+Under a mesh every rank runs the same loop over the same host batches: a
+ragged batch is padded to a multiple of the world size
+(``pad_to_multiple``), the rank keeps its rows before they are pinned and
+copied, the counts and metrics are the global batch's, and rank 0 alone
+writes the checkpoints and ``metrics.jsonl`` (concurrent writers on shared
+storage would publish a blend), every rank waiting for each save before it
+goes on, so that any rank can resume from a whole file.
 """
 
 from __future__ import annotations
@@ -32,6 +41,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from mcncrossmodalemotions_torch.parallel.mesh import (
+    DataMesh,
+    barrier,
+    pad_to_multiple,
+    shard_batch,
+)
 from mcncrossmodalemotions_torch.train import checkpoints as ckpt_lib
 from mcncrossmodalemotions_torch.train.state import (
     LossFn,
@@ -152,17 +167,23 @@ class Trainer:
     ``cfg.momentum``/``cfg.weight_decay`` are the builder's to apply. The
     batches' arrays, face ``frames`` included, reach the device through the
     same pinned, ``non_blocking`` feed.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) makes this trainer one rank of a
+    data-parallel job on ``mesh.device`` (``device`` is then not read); an
+    override must be built with the same mesh.
     """
 
     def __init__(self, model: nn.Module, loss_fn: LossFn, cfg: TrainConfig,
                  class_names: Sequence[str] = (),
                  device: torch.device | str = "cuda",
                  lr_scale_fn: Optional[Callable] = None,
-                 train_step_override: Optional[Callable] = None):
+                 train_step_override: Optional[Callable] = None,
+                 mesh: Optional[DataMesh] = None):
         self.model = model
         self.cfg = cfg
         self.class_names = class_names
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         if train_step_override is not None:
             if lr_scale_fn is not None:
                 raise ValueError(
@@ -181,26 +202,34 @@ class Trainer:
             self._train_step = make_train_step(loss_fn, sgd,
                                                lr_scale_fn=lr_scale_fn,
                                                remat_policy=cfg.remat_policy,
-                                               pass_pad_mask=True)
-        self._eval_step = make_eval_step(loss_fn)
+                                               pass_pad_mask=True, mesh=mesh)
+        self._eval_step = make_eval_step(loss_fn, mesh=mesh)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
     # -- device feed -------------------------------------------------------
-    @staticmethod
-    def _host_batch(batch: Dict[str, np.ndarray], pin: bool):
+    def _host_batch(self, batch: Dict[str, np.ndarray], pin: bool):
         """Attach ``pad_mask`` and wrap the arrays as (pinned) tensors.
 
         Every batch carries a [B] float ``pad_mask`` (1 = real sample), so
         the loss/metric stack and train-mode BatchNorm exclude padded rows
-        exactly; the returned count is the number of valid samples.
+        exactly; the returned count is the number of valid samples. Under
+        a mesh a ragged batch is padded to a world multiple first (the
+        padding masked out) and the rank's rows are kept; the count is the
+        global batch's.
         """
         bsz = int(np.shape(batch["data"])[0])
-        if "pad_mask" in batch:
-            n_valid = int(np.sum(batch["pad_mask"]))
-        else:
-            n_valid = bsz
-            batch = dict(batch, pad_mask=np.ones(bsz, np.float32))
+        n_valid = (int(np.sum(batch["pad_mask"])) if "pad_mask" in batch
+                   else bsz)
+        if self.mesh is not None and bsz % self.mesh.world_size:
+            batch, n_valid = pad_to_multiple(batch, self.mesh.world_size)
+            bsz = int(np.shape(batch["data"])[0])
+        if "pad_mask" not in batch:
+            mask = np.zeros(bsz, np.float32)
+            mask[:n_valid] = 1.0
+            batch = dict(batch, pad_mask=mask)
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
         if pin:
@@ -402,7 +431,10 @@ class Trainer:
         if cfg.resume:
             last, state = ckpt_lib.load_latest(cfg.exp_dir, state)
             start_epoch = last + 1
-        logger = MetricsLogger(Path(cfg.exp_dir) / "metrics.jsonl")
+        # every rank runs the loop; rank 0 alone writes (the JAX rule)
+        is_writer = self.mesh is None or self.mesh.rank == 0
+        logger = (MetricsLogger(Path(cfg.exp_dir) / "metrics.jsonl")
+                  if is_writer else None)
         history = []
         for epoch in range(start_epoch, cfg.num_epochs + 1):
             state, train_stats = self.run_epoch(
@@ -413,10 +445,14 @@ class Trainer:
                 state, val_stats = self.run_epoch(
                     state, val_batches_fn(epoch), epoch, train=False)
                 record["val"] = val_stats
-            logger.log(record)
+            if logger is not None:
+                logger.log(record)
             history.append(record)
             if epoch % cfg.checkpoint_every == 0 or epoch == cfg.num_epochs:
-                ckpt_lib.save_checkpoint(cfg.exp_dir, epoch, state, record)
+                if is_writer:
+                    ckpt_lib.save_checkpoint(cfg.exp_dir, epoch, state, record)
+                if self.mesh is not None:
+                    barrier(self.mesh)  # the file is whole for every rank
             print(f"epoch {epoch}/{cfg.num_epochs} done: " + " ".join(
                 f"{k}={v:.4f}" for k, v in train_stats.items()
                 if isinstance(v, float) and k in ("loss", "meanAcc", "classerror")),

@@ -16,6 +16,13 @@ running statistics live in it), the velocity (one tensor per parameter,
 keyed by ``named_parameters`` name), the step count and the
 ``torch.Generator`` that dropout draws from. A step updates all of them in
 place and returns the same state object.
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``) every rank holds the
+whole state and its shard of the batch; a step normalises the loss and
+the metrics by the GLOBAL batch's valid rows, sums the gradients over the
+ranks (one all-reduce of one flat buffer) before the update, and reports
+the global loss and metrics, so every rank makes the one update that one
+process makes on the whole batch.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ import torch
 from torch import nn
 
 from mcncrossmodalemotions_torch.models.vggm import REMAT_RUNS
+from mcncrossmodalemotions_torch.parallel.mesh import (
+    DataMesh,
+    all_reduce_tensors,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,11 +122,36 @@ def resolve_remat_policy(name: Optional[str]) -> Optional[str]:
     return name
 
 
+def _global_weight(batch: Dict[str, torch.Tensor],
+                   mesh: DataMesh) -> Dict[str, torch.Tensor]:
+    """``batch`` with a ``pad_mask`` (ones where it had none) and
+    ``pad_total``, the mask's sum over every rank's rows: the denominator
+    of the loss stacks' means (``zoo.student_loss_fn``)."""
+    mask = batch.get("pad_mask")
+    if mask is None:
+        mask = torch.ones(batch["data"].shape[0], device=batch["data"].device)
+    total, = all_reduce_tensors([mask.float().sum()], mesh)
+    return dict(batch, pad_mask=mask, pad_total=total)
+
+
+def _global_metrics(loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                    mesh: Optional[DataMesh]) -> Dict[str, torch.Tensor]:
+    """The step's metrics, detached, with ``loss``; under ``mesh`` each is
+    this rank's share of the global figure (a mean over ``pad_total``, or
+    a sum), so they are summed over the ranks (one all-reduce)."""
+    out = {k: v.detach() for k, v in metrics.items()}
+    out["loss"] = loss.detach()
+    if mesh is not None:
+        out = dict(zip(out, all_reduce_tensors(list(out.values()), mesh)))
+    return out
+
+
 def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
                     lr_scale_fn: Optional[Callable] = None,
                     remat_policy: Optional[str] = None,
                     pass_pad_mask: bool = False,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True,
+                    mesh: Optional[DataMesh] = None):
     """Build ``step(state, batch, lr) -> (state, metrics)``.
 
     The batch dict holds at least ``data``; the loss reads
@@ -131,6 +167,13 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
     whose forward takes it (the students). ``lr_scale_fn`` maps a
     parameter's name split at the dots to its learning-rate multiplier.
     ``lr`` is a Python float, which may change every call.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) makes the step data-parallel:
+    ``batch`` is this rank's shard of the global batch and the model's
+    forward takes ``mesh`` (BatchNorm statistics and random draws of the
+    global batch); the loss function reads ``pad_total`` (the loss stacks
+    of ``zoo`` do), the gradients are summed over the ranks before the
+    update, and the metrics returned are the global batch's.
     """
     policy = resolve_remat_policy(remat_policy)
 
@@ -149,27 +192,36 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
                                  f"{type(model).__name__} has no remat "
                                  "stages (only the students do)")
             kwargs["remat_policy"] = policy
+        if mesh is not None:
+            if "mesh" not in accepts:
+                raise ValueError(f"{type(model).__name__}'s forward takes no "
+                                 "mesh: its BatchNorm would see one shard")
+            kwargs["mesh"] = mesh
+            batch = _global_weight(batch, mesh)
         outputs = model(batch["data"], **kwargs)
         loss, metrics = loss_fn(outputs, batch)
         names, params = zip(*model.named_parameters())
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            grads = all_reduce_tensors(grads, mesh)
         apply_sgd_update(state, dict(zip(names, grads)), lr, sgd, lr_scale_fn)
         state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        return state, metrics
+        return state, _global_metrics(loss, metrics, mesh)
 
     return step
 
 
-def make_eval_step(loss_fn: LossFn):
+def make_eval_step(loss_fn: LossFn, mesh: Optional[DataMesh] = None):
     """Build ``step(state, batch) -> metrics``: forward in test mode
-    (running statistics, no dropout) + loss and metrics."""
+    (running statistics, no dropout) + loss and metrics; under ``mesh``
+    over this rank's shard, the metrics the global batch's."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         with torch.no_grad():
+            if mesh is not None:
+                batch = _global_weight(batch, mesh)
             outputs = state.model(batch["data"], train=False)
             loss, metrics = loss_fn(outputs, batch)
-        return dict(metrics, loss=loss)
+            return _global_metrics(loss, metrics, mesh)
 
     return step

@@ -159,9 +159,18 @@ def config_hash(cfg: Any) -> str:
 def write_run_meta(exp_dir, cfg, **extra) -> str:
     """Run-metadata dump (storeMetaInfo, run_distillation.m:227-240): twin
     ``meta-<stamp>.json`` / ``.txt`` files with the full config, hostname,
-    timestamp and ``extra`` keys. Returns the stamp."""
+    timestamp and ``extra`` keys. Returns the stamp.
+
+    In a data-parallel job only rank 0 writes (the gate of the engine's
+    checkpoint and metrics writers): every rank calls the driver, and
+    concurrent writes of one file on shared storage could publish a
+    truncated JSON that breaks every later ``read_latest_run_config``."""
+    from mcncrossmodalemotions_torch.parallel.mesh import process_index
+
     exp_dir = Path(exp_dir)
     stamp = time.strftime("%Y%m%d-%H%M%S")
+    if process_index() != 0:
+        return stamp
     exp_dir.mkdir(parents=True, exist_ok=True)
     meta = {"config": to_dict(cfg), "hostname": platform.node(),
             "timestamp": stamp, **extra}

@@ -415,30 +415,32 @@ def student_loss_fn(loss_type: str = "hot-cross-ent", *,
     """Student distillation loss stack: ``loss_fn(logits, batch) ->
     (loss, metrics)``, metrics ``classerror`` (against the teacher's max
     label), ``class_correct`` and ``class_pop`` (ErrorStats). Rows with
-    ``batch['pad_mask'] == 0`` drop out of loss and metrics."""
+    ``batch['pad_mask'] == 0`` drop out of loss and metrics; under data
+    parallelism ``batch['pad_total']`` (the whole batch's valid rows) is
+    the means' denominator, so each rank returns its share of them."""
 
     def loss_fn(logits, batch):
         labels = batch["max_label"]
-        w = batch.get("pad_mask")
+        w = dict(sample_weight=batch.get("pad_mask"),
+                 total_weight=batch.get("pad_total"))
         if loss_type == "hot-cross-ent":
             loss = distillation_ce(logits, batch["logit_target"], temperature,
-                                   sample_weight=w)
+                                   **w)
         elif loss_type == "euclidean":
             loss = euclidean_loss(logits, batch["logit_target"],
-                                  batch.get("instance_weights"),
-                                  sample_weight=w)
+                                  batch.get("instance_weights"), **w)
         elif loss_type == "huber":
             loss = huber_loss(logits, batch["logit_target"], sigma=1.0,
                               instance_weights=batch.get("instance_weights"),
-                              sample_weight=w)
+                              **w)
         elif loss_type == "softmaxlog":
-            loss = softmax_ce(logits, labels, sample_weight=w)
+            loss = softmax_ce(logits, labels, **w)
         else:
             raise ValueError(f"unknown loss_type {loss_type!r}")
         correct, pop = per_class_stats(logits, labels, num_classes,
-                                       sample_weight=w)
+                                       sample_weight=w["sample_weight"])
         metrics = {
-            "classerror": class_error(logits, labels, sample_weight=w),
+            "classerror": class_error(logits, labels, **w),
             "class_correct": correct,
             "class_pop": pop,
         }
@@ -453,22 +455,23 @@ def teacher_loss_fn(loss_type: str = "distributions",
     cross-entropy against the rater-vote distributions
     (``batch['label_dist']``), or ``'softmaxlog'`` against the hard label;
     metrics ``classerror`` (against the hard label), ``class_correct`` and
-    ``class_pop``. Rows with ``batch['pad_mask'] == 0`` drop out."""
+    ``class_pop``. Rows with ``batch['pad_mask'] == 0`` drop out;
+    ``batch['pad_total']`` as in ``student_loss_fn``."""
 
     def loss_fn(logits, batch):
         hard = batch["hard_label"]
-        w = batch.get("pad_mask")
+        w = dict(sample_weight=batch.get("pad_mask"),
+                 total_weight=batch.get("pad_total"))
         if loss_type == "distributions":
-            loss = distribution_ce(logits, batch["label_dist"],
-                                   sample_weight=w)
+            loss = distribution_ce(logits, batch["label_dist"], **w)
         elif loss_type == "softmaxlog":
-            loss = softmax_ce(logits, hard, sample_weight=w)
+            loss = softmax_ce(logits, hard, **w)
         else:
             raise ValueError(f"unknown loss_type {loss_type!r}")
         correct, pop = per_class_stats(logits, hard, num_classes,
-                                       sample_weight=w)
+                                       sample_weight=w["sample_weight"])
         metrics = {
-            "classerror": class_error(logits, hard, sample_weight=w),
+            "classerror": class_error(logits, hard, **w),
             "class_correct": correct,
             "class_pop": pop,
         }

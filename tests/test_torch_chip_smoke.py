@@ -30,6 +30,9 @@
   the CLI in a subprocess and ``audio-feats`` in process); it runs after
   ``online`` and before ``probes``, its counts join the kernel line's, and
   a failed gate in it ends the run (no phase is wrapped in a handler).
+- The ddp phase rehearses on the CPU at tiny sizes, its ranks being the
+  script itself started as workers; it runs after ``verify`` and before
+  ``probes``, and its counts join the kernel line's.
 """
 
 import shutil
@@ -342,11 +345,38 @@ def test_verify_phase_failures_propagate(tmp_path, monkeypatch):
                                 teachers, dev="cpu")
 
 
+def test_ddp_phase_rehearses_on_the_cpu(tmp_path):
+    """The ddp phase at tiny sizes on a tiny teacher release and its dense
+    imdb: the one-process student steps, then two gloo ranks of the script
+    itself (``--ddp-worker``): student and online steps bitwise equal on
+    the ranks and within the loss gate of one process, the dense logits
+    gathered to both ranks, and the 1-rank group (gloo on the CPU)."""
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    torch.set_num_threads(2)
+    tracks = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5,),
+                                  tracks_per_class=1)
+    chip_smoke.teacher_release(tmp_path / "dense.mat", stage_sizes=(1, 1),
+                               width=8)
+    model, state = load_pretrained_teacher(tmp_path / "dense.mat",
+                                           with_pipeline=True, device="cpu")
+    chip_smoke.dense_tree(tmp_path / "vox", chip_smoke.imdb_paths(tracks), 3)
+    dense = build_imdb(tmp_path / "vox", model, state, batch_size=8,
+                       verbose=False, device="cpu")
+    wrappers = chip_smoke.kernel_wrappers()
+    counts = chip_smoke.ddp_phase("cpu", tmp_path, dense, wrappers, dev="cpu")
+    assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
+    assert len(list(tmp_path.glob("ddp-gloo-2-*.json"))) == 2
+
+
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
-    online and before probes, their counts join the kernel line's
-    launches, no phase runs inside an exception handler, and the device
-    line is printed last."""
+    online, ddp after verify and before probes, their counts join the
+    kernel line's launches, no phase runs inside an exception handler, and
+    the device line is printed last."""
     import ast
 
     src = (REPO / "chip_smoke.py").read_text()
@@ -357,8 +387,9 @@ def test_phases_in_order_and_the_last_line():
     assert phases == ["device", "build", "data", "k1", "k2", "slice",
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
-                      "verify", "probes"]
-    for counts in ("teacher_train_counts", "online_counts", "verify_counts"):
+                      "verify", "ddp", "probes"]
+    for counts in ("teacher_train_counts", "online_counts", "verify_counts",
+                   "ddp_counts"):
         assert f"{counts}[name]" in ast.get_source_segment(src, main)
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]

@@ -145,11 +145,17 @@ def test_ferplus_baselines_trains_resumes_and_evaluates(tmp_path, imdb, model):
     assert type(bare) is type(pipe.teacher)
 
 
-def test_data_types_and_mesh(tmp_path, imdb):
+def test_data_types_and_mesh(tmp_path, imdb, monkeypatch):
+    """The dataTypes; ``mesh="auto"`` under a group whose world size does
+    not split the batch raises (``auto_mesh``'s rule), and without a group
+    it is the one process that ``mesh=None`` forces."""
+    from mcncrossmodalemotions_torch.parallel import mesh as pmesh
+
     kw = dict(TINY, lr_epochs=(1,), out_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fb.ferplus_baselines(fb.FerPlusConfig(**kw), imdb, mesh=object(),
-                             device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(pmesh, "world_size", lambda: 3)
+        with pytest.raises(ValueError, match="does not split over 3 ranks"):
+            fb.ferplus_baselines(fb.FerPlusConfig(**kw), imdb, device="cpu")
     with pytest.raises(ValueError, match="10-class"):
         fb.ferplus_baselines(fb.FerPlusConfig(data_type="full", **kw), imdb,
                              device="cpu")

@@ -492,3 +492,29 @@ def test_metrics_logger_and_eta_write_the_same_lines(tmp_path, monkeypatch):
         eta.tick(2)
         out[key] = buf.getvalue()
     assert out["t"] == out["j"] and out["t"].count("\n") == 4
+
+
+def test_write_run_meta_writes_on_rank_0_only(tmp_path, monkeypatch):
+    """Rank 0 (or one process) writes the JAX copy's twin files, the same
+    config in both; another rank of a data-parallel job writes nothing and
+    returns its stamp, as the JAX copy does off process 0."""
+    import json
+
+    from mcncrossmodalemotions_torch.parallel import mesh as pmesh
+
+    cfg = DistillationConfig(seed=3, noise_dir="n")
+    stamp = config.write_run_meta(tmp_path / "port", cfg, num_tracks=5)
+    jstamp = jconfig.write_run_meta(tmp_path / "jax", cfg, num_tracks=5)
+    got, want = ({p.suffix: p for p in (tmp_path / d).iterdir()}
+                 for d in ("port", "jax"))
+    assert sorted(got) == sorted(want) == [".json", ".txt"]
+    assert got[".json"].name == f"meta-{stamp}.json"
+    assert got[".txt"].read_text() == want[".txt"].read_text()
+    meta, jmeta = (json.loads(m[".json"].read_text()) for m in (got, want))
+    assert meta.pop("timestamp") == stamp and jmeta.pop("timestamp") == jstamp
+    assert meta.pop("hostname") == jmeta.pop("hostname")
+    assert meta == jmeta
+    monkeypatch.setattr(pmesh, "process_index", lambda: 1)
+    assert isinstance(config.write_run_meta(tmp_path / "rank1", cfg), str)
+    assert not (tmp_path / "rank1").exists()
+

@@ -140,9 +140,9 @@ def test_running_statistics_updated_once_and_recomputes_counted(
     bn_train, with_index = vggm.batch_norm_train, pool.max_pool_3x3s2_with_index
     conv2d = vggm.F.conv2d
 
-    def counted_bn(x, bn, pad_mask=None, update=True):
+    def counted_bn(x, bn, pad_mask=None, update=True, mesh=None):
         calls["update" if update else "recompute"] += 1
-        return bn_train(x, bn, pad_mask, update)
+        return bn_train(x, bn, pad_mask, update, mesh)
 
     def counted_pool(x):
         calls["pool"] += 1

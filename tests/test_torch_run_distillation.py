@@ -156,7 +156,8 @@ def test_resume_requires_the_generator_state(tmp_path):
 def test_modes_build_their_runs_in_jax_dirs(imdb, tmp_path, field, value):
     """Each mode of the driver builds its run (0 epochs) in the JAX
     package's directory; what it needs and lacks raises ValueError as in
-    the JAX driver, and only a multi-device mesh is refused."""
+    the JAX driver, and ``mesh="auto"`` under a group whose world size
+    does not split the batch raises (``auto_mesh``'s rule)."""
     kw = dict(TINY_RUN, num_epochs=0, out_root=str(tmp_path), **{field: value})
     cfg = rd.DistillationConfig(**kw)
     needs = {"online_teacher": "teacher_model", "noise_num": "noise_dir"}
@@ -175,9 +176,13 @@ def test_modes_build_their_runs_in_jax_dirs(imdb, tmp_path, field, value):
     assert history == [] and state.step == 0
     assert exp_dir.name == jrd.DistillationConfig(
         **dataclasses.asdict(cfg)).exp_name()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        rd.run_distillation(cfg, imdb, device="cpu", mesh=object(),
-                            teacher_model=teacher)
+    from mcncrossmodalemotions_torch.parallel import mesh as pmesh
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(pmesh, "world_size", lambda: 3)
+        with pytest.raises(ValueError, match="does not split over 3 ranks"):
+            rd.run_distillation(cfg, imdb, device="cpu",
+                                teacher_model=teacher)
 
 
 def test_engine_helpers_match_jax(imdb):

@@ -437,7 +437,7 @@ def test_full_width_cpu_step_matches_the_jax_golden(tag):
         gold["update_fp64"], np.cumsum(gold["update_sizes"])[:-1]))
 
 
-def _bn_variance_detached(x, bn, pad_mask=None):
+def _bn_variance_detached(x, bn, pad_mask=None, mesh=None):
     """A planted fault: train-mode BatchNorm with no gradient through the
     batch variance (all rows, as the golden's full mask)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))

@@ -12,8 +12,9 @@ both packages:
   logits bit for bit; the feature cache is the JAX package's format both
   ways; ``fetch_emovoxceleb_imdb``'s caches;
 - ``run_distillation`` trains an epoch on the port-built imdb;
-- the refusals (``mesh``, ``max_frames_per_process``, ``download``, no
-  CUDA device without ``device="cpu"``) raise.
+- the refusals (``mesh="auto"`` under a world size that does not split
+  the batch, ``max_frames_per_process``, ``download``, no CUDA device
+  without ``device="cpu"``) raise.
 """
 
 from __future__ import annotations
@@ -296,15 +297,19 @@ def test_fetch_caches_and_refusals(tree, teacher, tmp_path, monkeypatch):
 
 
 def test_refusals(tree, teacher, monkeypatch):
+    from mcncrossmodalemotions_torch.parallel import mesh as pmesh
+
     port, state, _, _ = teacher
     imdb = _track_imdb(tree)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tvf.compute_visual_feats(imdb, port, state, mesh=object(), device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(pmesh, "world_size", lambda: 3)
+        with pytest.raises(ValueError, match="does not split over 3 ranks"):
+            tvf.compute_visual_feats(imdb, port, state, device="cpu")
+        with pytest.raises(ValueError, match="does not split over 3 ranks"):
+            tfetch.build_imdb(tree, port, state, device="cpu")
     with pytest.raises(NotImplementedError, match="dense_chunked"):
         tvf.compute_visual_feats(imdb, port, state, device="cpu",
                                  max_frames_per_process=100)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tfetch.build_imdb(tree, port, state, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="dense_chunked"):
         tfetch.build_imdb(tree, port, state, max_frames_per_process=9,
                           device="cpu")
