@@ -20,8 +20,9 @@ the classic VGG face teachers); the whole distillation driver (the online
 step with the frozen teacher inside it, the feed options, the remat
 policies); the release surface (the artifact registry's tree,
 ``verify_release`` and the command line); data parallelism through
-``torch.distributed`` (two ranks of this script on the one card); and the
-two Mosaic probe tools; each path with and without the kernels where a
+``torch.distributed`` (two ranks of this script on the one card); the
+dense build in bounded worker processes and the dense-genesis soak; and
+the two Mosaic probe tools; each path with and without the kernels where a
 comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -44,7 +45,10 @@ comparison applies. Phases:
 6. slice: ``compute_audio_feats`` given CPU weights runs on the card by
    default; per-track logits finite and [1, 8]; the main run launched K1
    once and K2 twice per chunk; kernel-on logits within 2e-2 *
-   max|logit| of the plain run; tracks/s.
+   max|logit| of the plain run; tracks/s. Then the extractor's mu-law
+   (``emit_mulaw``) and float32 (``emit_int16=False``) feeds over the same
+   tracks, each with the same launches and gate against its plain run;
+   their tracks/s and their logits' max |diff| from the int16 run's.
 7. k2-backward at the train step's pool1 [128,253,197,96] and pool2
    [128,61,47,256] inputs, post-ReLU in bf16 and fp32 and tie-heavy
    (small integers) in bf16, then even H and W [16,254,198,96] post-ReLU
@@ -228,7 +232,18 @@ comparison applies. Phases:
     line launched); one student step in a 1-rank NCCL group (its loss
     within 1e-2 of one process's first); each rank's step ms and peak
     memory beside one process's.
-18. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+18. dense-chunked: ``build_imdb`` over the teacher phase's tree and
+    ``dense.mat`` with ``max_frames_per_process=512`` (SENet50 bf16, batch
+    128): the teacher loaded on the host, 4 worker processes
+    (``exp/dense_chunked.py``) on the card, ``wav_logits`` bitwise the
+    teacher phase's one-process build, the partial and job directory gone;
+    each worker's seconds, frames/s beside a one-process build timed here.
+    The dense-genesis soak (``tools/soak_dense_genesis.py``) at 32,768
+    unique 96x96 frames, batch 128: the clean build's frames/s and RSS
+    (at warm, growth after it, per batch, peak, trace), a build SIGKILLed
+    at its first partial flush (batch 200 of 256) and its resume, bitwise
+    the clean build.
+19. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -243,8 +258,9 @@ comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher, teacher-train, online, verify and ddp phases (the ddp
-phase's over every rank), the probe kernels' over the probes run, each
+analysis, teacher, teacher-train, online, verify, ddp and dense-chunked
+phases (the ddp phase's over every rank, the dense-chunked phase's
+one-process build), the probe kernels' over the probes run, each
 read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -349,6 +365,10 @@ DDP_STEPS = 3                 # full student steps (64 rows a rank), then one
 DDP_RAGGED = TRAIN_BATCH - 1  # ragged batch, padded to a multiple of 2
 DDP_ONLINE_STEPS = 2          # online steps at batch 64 (32 rows a rank)
 DDP_TIMEOUT = 600             # seconds a ddp worker process may take
+CHUNK_FRAMES = 512            # dense-chunked: 4 workers of 4 batches of 128
+SOAK_FRAMES = 32768           # the soak: 256 batches of 128; the kill lands at
+                              # the first partial flush, batch 200 (78%)
+SOAK_CPU_FRAMES = 640         # the CPU rehearsal's soak: 640 batches of 1
 
 
 class SmokeFailure(RuntimeError):
@@ -3398,6 +3418,121 @@ def ddp_phase(card: str, root: Path, dense_imdb, wrappers: dict,
     return total
 
 
+def dense_chunked_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+                        dev="cuda") -> dict:
+    """The bounded-worker dense build and the dense-genesis soak (phase
+    18). (a) ``build_imdb`` over the teacher phase's tree and teacher
+    (``dense.mat``, SENet50 bf16, batch 128) with
+    ``max_frames_per_process=512``: this process loads the teacher on the
+    host and supervises, 4 worker processes score at most 512 frames each
+    on the card over the partial; ``wav_logits`` and sets bitwise the
+    teacher phase's one-process imdb, the partial and the job directory
+    gone; each cycle's seconds and the build's frames/s beside a
+    one-process build timed here (which launches no kernel of the line).
+    (b) The soak (``tools/soak_dense_genesis.orchestrate``) at 32,768
+    frames: the clean build with its RSS, the build killed at its first
+    partial flush, and its resume bitwise the clean build. Returns the
+    one-process build's launches. With ``dev="cpu"`` (a rehearsal without
+    a card) the same at tiny sizes."""
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.exp.dense_chunked import worker_frames
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.tools import soak_dense_genesis as soak
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    full = dev == "cuda"
+    batch = TEACHER_BATCH if full else 8
+    chunk = CHUNK_FRAMES if full else 16
+    tree, mat = root / "vox", root / "dense.mat"
+    n = sum(len(f) for f in dense_imdb.dense_frames)
+    kw = dict(set_assignment=dict(zip(dense_imdb.speaker,
+                                      dense_imdb.set_id.tolist())),
+              batch_size=batch, device=dev)
+
+    model, state = load_pretrained_teacher(mat, with_pipeline=True, device=dev)
+    build_imdb(tree, model, state, verbose=False, **kw)  # warm
+    sync(dev)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    build_imdb(tree, model, state, verbose=False, **kw)
+    sync(dev)
+    one_s = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    check(not any(counts.values()),
+          f"the dense build launched kernels of the kernel line: {counts}")
+    del model, state
+    if full:
+        torch.cuda.empty_cache()  # the workers take the card
+
+    model, state = load_pretrained_teacher(mat, with_pipeline=True,
+                                           device="cpu")
+    partial = root / "chunked.partial.npz"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        imdb = build_imdb(tree, model, state, partial_path=str(partial),
+                          max_frames_per_process=chunk,
+                          teacher_spec={"pretrained": str(mat)},
+                          verbose=True, **kw)
+    chunked_s = time.perf_counter() - t0
+    cycles = [(int(m[1]), float(m[2])) for m in re.finditer(
+        r"\[dense-chunked\] cycle \d+: (\d+)/\d+ frames, ([0-9.]+) s",
+        log.getvalue())]
+    per = worker_frames(chunk, batch)
+    print(f"  dense-chunked: {n} frames, workers of at most {per}: cycles "
+          f"(frames done, s) {cycles}", flush=True)
+    check(len(cycles) == -(-n // per) and cycles[-1][0] == n,
+          f"dense-chunked took {len(cycles)} worker cycles, expected "
+          f"{-(-n // per)}")
+    same = (len(imdb.wav_logits) == len(dense_imdb.wav_logits)
+            and all(np.array_equal(a, b) for a, b in
+                    zip(imdb.wav_logits, dense_imdb.wav_logits))
+            and np.array_equal(imdb.set_id, dense_imdb.set_id))
+    print(f"  {card}: bounded-worker dense build: {len(cycles)} workers, "
+          f"{chunked_s:.3f} s = {n / chunked_s:.1f} frames/s end to end "
+          f"(workers' seconds {[round(s, 3) for _, s in cycles]}), against "
+          f"one process's {one_s:.3f} s = {n / one_s:.1f} frames/s; "
+          f"wav_logits {'bitwise equal to' if same else 'DIFFERENT from'} "
+          f"the teacher phase's one-process build", flush=True)
+    check(same, "the bounded-worker dense build differs from one process's")
+    check(not partial.exists() and not partial.with_suffix(".job").exists(),
+          "the bounded-worker build left its partial or job directory")
+    del model, state
+
+    frames = SOAK_FRAMES if full else SOAK_CPU_FRAMES
+    report = soak.orchestrate(frames, root / "soak",
+                              batch_size=batch if full else 1, tiny=not full)
+    clean = report["clean"]
+
+    def mb(x):
+        return "n/a" if x is None else f"{x:.1f}"
+
+    growth = clean["rss_growth_per_batch_mb"]
+    print(f"  {card}: soak ({report['device']}): {report['num_frames']} frames "
+          f"of 96x96, batch {report['batch_size']}: clean build "
+          f"{clean['build_sec']:.3f} s = {clean['imgs_per_sec']:.1f} frames/s "
+          f"(set-up {clean['init_sec']:.3f} s); RSS at warm "
+          f"{mb(clean['rss_warm_mb'])} MB, growth after it "
+          f"{mb(clean['rss_growth_after_warm_mb'])} MB = "
+          f"{'n/a' if growth is None else f'{growth:.4f}'} MB a batch, peak "
+          f"{mb(clean['rss_max_mb'])} MB, trace (s, MB) "
+          f"{clean['rss_trace_mb']}; killed at {report['killed_at_frames']} "
+          f"frames; the resume scored the other "
+          f"{report['num_frames'] - report['killed_at_frames']} at "
+          f"{report['resume']['imgs_per_sec']:.1f} frames/s; "
+          f"resume vs clean max abs diff "
+          f"{report['resume_vs_clean_max_abs_diff']}", flush=True)
+    check(report.get("pass") is True, "the soak did not pass")
+    return counts
+
+
 def kernel_wrappers() -> dict:
     """The kernel line's wrappers by name, each counting its launches."""
     from mcncrossmodalemotions_torch.ops import pool, probes
@@ -3429,6 +3564,7 @@ def main() -> int:
 
     from mcncrossmodalemotions_torch.data import synthetic_track_imdb
     from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
+        AudioFeatureExtractor,
         compute_audio_feats,
     )
     from mcncrossmodalemotions_torch.ops import _build, pool
@@ -3633,6 +3769,39 @@ def main() -> int:
                   f"= {len(paths) / main_s:.2f} tracks/s (kernels), plain run "
                   f"{plain_s:.3f} s = {len(paths) / plain_s:.2f} tracks/s",
                   flush=True)
+
+            # the extractor's other two feeds over the same tracks
+            wavs = imdb_paths(imdb)
+            for feed, emit in (("mu-law", dict(emit_mulaw=True)),
+                               ("float32", dict(emit_int16=False))):
+                reset_counts(wrappers)
+                t0 = time.perf_counter()
+                fed = AudioFeatureExtractor(model, state, batch_size=BATCH,
+                                            **emit).track_logits(
+                    wavs, verbose=False)
+                torch.cuda.synchronize()
+                feed_s = time.perf_counter() - t0
+                feed_launches = read_counts(wrappers)
+                fed_plain = AudioFeatureExtractor(
+                    model, state, batch_size=BATCH, use_kernels=False,
+                    **emit).track_logits(wavs, verbose=False)
+                check(len(fed) == len(paths)
+                      and all(l.shape == (1, 8) and np.all(np.isfinite(l))
+                              for l in fed), f"{feed} logits not finite [1, 8]")
+                check(feed_launches == expected, f"the {feed} feed launched "
+                      f"{feed_launches}, expected {expected}")
+                add_counts(launches, feed_launches)
+                fgot, fref = np.concatenate(fed), np.concatenate(fed_plain)
+                fscale = float(np.abs(fref).max())
+                fdiff = float(np.abs(fgot - fref).max())
+                print(f"  {card}: {feed} feed: {feed_s:.3f} s = "
+                      f"{len(paths) / feed_s:.2f} tracks/s (kernels); logits "
+                      f"kernel vs plain max abs {fdiff:.3e} (rel "
+                      f"{fdiff / fscale:.3e}), vs the int16 run's max abs "
+                      f"{float(np.abs(fgot - got).max()):.3e}; launches "
+                      f"{feed_launches}", flush=True)
+                check(fdiff <= SLICE_REL_TOL * fscale,
+                      f"{feed} feed: kernel-on logits disagree")
             del model, state
             torch.cuda.empty_cache()
 
@@ -3680,6 +3849,11 @@ def main() -> int:
 
         with phase("ddp", walls):
             ddp_counts = ddp_phase(card, Path(tmp), dense_imdb, wrappers)
+
+        with phase("dense-chunked", walls):
+            torch.cuda.empty_cache()  # the workers find the card free
+            dense_chunked_counts = dense_chunked_phase(card, Path(tmp),
+                                                       dense_imdb, wrappers)
             del dense_imdb
 
         with phase("probes", walls):
@@ -3722,7 +3896,8 @@ def main() -> int:
                          + release_counts[name] + analysis_counts[name]
                          + teacher_counts[name] + teacher_train_counts[name]
                          + online_counts[name] + verify_counts[name]
-                         + ddp_counts[name] + probe_counts[name]),
+                         + ddp_counts[name] + dense_chunked_counts[name]
+                         + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -243,9 +243,13 @@ def cmd_fetch_imdb(argv, device="cuda"):
 
     Usage: fetch-imdb [root=data/emovoxceleb] [cache=imdb.npz]
                       [download=true] [teacher=senet50-ferplus] [limit=N]
+                      [chunk_frames=N]
     Resolves the released logits imdb, or runs the dense teacher inference
-    build when a teacher is given. chunk_frames=N (the JAX package's
-    bounded worker processes, exp/dense_chunked.py) is not ported.
+    build when a teacher is given. chunk_frames=N (with teacher=) scores
+    the frames in worker processes of at most N frames each over the
+    partial checkpoint (exp/dense_chunked.py; the same imdb bit for bit):
+    this process only loads the teacher on the host and supervises, and
+    the workers run on device=.
     """
     import numpy as np
 
@@ -254,22 +258,21 @@ def cmd_fetch_imdb(argv, device="cuda"):
     )
 
     opts, _ = _opt_dict(argv)
-    if "chunk_frames" in opts:
-        if "teacher" not in opts:
-            print("chunk_frames requires teacher=<name> (the dense build)")
-        else:
-            print("chunk_frames: max_frames_per_process (exp/dense_chunked.py "
-                  "of the JAX package) is not ported: no leak that it works "
-                  "around has been measured on the card's host; see "
-                  "ROADMAP.md")
+    chunked = "chunk_frames" in opts
+    if chunked and "teacher" not in opts:
+        print("chunk_frames requires teacher=<name> (the dense build)")
         return 2
     teacher_model = teacher_state = None
+    build_kwargs = {"device": device}
     if "teacher" in opts:
         from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
 
         teacher_model, teacher_state = load_pretrained_teacher(
-            opts["teacher"], with_pipeline=True, device=device)
-    build_kwargs = {"device": device}
+            opts["teacher"], with_pipeline=True,
+            device="cpu" if chunked else device)
+    if chunked:
+        build_kwargs["max_frames_per_process"] = int(opts["chunk_frames"])
+        build_kwargs["teacher_spec"] = {"pretrained": opts["teacher"]}
     if "limit" in opts:
         build_kwargs["limit"] = int(opts["limit"])
     imdb = fetch_emovoxceleb_imdb(

@@ -7,8 +7,9 @@ and the same bucketing:
 - a header-only metadata pass groups tracks by (padded length ``t_pad``,
   duration bucket) and cuts each group into chunks of ``batch_size``;
 - waveform reads run two chunks ahead of the device, through a C++ reader
-  (fused int16 packing) or the Python path for off-rate files; the int16
-  rows go to the device through pinned memory. The C++ reader is the
+  (fused packing to the feed's format) or the Python path for off-rate
+  files; the rows (PCM16 by default, mu-law uint8 or float32 on request)
+  go to the device through pinned memory. The C++ reader is the
   port's own ``csrc/dataservice_audio.cc`` (built with ``g++`` at first
   use; a failed build raises); the Python path reads every file only
   where ``MCNCME_DISABLE_NATIVE`` is set. Both give the same bits;
@@ -37,6 +38,7 @@ from torch.func import functional_call
 
 from mcncrossmodalemotions_torch.data import native_audio
 from mcncrossmodalemotions_torch.data.audio import (
+    pack_mulaw8,
     pack_pcm16,
     read_wav,
     resample_to,
@@ -109,11 +111,16 @@ class AudioFeatureExtractor:
     keeps it. With ``use_kernels``
     (the default) the spectrogram and pool1/pool2 go through their
     kernels on the card; False runs their plain versions (the comparison
-    run). On the CPU both run the plain versions. Rows ship as PCM16, half
-    the host-to-device bytes of fp32; per-track peak normalisation is neutral,
+    run). On the CPU both run the plain versions. The feed is the JAX
+    extractor's: rows ship as PCM16 (``emit_int16``, the default), half the
+    host-to-device bytes of fp32; per-track peak normalisation is neutral,
     since the spectrogram is linear in the waveform and instance norm
-    divides any per-track scale back out. ``readers`` records which host
-    reader each chunk took: ``native-packed``, ``native`` or ``python``.
+    divides any per-track scale back out. ``emit_mulaw`` ships mu-law uint8
+    instead (``data/audio.pack_mulaw8``, a quarter of fp32's bytes; its
+    ~38 dB SNR moves the logits slightly), and with both off the rows ship
+    as float32. The frontend takes each as it comes (``decode_pcm``).
+    ``readers`` records which host reader each chunk took:
+    ``native-packed``, ``native`` or ``python``.
     """
 
     model: nn.Module
@@ -123,6 +130,8 @@ class AudioFeatureExtractor:
     use_kernels: bool = True
     num_threads: int = 8
     device: torch.device | str = "cuda"
+    emit_int16: bool = True
+    emit_mulaw: bool = False
     readers: set = dataclasses.field(default_factory=set)
 
     # -- host side ----------------------------------------------------------
@@ -166,12 +175,18 @@ class AudioFeatureExtractor:
                 slow_futs[row] = pool.submit(self._load_one, path, need)
         # The fused read+pack computes each row's peak over everything it
         # reads, so it is only taken when no 19.9 s cap truncation applies.
-        packed = not slow_futs and bool(fast) and need <= cap
+        fmt = self._feed_format()
+        packed = (fmt is not None and not slow_futs and bool(fast)
+                  and need <= cap)
         fast_fut = None
         if fast:
-            read = reader.read_crops_packed if packed else reader.read_crops
-            fast_fut = pool.submit(read, fast, [0] * len(fast), need,
-                                   self.num_threads)
+            if packed:
+                fast_fut = pool.submit(reader.read_crops_packed, fast,
+                                       [0] * len(fast), need,
+                                       self.num_threads, fmt=fmt)
+            else:
+                fast_fut = pool.submit(reader.read_crops, fast,
+                                       [0] * len(fast), need, self.num_threads)
             self.readers.add("native-packed" if packed else "native")
         if slow_futs:
             self.readers.add("python")
@@ -191,6 +206,11 @@ class AudioFeatureExtractor:
             return waves
 
         return join
+
+    def _feed_format(self) -> Optional[str]:
+        """The packed format of the rows shipped, None for float32."""
+        return ("mulaw8" if self.emit_mulaw
+                else "int16" if self.emit_int16 else None)
 
     def _to_device(self, waves: np.ndarray, device: torch.device) -> torch.Tensor:
         host = torch.from_numpy(waves)
@@ -228,7 +248,10 @@ class AudioFeatureExtractor:
                     nxt = chunks[ci + lookahead]
                     joins.append(self._submit_chunk(pool, nxt[2], nxt[0]))
                 if waves.dtype == np.float32:  # packed chunks arrive ready
-                    waves = pack_pcm16(waves)
+                    if self.emit_mulaw:
+                        waves = pack_mulaw8(waves)
+                    elif self.emit_int16:
+                        waves = pack_pcm16(waves)
                 x = self._to_device(waves, device)
                 valid = torch.tensor([c[2][0] for c in chunk], device=device)
                 specs = (spectrogram_cuda(x, cfg) if self.use_kernels

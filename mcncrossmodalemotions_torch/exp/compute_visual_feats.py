@@ -36,6 +36,7 @@ from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
     _load_feat_cache,
     _save_feat_cache,
 )
+from mcncrossmodalemotions_torch.exp.dense_chunked import chunked_frame_logits
 from mcncrossmodalemotions_torch.parallel.mesh import (
     DataMesh,
     auto_mesh,
@@ -234,6 +235,7 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
                          clobber: bool = False,
                          input_size: int = 224,
                          max_frames_per_process: Optional[int] = None,
+                         model_spec: Optional[dict] = None,
                          verbose: bool = True,
                          device: torch.device | str = "cuda"
                          ) -> List[np.ndarray]:
@@ -251,16 +253,20 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
     frames data-parallel over an initialised process group's ranks
     (``parallel.mesh.auto_mesh``), each rank returning every track's
     logits and rank 0 alone writing; in one process it is the one device.
-    ``max_frames_per_process`` (bounded worker processes) is not ported
-    and raises.
+
+    ``max_frames_per_process`` runs the dense pass as bounded worker
+    processes over the shared partial (``exp/dense_chunked.py``; the same
+    logits bit for bit): it needs ``feat_path``, ``state`` and a JSON
+    ``model_spec`` from which a worker rebuilds ``model``
+    (``dense_chunked.build_worker_model``), and no data-parallel mesh,
+    since every rank would spawn its own workers over one partial.
     """
-    if max_frames_per_process:
-        raise NotImplementedError(
-            "max_frames_per_process (exp/dense_chunked.py of the JAX package) "
-            "is not ported: no leak that it works around has been measured "
-            "on the card's host; see ROADMAP.md")
     if mesh == "auto":
         mesh = auto_mesh(batch_size, device)
+    if max_frames_per_process and mesh is not None and mesh.world_size > 1:
+        raise ValueError(
+            "max_frames_per_process spawns one process's workers over one "
+            f"partial; it does not run on a mesh of {mesh.world_size} ranks")
     if model_name != "random" and mesh is None:
         resolve_device(device, "compute_visual_feats")
     if feat_path and Path(feat_path).exists() and not clobber:
@@ -281,16 +287,26 @@ def compute_visual_feats(imdb, model: Optional[nn.Module] = None,
         logits = [rng.randn(len(t), num_classes).astype(np.float32)
                   for t in tracks]
     else:
-        if model is None or state is None:
-            raise ValueError(f"model {model_name!r} needs a model and its state")
         flat = [str(Path(frame_root) / p) for track in tracks for p in track]
         partial = f"{feat_path}.partial.npz" if feat_path else None
-        extractor = VisualFeatureExtractor(model, state, batch_size=batch_size,
-                                           crop_ratio=crop_ratio,
-                                           input_size=input_size,
-                                           device=device, mesh=mesh)
-        all_logits = extractor.frame_logits(flat, verbose=verbose,
-                                            partial_path=partial)
+        if max_frames_per_process:
+            if not (partial and model_spec and state is not None):
+                raise ValueError("max_frames_per_process requires feat_path, "
+                                 "model_spec and state")
+            all_logits = chunked_frame_logits(
+                model_spec, state, flat, partial,
+                chunk_frames=max_frames_per_process, batch_size=batch_size,
+                crop_ratio=crop_ratio, input_size=input_size,
+                verbose=verbose, device=device)
+        else:
+            if model is None or state is None:
+                raise ValueError(
+                    f"model {model_name!r} needs a model and its state")
+            extractor = VisualFeatureExtractor(
+                model, state, batch_size=batch_size, crop_ratio=crop_ratio,
+                input_size=input_size, device=device, mesh=mesh)
+            all_logits = extractor.frame_logits(flat, verbose=verbose,
+                                                partial_path=partial)
         logits, offset = [], 0
         for track in tracks:
             f = len(track)

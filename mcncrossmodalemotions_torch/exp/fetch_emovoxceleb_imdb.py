@@ -4,7 +4,8 @@ Port of ``mcncrossmodalemotions_tpu/exp/fetch_emovoxceleb_imdb.py``: crawls
 the VoxCeleb face-frame tree, registers frames to wav tracks (dropping
 frameless tracks and unclaimed frames, :228-285), runs dense teacher
 inference over every frame on the card (batch 128, crop 1/1.6, :119-136,
-through ``exp/compute_visual_feats.VisualFeatureExtractor``) and regroups
+through ``exp/compute_visual_feats.VisualFeatureExtractor``, or in bounded
+worker processes through ``exp/dense_chunked.py``) and regroups
 the logits per wav into ``wav_logits`` matrices (:140-148). The result is
 the port's ``data/imdb.EmoVoxImdb``, the one ``run_distillation`` trains
 on; its ``.npz`` cache is the JAX package's format.
@@ -37,6 +38,7 @@ from mcncrossmodalemotions_torch.data.imdb import (
 from mcncrossmodalemotions_torch.exp.compute_visual_feats import (
     VisualFeatureExtractor,
 )
+from mcncrossmodalemotions_torch.exp.dense_chunked import chunked_frame_logits
 from mcncrossmodalemotions_torch.parallel.mesh import auto_mesh, process_index
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 
@@ -73,6 +75,7 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
                partial_path: Optional[str] = None,
                max_frames: Optional[int] = None,
                max_frames_per_process: Optional[int] = None,
+               teacher_spec: Optional[dict] = None,
                verbose: bool = True,
                device: torch.device | str = "cuda") -> Optional[EmoVoxImdb]:
     """Dense teacher inference over every registered frame -> EmoVoxImdb.
@@ -86,15 +89,18 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
     a call finishes the job. ``mesh="auto"`` scores the frames
     data-parallel over an initialised process group's ranks, each on its
     card, every rank returning the whole imdb (``compute_visual_feats``);
-    in one process it is the one device. ``max_frames_per_process`` is not
-    ported and raises.
+    in one process it is the one device. ``max_frames_per_process`` with
+    ``teacher_spec`` (a JSON spec from which a worker rebuilds the teacher,
+    ``exp/dense_chunked.build_worker_model``) and ``partial_path`` scores
+    the frames in bounded worker processes over the partial, the same
+    logits bit for bit; it takes no data-parallel mesh.
     """
-    if max_frames_per_process:
-        raise NotImplementedError(
-            "max_frames_per_process (exp/dense_chunked.py of the JAX package) "
-            "is not ported; see ROADMAP.md")
     if mesh == "auto":
         mesh = auto_mesh(batch_size, device)
+    if max_frames_per_process and mesh is not None and mesh.world_size > 1:
+        raise ValueError(
+            "max_frames_per_process spawns one process's workers over one "
+            f"partial; it does not run on a mesh of {mesh.world_size} ranks")
     device = (mesh.device if mesh is not None
               else resolve_device(device, "build_imdb"))
     root = Path(root)
@@ -112,13 +118,22 @@ def build_imdb(root: str | Path, teacher_model: nn.Module,
     if verbose:
         print(f"dense teacher inference over {len(flat)} frames "
               f"({len(wav_paths)} tracks)")
-    extractor = VisualFeatureExtractor(teacher_model, teacher_state,
-                                       batch_size=batch_size,
-                                       crop_ratio=CROP_RATIO, device=device,
-                                       mesh=mesh)
-    all_logits = extractor.frame_logits(flat, verbose=verbose,
-                                        partial_path=partial_path,
-                                        max_frames=max_frames)
+    if max_frames_per_process:
+        if not (partial_path and teacher_spec):
+            raise ValueError("max_frames_per_process requires partial_path "
+                             "and teacher_spec")
+        all_logits = chunked_frame_logits(
+            teacher_spec, teacher_state, flat, partial_path,
+            chunk_frames=max_frames_per_process, batch_size=batch_size,
+            crop_ratio=CROP_RATIO, verbose=verbose, device=device)
+    else:
+        extractor = VisualFeatureExtractor(teacher_model, teacher_state,
+                                           batch_size=batch_size,
+                                           crop_ratio=CROP_RATIO,
+                                           device=device, mesh=mesh)
+        all_logits = extractor.frame_logits(flat, verbose=verbose,
+                                            partial_path=partial_path,
+                                            max_frames=max_frames)
     if all_logits is None:  # a bounded call that did not finish the job
         return None
     wav_logits, offset = [], 0

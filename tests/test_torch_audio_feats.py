@@ -51,16 +51,26 @@ def test_bucketing_matches_jax():
         assert tfeats.pad_frames_shape(t) == jfeats.pad_frames_shape(t)
 
 
-def test_extractor_matches_jax(slice_setup):
+# the three feeds of both extractors: (emit_* flags, the rows' dtype)
+FEEDS = {"int16": (dict(emit_int16=True, emit_mulaw=False), torch.int16),
+         "mulaw8": (dict(emit_mulaw=True), torch.uint8),
+         "float": (dict(emit_int16=False, emit_mulaw=False), torch.float32)}
+
+
+@pytest.mark.parametrize("feed", list(FEEDS))
+def test_extractor_matches_jax(slice_setup, feed):
+    """Each feed against the JAX extractor fed the same way."""
     imdb, variables, model, state = slice_setup
+    emit = FEEDS[feed][0]
     paths = [str(p) for p in imdb.wav_paths]
     jm = JaxVGGM(fc6_features=64, fc7_features=32, dtype=np.float32)
     with jax.default_matmul_precision("highest"):
         ref = jfeats.AudioFeatureExtractor(jm, variables, batch_size=3,
-                                           use_pallas=False).track_logits(
+                                           use_pallas=False,
+                                           **emit).track_logits(
             paths, verbose=False)
     extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
-                                             device="cpu")
+                                             device="cpu", **emit)
     got = extractor.track_logits(paths, verbose=False)
     assert len({tfeats.AudioFeatureExtractor(model, state)._meta(p)[1]
                 for p in paths}) == 2
@@ -95,9 +105,13 @@ def test_extractor_plain_and_wrapper_paths_agree_on_cpu(slice_setup):
         np.testing.assert_array_equal(x, y)
 
 
-def test_extractor_feeds_the_frontend_int16(slice_setup, monkeypatch):
-    """Every chunk reaches the frontend as PCM16, whichever reader took it."""
+@pytest.mark.parametrize("feed", list(FEEDS))
+def test_extractor_feeds_the_frontend_its_format(slice_setup, monkeypatch,
+                                                 feed):
+    """Every chunk reaches the frontend in the feed's dtype (uint8 mu-law,
+    int16 PCM or float32), whichever reader took it."""
     imdb, _, model, state = slice_setup
+    emit, dtype = FEEDS[feed]
     dtypes = []
 
     def spy(x, cfg):
@@ -106,9 +120,9 @@ def test_extractor_feeds_the_frontend_int16(slice_setup, monkeypatch):
 
     monkeypatch.setattr(tfeats, "spectrogram_cuda", spy)
     extractor = tfeats.AudioFeatureExtractor(model, state, batch_size=3,
-                                             device="cpu")
+                                             device="cpu", **emit)
     extractor.track_logits([str(p) for p in imdb.wav_paths], verbose=False)
-    assert dtypes and set(dtypes) == {torch.int16}
+    assert dtypes and set(dtypes) == {dtype}
     assert extractor.readers
 
 

@@ -33,6 +33,10 @@
 - The ddp phase rehearses on the CPU at tiny sizes, its ranks being the
   script itself started as workers; it runs after ``verify`` and before
   ``probes``, and its counts join the kernel line's.
+- The dense-chunked phase rehearses on the CPU at tiny sizes (the
+  bounded-worker build bitwise one process's, the soak's three builds);
+  it runs after ``ddp`` and before ``probes``, and its counts join the
+  kernel line's.
 """
 
 import shutil
@@ -372,11 +376,44 @@ def test_ddp_phase_rehearses_on_the_cpu(tmp_path):
     assert len(list(tmp_path.glob("ddp-gloo-2-*.json"))) == 2
 
 
+def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
+    """The dense-chunked phase at tiny sizes on a tiny teacher release and
+    its dense imdb: the bounded-worker build in 2 worker processes bitwise
+    the one-process imdb, then the soak with a tiny SENet at batch 1 (640
+    batches: the kill at batch 200 lands well inside the run), its resume
+    bitwise the clean build."""
+    from mcncrossmodalemotions_torch.data.imdb import SET_UNHEARD_VAL
+    from mcncrossmodalemotions_torch.exp.fetch_emovoxceleb_imdb import (
+        build_imdb,
+    )
+    from mcncrossmodalemotions_torch.zoo import load_pretrained_teacher
+
+    torch.set_num_threads(2)
+    tracks = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5,),
+                                  tracks_per_class=1)
+    chip_smoke.teacher_release(tmp_path / "dense.mat", stage_sizes=(1, 1),
+                               width=8)
+    model, state = load_pretrained_teacher(tmp_path / "dense.mat",
+                                           with_pipeline=True, device="cpu")
+    speakers = chip_smoke.dense_tree(tmp_path / "vox",
+                                     chip_smoke.imdb_paths(tracks), 3)
+    dense = build_imdb(tmp_path / "vox", model, state, batch_size=8,
+                       set_assignment={speakers[-1]: SET_UNHEARD_VAL},
+                       verbose=False, device="cpu")
+    assert sum(len(f) for f in dense.dense_frames) == 18  # 2 workers: 16, 2
+    wrappers = chip_smoke.kernel_wrappers()
+    counts = chip_smoke.dense_chunked_phase("cpu", tmp_path, dense, wrappers,
+                                            dev="cpu")
+    assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
+    assert not list(tmp_path.glob("chunked.partial*"))
+    assert (tmp_path / "soak" / "imdb_soak.npz").is_file()
+
+
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
-    online, ddp after verify and before probes, their counts join the
-    kernel line's launches, no phase runs inside an exception handler, and
-    the device line is printed last."""
+    online, ddp after verify, dense-chunked after ddp and before probes,
+    their counts join the kernel line's launches, no phase runs inside an
+    exception handler, and the device line is printed last."""
     import ast
 
     src = (REPO / "chip_smoke.py").read_text()
@@ -387,9 +424,9 @@ def test_phases_in_order_and_the_last_line():
     assert phases == ["device", "build", "data", "k1", "k2", "slice",
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
-                      "verify", "ddp", "probes"]
+                      "verify", "ddp", "dense-chunked", "probes"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
-                   "ddp_counts"):
+                   "ddp_counts", "dense_chunked_counts"):
         assert f"{counts}[name]" in ast.get_source_segment(src, main)
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]

@@ -216,9 +216,8 @@ def test_cli_analysis_commands_end_to_end(tmp_path, monkeypatch, capsys):
 
     assert cli.main(["fetch-imdb", f"cache={npz}", "device=cpu"]) == 0
     assert "6 wavs; sets" in capsys.readouterr().out
-    assert cli.main(["fetch-imdb", "teacher=senet50-ferplus",
-                     "chunk_frames=100"]) == 2
-    assert "dense_chunked" in capsys.readouterr().out
+    assert cli.main(["fetch-imdb", "chunk_frames=100"]) == 2
+    assert "chunk_frames requires teacher=" in capsys.readouterr().out
 
     assert cli.main(["student-stats", f"imdb={npz}", "model=random",
                      f"cache={tmp_path / 'aucs.json'}",
@@ -292,6 +291,39 @@ def test_cli_audio_feats_from_a_release_equals_the_driver(tmp_path,
     assert len(got) == len(want) == 48
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+def test_cli_fetch_imdb_in_bounded_workers_equals_one_process(tmp_path,
+                                                              monkeypatch):
+    """``fetch-imdb teacher=<.mat> chunk_frames=N`` builds the imdb of the
+    command without ``chunk_frames``, bit for bit, in worker processes."""
+    from mcncrossmodalemotions_torch.data import synthetic_track_imdb
+    from mcncrossmodalemotions_torch.data.imdb import EmoVoxImdb
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # the workers take the caller's count
+    try:
+        mat = tmp_path / "teacher.mat"
+        chip_smoke.teacher_release(mat, stage_sizes=(1, 1), width=8)
+        tracks = synthetic_track_imdb(tmp_path / "tracks", durations=(1.5,),
+                                      tracks_per_class=1)
+        chip_smoke.dense_tree(tmp_path / "vox", chip_smoke.imdb_paths(tracks),
+                              3)
+        monkeypatch.chdir(tmp_path)
+        base = ["fetch-imdb", f"root={tmp_path / 'vox'}", f"teacher={mat}",
+                "device=cpu"]
+        assert cli.main(base + [f"cache={tmp_path / 'one.npz'}"]) == 0
+        assert cli.main(base + [f"cache={tmp_path / 'chunked.npz'}",
+                                "chunk_frames=16"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    one = EmoVoxImdb.load(str(tmp_path / "one.npz"))
+    chunked = EmoVoxImdb.load(str(tmp_path / "chunked.npz"))
+    assert list(chunked.wav_paths) == list(one.wav_paths)
+    assert sum(len(w) for w in one.wav_logits) == 3 * len(tracks.wav_paths)
+    for a, b in zip(chunked.wav_logits, one.wav_logits):
+        np.testing.assert_array_equal(a, b)
+    assert not list(tmp_path.glob("chunked.npz.partial*"))
 
 
 def test_cli_refusals_and_the_card_default(tmp_path, capsys):

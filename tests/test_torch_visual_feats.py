@@ -13,8 +13,8 @@ both packages:
   ways; ``fetch_emovoxceleb_imdb``'s caches;
 - ``run_distillation`` trains an epoch on the port-built imdb;
 - the refusals (``mesh="auto"`` under a world size that does not split
-  the batch, ``max_frames_per_process``, ``download``, no CUDA device
-  without ``device="cpu"``) raise.
+  the batch, ``max_frames_per_process`` without what its workers need,
+  ``download``, no CUDA device without ``device="cpu"``) raise.
 """
 
 from __future__ import annotations
@@ -307,10 +307,12 @@ def test_refusals(tree, teacher, monkeypatch):
             tvf.compute_visual_feats(imdb, port, state, device="cpu")
         with pytest.raises(ValueError, match="does not split over 3 ranks"):
             tfetch.build_imdb(tree, port, state, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense_chunked"):
+    # bounded worker processes need what a worker rebuilds the job from
+    with pytest.raises(ValueError, match="requires feat_path, model_spec"):
         tvf.compute_visual_feats(imdb, port, state, device="cpu",
                                  max_frames_per_process=100)
-    with pytest.raises(NotImplementedError, match="dense_chunked"):
+    with pytest.raises(ValueError, match="requires partial_path and "
+                                         "teacher_spec"):
         tfetch.build_imdb(tree, port, state, max_frames_per_process=9,
                           device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
