@@ -21,8 +21,9 @@ step with the frozen teacher inside it, the feed options, the remat
 policies); the release surface (the artifact registry's tree,
 ``verify_release`` and the command line); data parallelism through
 ``torch.distributed`` (two ranks of this script on the one card); the
-dense build in bounded worker processes and the dense-genesis soak; and
-the two Mosaic probe tools; each path with and without the kernels where a
+dense build in bounded worker processes and the dense-genesis soak; the
+throughput bench and the convergence demo; and the two Mosaic probe
+tools; each path with and without the kernels where a
 comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -243,7 +244,19 @@ comparison applies. Phases:
     (at warm, growth after it, per batch, peak, trace), a build SIGKILLed
     at its first partial flush (batch 200 of 256) and its resume, bitwise
     the clean build.
-19. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+19. bench: ``python -m mcncrossmodalemotions_torch.bench --full`` (the
+    JAX package's ``bench.py`` on the card) in a fresh process with the
+    card free: exit 0, the ``distillation_train_throughput`` headline above
+    0 last, and every key the JAX bench's ``--full`` run writes in its
+    details file (the frontend's under ``frontend_plain_ms`` and
+    ``frontend_kernel_ms``), ``numerics_ok`` true (the card against the
+    CPU golden); each value printed. Its launches are its processes'.
+20. demo: ``tools/run_demo.main`` (the full-width student, 8 x 25
+    synthetic tracks, batch 16, lr 1e-2 -> 1e-3) for 3 of its 40 epochs:
+    the epoch-3 train loss below epoch 1's, ``student_stats`` over the
+    three partitions, the exact launches of its epochs (10 train and 2 val
+    batches each) and its extraction.
+21. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -258,9 +271,9 @@ comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher, teacher-train, online, verify, ddp and dense-chunked
-phases (the ddp phase's over every rank, the dense-chunked phase's
-one-process build), the probe kernels' over the probes run, each
+analysis, teacher, teacher-train, online, verify, ddp, dense-chunked
+and demo phases (the ddp phase's over every rank, the dense-chunked
+phase's one-process build; the bench's processes are not counted), the probe kernels' over the probes run, each
 read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -369,10 +382,46 @@ CHUNK_FRAMES = 512            # dense-chunked: 4 workers of 4 batches of 128
 SOAK_FRAMES = 32768           # the soak: 256 batches of 128; the kill lands at
                               # the first partial flush, batch 200 (78%)
 SOAK_CPU_FRAMES = 640         # the CPU rehearsal's soak: 640 batches of 1
+BENCH_TIMEOUT = 900           # seconds the bench --full subprocess may take
+# what the JAX package's `bench.py --full` measures into its details file,
+# under the port's names (frontend_plain_ms/kernel_ms for jnp/pallas);
+# bench_keys() adds the fields derived from the link-bound ones
+BENCH_KEYS = (
+    "train_step_ms", "train_step_utts_per_sec", "train_step_flops",
+    "achieved_tflops", "mfu_estimate", "device_kind", "backend",
+    "link_put_mb_per_sec",
+    "end_to_end_epoch_utts_per_sec", "end_to_end_epoch_samples",
+    "end_to_end_feed_bound_frac", "end_to_end_feed_bytes_per_utt",
+    "end_to_end_epoch_utts_per_sec_mulaw8", "end_to_end_epoch_samples_mulaw8",
+    "end_to_end_feed_bound_frac_mulaw8",
+    "end_to_end_feed_bytes_per_utt_mulaw8",
+    "online_epoch_utts_per_sec", "online_epoch_samples",
+    "online_epoch_feed_bound_frac", "online_epoch_feed_bytes_per_utt",
+    "online_epoch_frames_per_crop",
+    "numerics_frontend_rel", "numerics_loss_rel", "numerics_ok",
+    "frontend_plain_ms", "frontend_kernel_ms",
+    "teacher_inference_imgs_per_sec", "teacher_train_imgs_per_sec",
+    "fused_online_step_utts_per_sec", "fused_online_step_ms",
+    "fused_online_step_bs",
+    "dense_inference_e2e_imgs_per_sec", "dense_inference_bytes_per_img",
+    "audio_feats_tracks_per_sec", "audio_feats_batch_size",
+    "audio_feats_bytes_per_track",
+)
+DEMO_EPOCHS = 3               # of the demo's 40 (tools/run_demo.py)
+DEMO_BATCH = 16               # the demo's batch
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def bench_keys() -> tuple:
+    """``BENCH_KEYS`` and the ``_per_link_mbps`` and ``_best`` fields the
+    bench derives from each of its link-bound metrics."""
+    from mcncrossmodalemotions_torch.bench import _LINK_BOUND_KEYS
+
+    return BENCH_KEYS + tuple(f"{k}_{field}" for k in _LINK_BOUND_KEYS
+                              for field in ("per_link_mbps", "best"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -542,7 +591,8 @@ def add_timing(timings: dict, work: dict, name: str, ms: list,
 def k2_backward_phase(card: str, timings: dict, errs: dict,
                       work: dict) -> None:
     """K2 with-index forward and backward vs their plain versions at the
-    train step's pool inputs (phase 7)."""
+    train step's pool inputs, and at the demo's and the bench's epoch
+    steps' rows (phase 7)."""
     import torch
     import torch.nn.functional as F
 
@@ -561,6 +611,9 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
     cases += [("even H and W", EVEN_POOL, "post-ReLU", torch.bfloat16),
               ("even H and W", EVEN_POOL, "post-ReLU", torch.float32),
               ("narrow", NARROW_POOL, "tie-heavy", torch.bfloat16)]
+    cases += [(f"{who} {label}", shape, "post-ReLU", torch.bfloat16)
+              for who, rows in (("demo", DEMO_BATCH), ("bench epoch", BATCH))
+              for label, shape in pool_inputs(rows, 400, 512).items()]
     for label, shape, kind, dtype in cases:
         gen.manual_seed(SEED)
         if kind == "tie-heavy":
@@ -3533,6 +3586,93 @@ def dense_chunked_phase(card: str, root: Path, dense_imdb, wrappers: dict,
     return counts
 
 
+def bench_phase(card: str, root: Path) -> None:
+    """The port's throughput bench (phase 19): ``python -m
+    mcncrossmodalemotions_torch.bench --full --out-dir <tmp>`` in a fresh
+    process (its end-to-end and numerics workers are processes of their
+    own), with the card free. It must exit 0, print the headline with a
+    value above 0 last, and write every key of ``bench_keys()`` with
+    ``numerics_ok`` true; each value is printed with the card's name and
+    power limit. Its launches happen in its processes, not in this one's
+    counts."""
+    out_dir = root / "bench"
+    log = root / "bench.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "mcncrossmodalemotions_torch.bench",
+                 "--full", "--out-dir", str(out_dir)], cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT, timeout=BENCH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the bench took over {BENCH_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        print(text[-6000:], flush=True)
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}")
+    headline = json.loads(lines[-1])
+    print(f"  {card}: bench --full in {wall:.1f} s; headline {headline}",
+          flush=True)
+    check(headline.get("metric") == "distillation_train_throughput"
+          and headline.get("value", 0) > 0, f"bench headline {headline}")
+    details = json.loads((out_dir / "bench_details.json").read_text())
+    keys = bench_keys()
+    for key in keys:
+        print(f"  {card}: bench {key} = {details.get(key, 'MISSING')}")
+    missing = [k for k in keys if k not in details]
+    check(not missing, f"the bench's details lack {missing}")
+    check(details["numerics_ok"] is True,
+          f"bench numerics_ok {details['numerics_ok']}")
+
+
+def demo_phase(card: str, root: Path, wrappers: dict, dev="cuda",
+               speakers: int = 8, tracks: int = 25, tiny: bool = False,
+               checked_chunks=None) -> dict:
+    """The convergence demo (``tools/run_demo.main``, phase 20) at full
+    width for ``DEMO_EPOCHS`` of its 40 epochs over its imdb of
+    ``speakers`` x ``tracks``: the last epoch's train loss below the
+    first's, ``student_stats`` over the three partitions, and the exact
+    launches of its epochs and its extraction, which it returns. Its
+    extraction's chunks must be ``checked_chunks`` (where given), those
+    the k1 and k2 phases held against the plain versions. With
+    ``dev="cpu"`` (a rehearsal) ``tiny`` and a smaller imdb may be given;
+    nothing launches there."""
+    from mcncrossmodalemotions_torch.tools import run_demo
+
+    work = root / "demo"
+    reset_counts(wrappers)
+    out = run_demo.main(work, device=dev, num_epochs=DEMO_EPOCHS,
+                        num_speakers=speakers, tracks_per_speaker=tracks,
+                        tiny=tiny)
+    counts = read_counts(wrappers)
+    traj = {t["epoch"]: t for t in out["trajectory"]}
+    print(f"  {card}: demo, {DEMO_EPOCHS} epochs in {out['wall_s']} s: "
+          f"trajectory {out['trajectory']}; meanAuc "
+          f"{ {p: a['meanAuc'] for p, a in out['aucs'].items()} }; launches "
+          f"{counts}", flush=True)
+    check(sorted(traj) == [1, DEMO_EPOCHS], f"demo epochs {sorted(traj)}")
+    check(traj[DEMO_EPOCHS]["train_loss"] < traj[1]["train_loss"],
+          "the demo's train loss did not fall")
+    check(set(out["aucs"]) == {"train", "heardVal", "unheardVal"},
+          f"student_stats partitions {sorted(out['aucs'])}")
+    # the last speaker is unheard, each other one's last track heard-val,
+    # the rest train (whole batches only); val batches may be ragged
+    chunks = extraction_chunks(sorted((work / "wavs").rglob("*.wav")))
+    check(checked_chunks is None or chunks == checked_chunks,
+          f"demo chunks {chunks}, checked {checked_chunks}")
+    want = {k: 0 for k in wrappers}
+    if dev == "cuda":
+        want = epoch_launches(
+            wrappers, (speakers - 1) * (tracks - 1) // DEMO_BATCH,
+            -(-(speakers - 1 + tracks) // DEMO_BATCH), epochs=DEMO_EPOCHS)
+        want["spectrogram"] += len(chunks)
+        want["max_pool_3x3s2"] += 2 * len(chunks)
+    check(counts == want, f"demo launches {counts}, expected {want}")
+    return counts
+
+
 def kernel_wrappers() -> dict:
     """The kernel line's wrappers by name, each counting its launches."""
     from mcncrossmodalemotions_torch.ops import pool, probes
@@ -3562,6 +3702,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from mcncrossmodalemotions_torch.bench import audio_feats_wavs
     from mcncrossmodalemotions_torch.data import synthetic_track_imdb
     from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
         AudioFeatureExtractor,
@@ -3574,6 +3715,7 @@ def main() -> int:
         spectrogram,
     )
     from mcncrossmodalemotions_torch.ops.spectrogram_kernel import spectrogram_cuda
+    from mcncrossmodalemotions_torch.tools import run_demo
     from mcncrossmodalemotions_torch.zoo import (
         build_student,
         random_student_variables,
@@ -3623,6 +3765,14 @@ def main() -> int:
             print(f"  {len(paths)} tracks; chunks (rows, t_pad, bucket): "
                   f"{chunks}")
             check(len({b for _, _, b in chunks}) >= 3, "fewer than three buckets")
+            # the demo's and the bench's extraction chunks (their own
+            # seeded tracks): the k1 and k2 phases check the kernels there
+            demo_chunks = extraction_chunks(imdb_paths(
+                run_demo.build_imdb(Path(tmp) / "demo-shapes")))
+            feats_chunks = extraction_chunks(
+                audio_feats_wavs(Path(tmp) / "bench-shapes"))
+            print(f"  demo chunks {demo_chunks}; bench audio-feats chunks "
+                  f"{feats_chunks}")
 
         timings = {k: [0.0, 0.0, 0.0] for k in wrappers}  # kernel, plain, library
         work = {k: [0.0, 0.0] for k in wrappers}  # bytes, operations
@@ -3641,6 +3791,16 @@ def main() -> int:
             cases += [(f"slice t_pad={t_pad}", rows, cfg.crop_samples(t_pad),
                        torch.int16, True) for rows, t_pad, _ in chunks]
             cases.append(("train crop", TRAIN_BATCH, bench_n, torch.int16, True))
+            # the demo's and the bench's launch shapes, checked, not timed
+            cases += [(f"{who} t_pad={t_pad}", rows, cfg.crop_samples(t_pad),
+                       torch.int16, False)
+                      for who, some in (("demo", demo_chunks),
+                                        ("bench audio-feats", feats_chunks))
+                      for rows, t_pad, _ in some]
+            cases += [("demo step", DEMO_BATCH, bench_n, torch.int16, False),
+                      ("bench epoch step", BATCH, bench_n, torch.int16, False),
+                      ("bench headline", TRAIN_BATCH, bench_n, torch.float32,
+                       False)]
             for label, rows, n, dtype, timed in cases:
                 gen.manual_seed(SEED)
                 x = torch.randn(rows, n, device=dev, generator=gen)
@@ -3689,7 +3849,14 @@ def main() -> int:
             del x, got, ref
 
         with phase("k2", walls):
-            for rows, _, bucket in chunks:
+            # the slice's chunks (timed), then the other (rows, bucket) of
+            # the demo's and the bench's extraction and the demo's val step
+            seen = {(rows, bucket) for rows, _, bucket in chunks}
+            k2_cases = [(rows, bucket, True) for rows, _, bucket in chunks]
+            k2_cases += [(rows, bucket, False) for rows, bucket in dict.fromkeys(
+                [(rows, bucket) for rows, _, bucket in demo_chunks + feats_chunks]
+                + [(DEMO_BATCH, 400)]) if (rows, bucket) not in seen]
+            for rows, bucket, timed in k2_cases:
                 for label, shape in pool_inputs(rows, bucket, cfg.nfft).items():
                     for dtype, ibits in ((torch.bfloat16, torch.int16),
                                          (torch.float32, torch.int32)):
@@ -3710,7 +3877,7 @@ def main() -> int:
                               f"(max abs {err:.3e})", flush=True)
                         check(same, f"K2 bucket {bucket} {label} {dtype}: "
                               "not bitwise equal")
-                        if dtype == torch.bfloat16:  # the slice's dtype
+                        if timed and dtype == torch.bfloat16:  # the slice's
                             p, k = turns_ms(lambda: pool.max_pool_3x3s2(x),
                                             lambda: pool.max_pool_3x3s2_cuda(x))
                             b = add_timing(timings, work, "max_pool_3x3s2",
@@ -3856,6 +4023,14 @@ def main() -> int:
                                                        dense_imdb, wrappers)
             del dense_imdb
 
+        with phase("bench", walls):
+            torch.cuda.empty_cache()  # the bench's processes find the card free
+            bench_phase(card, Path(tmp))
+
+        with phase("demo", walls):
+            demo_counts = demo_phase(card, Path(tmp), wrappers,
+                                     checked_chunks=demo_chunks)
+
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
 
@@ -3897,7 +4072,7 @@ def main() -> int:
                          + teacher_counts[name] + teacher_train_counts[name]
                          + online_counts[name] + verify_counts[name]
                          + ddp_counts[name] + dense_chunked_counts[name]
-                         + probe_counts[name]),
+                         + demo_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -27,8 +27,8 @@ student-stats, teacher-stats, sample-audio, audio-feats
 (compute_audio_feats.m), visual-feats (compute_visual_feats.m), and
 emo-benchmarks (emo_benchmarks.m, which drives run_cross_val.m — pass
 exp_root= to persist its per-fold mnr params). fetch and verify-release
-resolve and check the released artifacts; bench waits for the port's
-benchmark entry.
+resolve and check the released artifacts; bench runs the port's
+throughput bench (``mcncrossmodalemotions_torch/bench.py``).
 
 On a host with several cards, ``torchrun --nproc_per_node=N -m
 mcncrossmodalemotions_torch.cli <command> ...`` runs one rank a card: each
@@ -113,12 +113,12 @@ def cmd_benchmark_ferplus(argv, device="cuda"):
 
 
 def cmd_bench(argv, device="cuda"):
-    """The JAX package's command runs its ``bench.py``, which drives the
-    JAX package; the port's benchmark entry comes with ROADMAP.md item 2."""
-    print("bench: the port has no benchmark entry yet (ROADMAP.md item 2); "
-          "python3 chip_smoke.py drives the port's paths on the card",
-          file=sys.stderr)
-    return 2
+    """The port's throughput bench (``mcncrossmodalemotions_torch/bench.py``,
+    the JAX package's ``bench.py`` on the card): ``bench [--quick|--full]
+    [--out-dir DIR]``; returns its exit code."""
+    from mcncrossmodalemotions_torch import bench
+
+    return bench.main(list(argv), device=device)
 
 
 def cmd_reproduce_ferplus(argv, device="cuda"):

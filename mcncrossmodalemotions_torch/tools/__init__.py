@@ -12,6 +12,11 @@ numpy ``expect`` arrays, each probe run through one of the probe kernels of
 Each prints ``PROBE <name>: RUNS, match=<bool>`` or ``PROBE <name>: FAIL —
 <msg>`` per probe, then a ``device:`` line, as the JAX tools do, and exits
 non-zero unless every probe ran and matched.
+
+The package's other tools are the counterparts of ``tools/run_demo.py``
+(``run_demo``), ``tools/sweep_convergence.py`` (``sweep_convergence``) and
+``tools/soak_dense_genesis.py`` (``soak_dense_genesis``); ``step_variants``
+times the bench's train step with and without a pad mask and int16 rows.
 """
 
 from __future__ import annotations

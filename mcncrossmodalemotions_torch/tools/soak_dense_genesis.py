@@ -23,10 +23,11 @@ not gated. On the card, from the repository root::
 ``--tiny --batch-size 1`` rehearses it on the CPU with a tiny SENet; the
 kill needs more than 200 batches to land inside a run.
 
-The frames are 96x96 gray baseline JPEGs written here without PIL (which
-the card's host lacks): a few hundred seeded base images are entropy
-coded once, and each frame is a base's scan under its own quantisation
-table, so every file, and the pixels it decodes to, is its own.
+The frames are 96x96 gray baseline JPEGs written without PIL (which the
+card's host lacks) by ``data/images.py``'s writer: a few hundred seeded
+base images are entropy coded once, and each frame is a base's scan under
+its own quantisation table, so every file, and the pixels it decodes to,
+is its own.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from typing import Optional
 
 import numpy as np
 
+from mcncrossmodalemotions_torch.data import images
+
 TRACKS = 32  # 8 speakers x 4 tracks
 FRAME_SIZE = 96
 VARIANTS = 64  # quantisation tables a base image is written with
@@ -52,84 +55,24 @@ POLL_S = 0.05  # how often the killed run's partial is looked for
 MODULE = "mcncrossmodalemotions_torch.tools.soak_dense_genesis"
 
 
-# -- a gray baseline JPEG writer ------------------------------------------
-_ZIGZAG = np.asarray([i * 8 + j for i, j in sorted(
-    ((i, j) for i in range(8) for j in range(8)),
-    key=lambda p: (p[0] + p[1], p[0] if (p[0] + p[1]) % 2 else -p[0]))])
-_K = np.arange(8)
-_DCT = np.sqrt(2 / 8) * np.cos((2 * _K[None, :] + 1) * _K[:, None] * np.pi / 16)
-_DCT[0] /= np.sqrt(2)
+# -- the frames: gray baseline JPEGs (``data/images.py``'s writer) -------
 _REF_Q = 16  # the quantiser the base coefficients are rounded with
 # Huffman tables of fixed-length codes: the 12 DC categories in 4 bits, the
 # 162 AC symbols (EOB, ZRL, run/size) in 8; no code is all ones.
-_AC_SYMBOLS = [0x00, 0xF0] + [(r << 4) | s for r in range(16)
-                              for s in range(1, 11)]
-_AC_CODE = {sym: i for i, sym in enumerate(_AC_SYMBOLS)}
-_DHT = (b"\x00" + bytes([0, 0, 0, 12] + [0] * 12) + bytes(range(12))
-        + b"\x10" + bytes([0] * 7 + [len(_AC_SYMBOLS)] + [0] * 8)
-        + bytes(_AC_SYMBOLS))
-
-
-def _segment(marker: int, payload: bytes) -> bytes:
-    return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
-
-
-def _zigzag_coefficients(img: np.ndarray) -> np.ndarray:
-    """[H, W] uint8 (multiples of 8) -> [blocks, 64] quantised DCT
-    coefficients in zigzag order, blocks in raster order."""
-    h, w = img.shape
-    blocks = (img.astype(np.float64) - 128).reshape(
-        h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
-    coef = np.round(_DCT @ blocks @ _DCT.T / _REF_Q).astype(np.int64)
-    return coef.reshape(-1, 64)[:, _ZIGZAG]
-
-
-def _entropy_scan(zz: np.ndarray) -> bytes:
-    """The baseline scan of ``[blocks, 64]`` zigzag coefficients, padded
-    with ones and 0xFF-stuffed."""
-    acc, nbits, prev = 0, 0, 0
-
-    def put(value: int, size: int) -> None:
-        nonlocal acc, nbits
-        acc, nbits = (acc << size) | value, nbits + size
-
-    def magnitude(v: int) -> tuple:
-        size = abs(v).bit_length()
-        return (v if v >= 0 else v + (1 << size) - 1), size
-
-    for z in zz.tolist():
-        bits, size = magnitude(z[0] - prev)
-        prev = z[0]
-        put(size, 4)
-        put(bits, size)
-        run = 0
-        for v in z[1:]:
-            if v == 0:
-                run += 1
-                continue
-            while run > 15:
-                put(_AC_CODE[0xF0], 8)
-                run -= 16
-            bits, size = magnitude(v)
-            put(_AC_CODE[(run << 4) | size], 8)
-            put(bits, size)
-            run = 0
-        if run:
-            put(_AC_CODE[0x00], 8)
-    pad = -nbits % 8
-    put((1 << pad) - 1, pad)
-    return acc.to_bytes(nbits // 8, "big").replace(b"\xff", b"\xff\x00")
+_AC_SYMBOLS = bytes([0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                                    for s in range(1, 11)])
+_HUFFMAN = ((0x00, bytes([0, 0, 0, 12] + [0] * 12), bytes(range(12))),
+            (0x10, bytes([0] * 7 + [len(_AC_SYMBOLS)] + [0] * 8), _AC_SYMBOLS))
+_CODES = [tuple(images.huffman_codes(bits, values)
+                for _, bits, values in _HUFFMAN)]
 
 
 def _jpeg(scan: bytes, size: int, q_dc: int, q_ac: int) -> bytes:
     """A gray ``size`` x ``size`` baseline JPEG of ``scan`` dequantised by
     a table of ``q_dc`` for DC and ``q_ac`` for every AC entry."""
-    table = bytes([q_dc] + [q_ac] * 63)
-    sof = bytes([8]) + size.to_bytes(2, "big") * 2 + bytes([1, 1, 0x11, 0])
-    return (b"\xff\xd8" + _segment(0xDB, b"\x00" + table)
-            + _segment(0xC0, sof) + _segment(0xC4, _DHT)
-            + _segment(0xDA, bytes([1, 1, 0x00, 0, 63, 0])) + scan
-            + b"\xff\xd9")
+    return images.jpeg_file(size, size, [(0x11, 0, 0x00)],
+                            [np.asarray([q_dc] + [q_ac] * 63)], _HUFFMAN,
+                            scan)
 
 
 def _base_image(seed: int, size: int = FRAME_SIZE) -> np.ndarray:
@@ -147,8 +90,9 @@ def track_frames(track: int, count: int, size: int = FRAME_SIZE) -> list:
     quantisers each 13..20)."""
     out = []
     for b in range(-(-count // VARIANTS)):
-        scan = _entropy_scan(_zigzag_coefficients(
-            _base_image(track * 100003 + b, size)))
+        zz = images.zigzag_coefficients(
+            _base_image(track * 100003 + b, size), _REF_Q)
+        scan = images.entropy_scan(zz, np.zeros(len(zz), np.int64), _CODES)
         for v in range(min(VARIANTS, count - b * VARIANTS)):
             out.append(_jpeg(scan, size, 13 + v % 8, 13 + v // 8))
     return out

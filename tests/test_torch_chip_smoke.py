@@ -37,6 +37,12 @@
   bounded-worker build bitwise one process's, the soak's three builds);
   it runs after ``ddp`` and before ``probes``, and its counts join the
   kernel line's.
+- The bench phase passes a bench run whose details hold every key of the
+  JAX bench's ``--full`` run with ``numerics_ok`` true, and fails one that
+  exits non-zero, lacks a key or fails its numerics (the bench itself is
+  tested in ``test_torch_bench.py``); the demo phase rehearses on the CPU
+  at tiny sizes. Both run after ``dense-chunked`` and before ``probes``,
+  and the demo's counts join the kernel line's.
 """
 
 import shutil
@@ -411,7 +417,8 @@ def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
 
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
-    online, ddp after verify, dense-chunked after ddp and before probes,
+    online, ddp after verify, dense-chunked after ddp, bench and demo after
+    it and before probes,
     their counts join the kernel line's launches, no phase runs inside an
     exception handler, and the device line is printed last."""
     import ast
@@ -424,10 +431,88 @@ def test_phases_in_order_and_the_last_line():
     assert phases == ["device", "build", "data", "k1", "k2", "slice",
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
-                      "verify", "ddp", "dense-chunked", "probes"]
+                      "verify", "ddp", "dense-chunked", "bench", "demo",
+                      "probes"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
-                   "ddp_counts", "dense_chunked_counts"):
+                   "ddp_counts", "dense_chunked_counts", "demo_counts"):
         assert f"{counts}[name]" in ast.get_source_segment(src, main)
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
     assert 'json.dumps({"ok": True, "device": {' in "\n".join(last)
+
+
+def _fake_bench(monkeypatch, rc=0, drop=(), numerics_ok=True):
+    """chip_smoke's bench process replaced by one that writes a details
+    file of every ``bench_keys()`` key but ``drop`` and the headline."""
+    import json as _json
+
+    def run(cmd, cwd, stdout, stderr, timeout):
+        assert cmd[1:4] == ["-m", "mcncrossmodalemotions_torch.bench", "--full"]
+        out = Path(cmd[cmd.index("--out-dir") + 1])
+        out.mkdir(parents=True)
+        details = {k: 1.0 for k in chip_smoke.bench_keys() if k not in drop}
+        details["numerics_ok"] = numerics_ok
+        (out / "bench_details.json").write_text(_json.dumps(details))
+        stdout.write("running ...\n" + _json.dumps(
+            {"metric": "distillation_train_throughput", "value": 1880.5,
+             "unit": "utts/sec/chip", "vs_baseline": 31.34}) + "\n")
+        return SimpleNamespace(returncode=rc)
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+
+
+def _jax_full_keys() -> set:
+    """Every details key the JAX package's ``bench.py --full`` writes,
+    read from its source: the ``details[...]`` stores, the
+    ``details.update`` literals, the end-to-end keymaps, the frontend's
+    under the port's names and the link-bound keys' two derived fields."""
+    import ast
+
+    tree = ast.parse((REPO / "bench.py").read_text())
+    keys, link = set(), ()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Store)
+                and getattr(node.value, "id", None) == "details"
+                and isinstance(node.slice, ast.Constant)):
+            keys.add(node.slice.value)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "update"
+              and getattr(node.func.value, "id", None) == "details"
+              and isinstance(node.args[0], ast.Dict)):
+            keys |= {k.value for k in node.args[0].keys}
+        elif (isinstance(node, ast.Assign)
+              and getattr(node.targets[0], "id", None) == "keymaps"):
+            keys |= {v.value for d in node.value.values for v in d.values}
+        elif (isinstance(node, ast.Assign)
+              and getattr(node.targets[0], "id", None) == "_LINK_BOUND_KEYS"):
+            link = tuple(e.value for e in node.value.elts)
+    keys |= {"frontend_plain_ms", "frontend_kernel_ms"}  # jnp, pallas
+    return keys | {f"{k}_{s}" for k in link for s in ("per_link_mbps", "best")}
+
+
+def test_bench_phase_holds_the_bench_to_the_jax_keys(tmp_path, monkeypatch):
+    keys = chip_smoke.bench_keys()
+    assert len(set(keys)) == len(keys)
+    assert set(keys) == _jax_full_keys()
+    _fake_bench(monkeypatch)
+    chip_smoke.bench_phase("cpu", tmp_path)
+    for i, bad in enumerate((dict(rc=1), dict(drop=("mfu_estimate",)),
+                             dict(drop=("online_epoch_frames_per_crop",)),
+                             dict(numerics_ok=False))):
+        _fake_bench(monkeypatch, **bad)
+        (tmp_path / str(i)).mkdir()
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.bench_phase("cpu", tmp_path / str(i))
+
+
+def test_demo_phase_rehearses_on_the_cpu(tmp_path):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        wrappers = chip_smoke.kernel_wrappers()
+        counts = chip_smoke.demo_phase("cpu", tmp_path, wrappers, dev="cpu",
+                                       speakers=4, tracks=8, tiny=True)
+    finally:
+        torch.set_num_threads(threads)
+    assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
+    assert (tmp_path / "demo" / "demo_result.json").is_file()

@@ -326,9 +326,15 @@ def test_cli_fetch_imdb_in_bounded_workers_equals_one_process(tmp_path,
     assert not list(tmp_path.glob("chunked.npz.partial*"))
 
 
-def test_cli_refusals_and_the_card_default(tmp_path, capsys):
-    assert cli.main(["bench"]) == 2
-    assert "ROADMAP.md item 2" in capsys.readouterr().err
+def test_cli_refusals_and_the_card_default(tmp_path, monkeypatch):
+    from mcncrossmodalemotions_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main",
+                        lambda argv, device: calls.append((argv, device)) or 7)
+    assert cli.main(["bench", "--quick", "device=cpu"]) == 7
+    assert cli.main(["bench", "--full"]) == 7
+    assert calls == [(["--quick"], "cpu"), (["--full"], "cuda")]
     assert cli.split_device(["a=1", "device=cpu", "b=2"]) == (
         "cpu", ["a=1", "b=2"])
     assert cli.split_device(["x=1"]) == ("cuda", ["x=1"])

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from mcncrossmodalemotions_torch.data import images
 from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
 from mcncrossmodalemotions_torch.data.images import save_synthetic_frame
 from mcncrossmodalemotions_torch.data.imdb import EmoVoxImdb, TrackImdb
@@ -341,10 +342,10 @@ def test_soak_frames_decode_to_their_own_pixels(tmp_path):
     port = native_faces.decode_faces([str(p) for p in paths], 96, 1.0)
     assert np.abs(port[..., 0].astype(int) - pil.astype(int)).max() <= 1
     # frame 0: its base's coefficients dequantised by 13, inverse DCT
-    zz = soak._zigzag_coefficients(soak._base_image(5 * 100003))
+    zz = images.zigzag_coefficients(soak._base_image(5 * 100003), 16)
     coef = np.zeros_like(zz)
-    coef[:, soak._ZIGZAG] = zz * 13
-    pix = soak._DCT.T @ coef.reshape(-1, 8, 8).astype(float) @ soak._DCT
+    coef[:, images.ZIGZAG] = zz * 13
+    pix = images.DCT.T @ coef.reshape(-1, 8, 8).astype(float) @ images.DCT
     img = np.clip(np.round(pix + 128), 0, 255).reshape(12, 12, 8, 8)
     img = img.transpose(0, 2, 1, 3).reshape(96, 96)
     assert np.abs(img - pil[0]).max() <= 1

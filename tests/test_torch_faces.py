@@ -357,11 +357,17 @@ def test_host_copies_equal_the_jax_package(tmp_path):
         np.testing.assert_array_equal(images.resize_bilinear_np(img, *out),
                                       jimages.resize_bilinear_np(img, *out))
     for i in range(3):
+        # the port writes JAX's pixels through its own JPEG writer (no PIL
+        # on the card's host): within 10 gray levels of JAX's PIL file
+        # (tests/test_torch_frames.py), and both packages read the port's
+        # file alike
         a, b = tmp_path / f"a{i}.jpg", tmp_path / f"b{i}.jpg"
         images.save_synthetic_frame(a, i, size=40, seed=i)
         jimages.save_synthetic_frame(b, i, size=40, seed=i)
-        assert a.read_bytes() == b.read_bytes()
+        diff = (images.load_face_frame(a, 40, 1.0).astype(int)
+                - jimages.load_face_frame(b, 40, 1.0).astype(int))
+        assert np.abs(diff).max() <= 10
         for crop in (1.0, 1.0 / 1.6):
             np.testing.assert_array_equal(
                 images.load_face_frame(a, 24, crop),
-                jimages.load_face_frame(b, 24, crop))
+                jimages.load_face_frame(a, 24, crop))

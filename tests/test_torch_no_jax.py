@@ -14,7 +14,9 @@ teachers with ``ferplus_baselines`` (scratch, and from a VGGFace2 base
 ``.mat``), evaluates and reloads them, reloads a JAX package teacher run
 (written here by the JAX package), lists the artifact registry through
 the CLI (``cli.main(["fetch"])``), runs ``verify_release`` over a tiny
-classic-``.mat`` release tree, and then inspects
+classic-``.mat`` release tree, runs the bench's frontend and numerics
+probe, writes a synthetic imdb's face frames (the port's JPEG writer) and
+runs a one-epoch tiny demo, and then inspects
 ``sys.modules``: no jax, flax, optax or JAX package, and none of
 ``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
 only to read ``-v7.3`` files, to draw, and to read frames where its own
@@ -219,6 +221,23 @@ SCRIPT = textwrap.dedent("""
                                 device="cpu")
         assert report["pass"] and report["executed"] == [
             "artifacts", "import_forward", "released_logits"], report
+
+    from mcncrossmodalemotions_torch import bench
+    from mcncrossmodalemotions_torch.tools import run_demo
+
+    details = {}
+    bench.bench_frontend(details, "cpu", batch_size=2, num_frames=20, iters=1)
+    assert sorted(details) == ["frontend_kernel_ms", "frontend_plain_ms"]
+    assert bench._numerics_probe("cpu")["losses"].shape == (3,)
+    with tempfile.TemporaryDirectory() as d:
+        framed = build_synthetic_imdb(Path(d) / "wavs", num_speakers=1,
+                                      tracks_per_speaker=2,
+                                      duration_range=(1.0, 1.1),
+                                      with_frames=True)
+        assert all(len(t) for t in framed.dense_frames)
+        out = run_demo.main(Path(d) / "demo", device="cpu", num_epochs=1,
+                            num_speakers=4, tracks_per_speaker=8, tiny=True)
+        assert [t["epoch"] for t in out["trajectory"]] == [1]
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN + LAZY)
