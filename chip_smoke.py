@@ -22,8 +22,9 @@ policies); the release surface (the artifact registry's tree,
 ``verify_release`` and the command line); data parallelism through
 ``torch.distributed`` (two ranks of this script on the one card); the
 dense build in bounded worker processes and the dense-genesis soak; the
-throughput bench and the convergence demo; and the two Mosaic probe
-tools; each path with and without the kernels where a
+throughput bench and the convergence demo; the step, pool and FER+
+studies and the worked example of all five workloads; and the two Mosaic
+probe tools; each path with and without the kernels where a
 comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -256,7 +257,26 @@ comparison applies. Phases:
     the epoch-3 train loss below epoch 1's, ``student_stats`` over the
     three partitions, the exact launches of its epochs (10 train and 2 val
     batches each) and its extraction.
-21. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+21. studies: the step, pool and FER+ studies of ``mcncrossmodalemotions_
+    torch/tools`` at their JAX sizes (``STUDY_ITERS`` calls a timed
+    window): ``probe_masked_bn`` (baseline, masked), ``ab_step_conv1``
+    (plain, s2d) and ``probe_remat`` (nothing; the online phase times the
+    other policies) each in a process of its own, with the
+    exact launches of its steps, their step ms printed beside the bench
+    phase's headline; ``profile_train_step`` (every ablation),
+    ``probe_conv1_s2d`` (conv1 in space-to-depth form within 1e-5 x max|y|
+    of the plain conv in fp32 with TF32 off and 1e-2 x max|y| in bf16, at
+    [128, 1, 512, 400]), ``probe_pool_compose`` (the composed pool's
+    forward bitwise the direct one's), ``bench_pool_bwd`` (the student's
+    pool's y and dx bitwise autograd of ``F.max_pool2d`` at the JAX tool's
+    shapes) and ``ablate_ferplus_resample`` (one seed of its three, one
+    timed augmentation a size; accuracies in [0, 1]) in this process;
+    every process exits 0 and K1 and every K2 kernel launch.
+22. workflow: the worked example (``examples/full_workflow.py``) at its
+    own tiny sizes, without figures: each of its five stages' artifacts,
+    its extraction chunks those the k1 and k2 phases checked, K1 and every
+    K2 kernel launched.
+23. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -271,9 +291,11 @@ comparison applies. Phases:
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
-analysis, teacher, teacher-train, online, verify, ddp, dense-chunked
-and demo phases (the ddp phase's over every rank, the dense-chunked
-phase's one-process build; the bench's processes are not counted), the probe kernels' over the probes run, each
+analysis, teacher, teacher-train, online, verify, ddp, dense-chunked,
+demo, studies and workflow phases (the ddp phase's over every rank, the
+dense-chunked phase's one-process build, the studies' processes as each
+reports them; the bench's processes are not counted), the probe kernels'
+over the probes run, each
 read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -408,6 +430,14 @@ BENCH_KEYS = (
     "audio_feats_bytes_per_track",
 )
 DEMO_EPOCHS = 3               # of the demo's 40 (tools/run_demo.py)
+STUDY_ITERS = 5               # calls a timed window in the studies phase
+STUDY_TIMEOUT = 300           # seconds a study's process may take
+S2D_FP32_RTOL = 1e-5          # conv1 s2d vs plain, fp32 (TF32 off), x max|y|
+S2D_BF16_RTOL = 1e-2          # the same in bf16
+STEP_STUDIES = (("probe_masked_bn", "baseline"), ("probe_masked_bn", "masked"),
+                ("ab_step_conv1", "plain"), ("ab_step_conv1", "s2d"),
+                ("probe_remat", "nothing"))
+WORKFLOW_BATCH = 4            # the worked example's distillation batch
 DEMO_BATCH = 16               # the demo's batch
 
 
@@ -439,25 +469,13 @@ def phase(name: str, walls: dict):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, CUDA events around ``iters`` calls.
+    """Mean device milliseconds per call (the bench's ``cuda_ms``: CUDA
+    events around ``iters`` calls queued behind a device-side sleep of
+    ``QUEUE_CYCLES``, so a call shorter than the host's cost of issuing it
+    is timed on the device, not at the host's pace)."""
+    from mcncrossmodalemotions_torch.bench import cuda_ms as timed
 
-    The calls are queued behind a device-side sleep, so they run back to
-    back on the card: a call shorter than the host's cost of issuing it
-    (the probe kernels) is timed on the device, not at the host's pace."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters, warmup, QUEUE_CYCLES)
 
 
 def paced_ms(fn, iters: int, cycles: int = TEACHER_SLEEP_CYCLES) -> tuple:
@@ -612,7 +630,8 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
               ("even H and W", EVEN_POOL, "post-ReLU", torch.float32),
               ("narrow", NARROW_POOL, "tie-heavy", torch.bfloat16)]
     cases += [(f"{who} {label}", shape, "post-ReLU", torch.bfloat16)
-              for who, rows in (("demo", DEMO_BATCH), ("bench epoch", BATCH))
+              for who, rows in (("demo", DEMO_BATCH), ("bench epoch", BATCH),
+                                ("worked example", WORKFLOW_BATCH))
               for label, shape in pool_inputs(rows, 400, 512).items()]
     for label, shape, kind, dtype in cases:
         gen.manual_seed(SEED)
@@ -3586,7 +3605,7 @@ def dense_chunked_phase(card: str, root: Path, dense_imdb, wrappers: dict,
     return counts
 
 
-def bench_phase(card: str, root: Path) -> None:
+def bench_phase(card: str, root: Path) -> float:
     """The port's throughput bench (phase 19): ``python -m
     mcncrossmodalemotions_torch.bench --full --out-dir <tmp>`` in a fresh
     process (its end-to-end and numerics workers are processes of their
@@ -3594,7 +3613,7 @@ def bench_phase(card: str, root: Path) -> None:
     value above 0 last, and write every key of ``bench_keys()`` with
     ``numerics_ok`` true; each value is printed with the card's name and
     power limit. Its launches happen in its processes, not in this one's
-    counts."""
+    counts. Returns its headline ``train_step_ms``."""
     out_dir = root / "bench"
     log = root / "bench.log"
     t0 = time.perf_counter()
@@ -3625,6 +3644,7 @@ def bench_phase(card: str, root: Path) -> None:
     check(not missing, f"the bench's details lack {missing}")
     check(details["numerics_ok"] is True,
           f"bench numerics_ok {details['numerics_ok']}")
+    return details["train_step_ms"]
 
 
 def demo_phase(card: str, root: Path, wrappers: dict, dev="cuda",
@@ -3670,6 +3690,195 @@ def demo_phase(card: str, root: Path, wrappers: dict, dev="cuda",
         want["spectrogram"] += len(chunks)
         want["max_pool_3x3s2"] += 2 * len(chunks)
     check(counts == want, f"demo launches {counts}, expected {want}")
+    return counts
+
+
+def run_study(module: str, args: list, dev="cuda") -> dict:
+    """One study of ``mcncrossmodalemotions_torch.tools`` in a fresh
+    process (its command line takes one form a process), ``STUDY_ITERS``
+    calls a timed window; it must exit 0. Returns its last line's JSON
+    record."""
+    cmd = [sys.executable, "-m", f"mcncrossmodalemotions_torch.tools.{module}",
+           *args, "--iters", str(STUDY_ITERS)]
+    if dev != "cuda":
+        cmd += ["--device", dev]
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=STUDY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{module} {args} took over {STUDY_TIMEOUT} s")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+    check(proc.returncode == 0, f"{module} {args} exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def step_study_launches(wrappers: dict, policy=None) -> dict:
+    """The launches of a step study's process: ``bench.bench_train_step``
+    and ``probe_remat`` each run 2 + 3 x ``STUDY_ITERS`` steps (a first
+    step, ``_best_of``'s warm-up and three windows), each launching K1
+    once, K2's with-index forward 2 + the pools its remat policy recomputes
+    and the backward twice; ``probe_remat`` then runs one forward (K1 once,
+    the with-index K2 twice) to read the memory it holds."""
+    steps = 2 + 3 * STUDY_ITERS
+    want = {k: 0 for k in wrappers} | {
+        "spectrogram": steps, "max_pool_3x3s2_idx": 2 * steps,
+        "max_pool_3x3s2_bwd": 2 * steps}
+    if policy is not None:
+        want["spectrogram"] += 1
+        want["max_pool_3x3s2_idx"] += 2 + steps * REMAT_POOLS.get(policy, 0)
+    return want
+
+
+def studies_phase(card: str, wrappers: dict, headline_ms: float, dev="cuda",
+                  small: bool = False) -> dict:
+    """The step, pool and FER+ studies of ``mcncrossmodalemotions_torch.
+    tools`` (phase 21) at their JAX sizes: the one-form-a-process ones
+    (``probe_masked_bn``, ``ab_step_conv1``, ``probe_remat`` nothing: the
+    online phase times the other policies) each in its own process with
+    its exact launches; ``profile_train_step``, ``probe_conv1_s2d``,
+    ``probe_pool_compose``, ``bench_pool_bwd`` and
+    ``ablate_ferplus_resample`` (one seed, one timed augmentation a size,
+    to keep the phase short) here. Gates: every process exits 0; conv1
+    in space-to-depth form within ``S2D_FP32_RTOL`` x max|y| of the plain
+    conv in fp32 (TF32 off) and ``S2D_BF16_RTOL`` in bf16; the composed
+    pool's forward and the student's pool's y and dx (against autograd of
+    ``F.max_pool2d``) bitwise; the studies launch K1 and every K2 kernel.
+    The headline-form steps are printed beside the bench's
+    ``headline_ms``. Returns the launches. With ``dev="cpu"`` (a
+    rehearsal) ``small`` sizes; nothing launches there."""
+    from mcncrossmodalemotions_torch.tools import (
+        ablate_ferplus_resample,
+        bench_pool_bwd,
+        probe_conv1_s2d,
+        probe_pool_compose,
+        profile_train_step,
+    )
+
+    total = {k: 0 for k in wrappers}
+    for module, form in STEP_STUDIES:
+        rec = run_study(module, [form], dev)
+        policy = form if module == "probe_remat" else None
+        want = (step_study_launches(wrappers, policy) if dev == "cuda"
+                else {k: 0 for k in wrappers})
+        got = {k: rec["launches"].get(k, 0) for k in wrappers}
+        print(f"  {card}: {module} {form}: {rec}; headline step of the bench "
+              f"phase {headline_ms} ms", flush=True)
+        check(got == want, f"{module} {form} launches {got}, expected {want}")
+        add_counts(total, got)
+
+    iters = 1 if small else STUDY_ITERS
+    reset_counts(wrappers)
+    prof = profile_train_step.main(dev, iters=iters, **(
+        dict(batch_size=2, num_frames=100, tiny=True) if small else {}))
+    print(f"  {card}: profile_train_step (ms): {prof}", flush=True)
+    conv = probe_conv1_s2d.main(dev, iters=iters, **(
+        dict(batch_size=2, height=64, width=50) if small else {}))
+    print(f"  {card}: probe_conv1_s2d: {conv}", flush=True)
+    check(conv["max_abs_diff_fp32"] <= S2D_FP32_RTOL * conv["max_abs_y_fp32"],
+          f"conv1 s2d vs plain in fp32: {conv['max_abs_diff_fp32']:.3e} of "
+          f"max|y| {conv['max_abs_y_fp32']:.3e}")
+    check(conv["max_abs_diff"] <= S2D_BF16_RTOL * conv["max_abs_y"],
+          f"conv1 s2d vs plain in bf16: {conv['max_abs_diff']:.3e} of "
+          f"max|y| {conv['max_abs_y']:.3e}")
+    comp = probe_pool_compose.main(dev, **(
+        dict(shape=(2, 21, 19, 8), iters=1) if small else {}))
+    print(f"  {card}: probe_pool_compose: {comp}", flush=True)
+    check(comp["fwd_bitwise"], "the composed pool's forward is not bitwise "
+          "the direct pool's")
+    pools = bench_pool_bwd.main(dev, **(
+        dict(numerics_shapes=((2, 21, 19, 96),),
+             timed_shapes=(("pool1", (2, 21, 19, 8)),), iters=1)
+        if small else {}))
+    print(f"  {card}: bench_pool_bwd: {pools}", flush=True)
+    for r in pools["numerics"]:
+        exact = r["fwd_exact"] and (r["grad_exact"] or dev != "cuda")
+        check(exact, f"bench_pool_bwd {r}: not bitwise")
+    fer = ablate_ferplus_resample.main(dev, seeds=(0,), augment_reps=1, **(
+        dict(num_images=48, epochs=1, batch_size=8, input_size=48)
+        if small else {}))
+    print(f"  {card}: ablate_ferplus_resample: {fer}", flush=True)
+    check(all(0.0 <= a <= 1.0 for accs in fer["accuracy"].values()
+              for a in accs), f"FER+ accuracies {fer['accuracy']}")
+    here = read_counts(wrappers)
+    add_counts(total, here)
+    print(f"  studies phase: launches {total} (in this process {here})",
+          flush=True)
+    if dev == "cuda":
+        check(all(total[k] > 0 for k in ("spectrogram", "max_pool_3x3s2",
+                                         "max_pool_3x3s2_idx",
+                                         "max_pool_3x3s2_bwd")),
+              f"the studies did not launch every kernel: {total}")
+    return total
+
+
+def workflow_shapes(root: Path) -> list:
+    """The extraction chunks of the worked example's two extractions (its
+    VoxCeleb tracks and its synthetic RML set), from their own writers."""
+    from mcncrossmodalemotions_torch.data.external import (
+        build_synthetic_track_imdb,
+    )
+    from mcncrossmodalemotions_torch.examples import full_workflow
+
+    full_workflow.write_voxceleb(root / "voxceleb")
+    rml = build_synthetic_track_imdb(root / "rml", tracks_per_class=5)
+    return (extraction_chunks(sorted((root / "voxceleb" / "wavs").rglob("*.wav")))
+            + extraction_chunks(imdb_paths(rml)))
+
+
+def workflow_phase(card: str, root: Path, wrappers: dict, dev="cuda",
+                   checked_chunks=None) -> dict:
+    """The worked example (``examples/full_workflow.main``, phase 22) at
+    its own tiny sizes (without figures where matplotlib is missing, as on
+    the card's host): each stage's artifacts (the imdb cache, checkpoint 20
+    and ``metrics.jsonl``, the feature cache, the AUC cache, the teacher
+    histogram over every frame and a wav for each sampled track, the RML
+    benchmark's accuracy and confusion), its extraction chunks those the k1 and k2 phases checked
+    (``checked_chunks``, where given), and on the card K1 and every K2
+    kernel launched. Returns the launches."""
+    from mcncrossmodalemotions_torch.examples import full_workflow
+
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out = full_workflow.main(root / "workflow", device=dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    work = out["root"]
+    final = out["history"][-1]["train"]
+    print(f"  {card}: worked example in {wall:.1f} s: {out['imdb'].num_tracks} "
+          f"tracks, final loss {final['loss']:.4f}, meanAuc "
+          f"{ {p: a['meanAuc'] for p, a in out['aucs'].items()} }, rml "
+          f"accuracy {out['results']['rml'].mean_accuracy:.3f}; launches "
+          f"{counts}", flush=True)
+    artifacts = [work / "emovoxceleb-imdb.npz",
+                 out["exp_dir"] / "net-epoch-20.pt",
+                 out["exp_dir"] / "metrics.jsonl", work / "student-feats.npz",
+                 work / "aucs.json"]
+    missing = [str(p) for p in artifacts if not p.is_file()]
+    check(not missing, f"the worked example did not write {missing}")
+    check(out["imdb"].num_tracks == len(out["logits"])
+          and all(l.shape == (1, 8) for l in out["logits"])
+          and math.isfinite(final["loss"]), "the worked example's stages 2-3")
+    hist = out["teacher_hist"]["emovoxceleb"]
+    picked = sum(len(v) for v in out["samples"].values())
+    check(hist.sum() == sum(len(w) for w in out["imdb"].wav_logits)
+          and len(list((work / "samples").rglob("*.wav"))) == picked,
+          f"the worked example's stage 4: histogram {hist}, {picked} "
+          "tracks sampled")
+    rml = out["results"]["rml"]
+    n = len(out["rml"].classes)
+    check(0.0 <= rml.mean_accuracy <= 1.0 and rml.confusion.shape == (n, n),
+          "the worked example's stage 5")
+    chunks = (extraction_chunks(imdb_paths(out["imdb"]))
+              + extraction_chunks(imdb_paths(out["rml"])))
+    check(checked_chunks is None or chunks == checked_chunks,
+          f"worked example chunks {chunks}, checked {checked_chunks}")
+    if dev == "cuda":
+        check(all(counts[k] > 0 for k in ("spectrogram", "max_pool_3x3s2",
+                                          "max_pool_3x3s2_idx",
+                                          "max_pool_3x3s2_bwd")),
+              f"the worked example did not launch every kernel: {counts}")
     return counts
 
 
@@ -3773,6 +3982,8 @@ def main() -> int:
                 audio_feats_wavs(Path(tmp) / "bench-shapes"))
             print(f"  demo chunks {demo_chunks}; bench audio-feats chunks "
                   f"{feats_chunks}")
+            workflow_chunks = workflow_shapes(Path(tmp) / "workflow-shapes")
+            print(f"  worked example chunks {workflow_chunks}")
 
         timings = {k: [0.0, 0.0, 0.0] for k in wrappers}  # kernel, plain, library
         work = {k: [0.0, 0.0] for k in wrappers}  # bytes, operations
@@ -3795,9 +4006,12 @@ def main() -> int:
             cases += [(f"{who} t_pad={t_pad}", rows, cfg.crop_samples(t_pad),
                        torch.int16, False)
                       for who, some in (("demo", demo_chunks),
-                                        ("bench audio-feats", feats_chunks))
+                                        ("bench audio-feats", feats_chunks),
+                                        ("worked example", workflow_chunks))
                       for rows, t_pad, _ in some]
             cases += [("demo step", DEMO_BATCH, bench_n, torch.int16, False),
+                      ("worked example step", WORKFLOW_BATCH, bench_n,
+                       torch.int16, False),
                       ("bench epoch step", BATCH, bench_n, torch.int16, False),
                       ("bench headline", TRAIN_BATCH, bench_n, torch.float32,
                        False)]
@@ -3854,8 +4068,10 @@ def main() -> int:
             seen = {(rows, bucket) for rows, _, bucket in chunks}
             k2_cases = [(rows, bucket, True) for rows, _, bucket in chunks]
             k2_cases += [(rows, bucket, False) for rows, bucket in dict.fromkeys(
-                [(rows, bucket) for rows, _, bucket in demo_chunks + feats_chunks]
-                + [(DEMO_BATCH, 400)]) if (rows, bucket) not in seen]
+                [(rows, bucket) for rows, _, bucket
+                 in demo_chunks + feats_chunks + workflow_chunks]
+                + [(DEMO_BATCH, 400), (WORKFLOW_BATCH, 400)])
+                if (rows, bucket) not in seen]
             for rows, bucket, timed in k2_cases:
                 for label, shape in pool_inputs(rows, bucket, cfg.nfft).items():
                     for dtype, ibits in ((torch.bfloat16, torch.int16),
@@ -4025,11 +4241,19 @@ def main() -> int:
 
         with phase("bench", walls):
             torch.cuda.empty_cache()  # the bench's processes find the card free
-            bench_phase(card, Path(tmp))
+            headline_ms = bench_phase(card, Path(tmp))
 
         with phase("demo", walls):
             demo_counts = demo_phase(card, Path(tmp), wrappers,
                                      checked_chunks=demo_chunks)
+
+        with phase("studies", walls):
+            torch.cuda.empty_cache()  # the study processes find the card free
+            studies_counts = studies_phase(card, wrappers, headline_ms)
+
+        with phase("workflow", walls):
+            workflow_counts = workflow_phase(card, Path(tmp), wrappers,
+                                             checked_chunks=workflow_chunks)
 
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
@@ -4072,7 +4296,8 @@ def main() -> int:
                          + teacher_counts[name] + teacher_train_counts[name]
                          + online_counts[name] + verify_counts[name]
                          + ddp_counts[name] + dense_chunked_counts[name]
-                         + demo_counts[name] + probe_counts[name]),
+                         + demo_counts[name] + studies_counts[name]
+                         + workflow_counts[name] + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

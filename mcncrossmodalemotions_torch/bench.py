@@ -56,6 +56,7 @@ _PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.0}
 MODULE = "mcncrossmodalemotions_torch.bench"
 DEFAULT_OUT_DIR = Path(__file__).resolve().parents[1] / "build" / "bench"
 WORKER_TIMEOUT_S = 1800
+QUEUE_CYCLES = 100_000_000  # ~50 ms of device sleep ahead of timed calls
 
 # the end-to-end workers' fields -> details keys, per worker flag (the
 # int16/mulaw8 names predate the online worker; bench.py's names)
@@ -109,36 +110,65 @@ def _device(device):
     return resolve_device(device, "the bench")
 
 
-def bench_train_step(details: dict, device="cuda", batch_size: int = 128,
-                     num_frames: int = 400, tiny: bool = False,
-                     iters: int = 20, int16_rows: bool = False,
-                     pad_mask: bool = False) -> float:
-    """Headline: the full distillation train step on a batch on the card
-    (float32 randn ``[128, 64384]``, seed 0: K1's ``spectrogram_f32``, and
-    K2's with-index forward and backward twice a step). Returns utts/s.
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            cycles: int = QUEUE_CYCLES) -> float:
+    """Mean device milliseconds per call, CUDA events around ``iters`` calls.
 
-    ``int16_rows`` feeds the same rows as int16 PCM (x 0.1 full scale) and
-    ``pad_mask`` adds an all-ones ``pad_mask`` that the step passes to the
-    student (its masked BatchNorm branch), as ``run_distillation``'s steps
-    do; the headline uses neither, as ``bench.py``'s step does
-    (``tools/step_variants.py`` times the four forms side by side).
-
-    ``train_step_flops`` is counted by ``torch.utils.flop_counter.
-    FlopCounterMode`` over one step: convolutions and matrix products
-    only (the hand-written kernels, BatchNorm and elementwise passes
-    count nothing), where ``bench.py``'s XLA ``cost_analysis`` counts
-    every op, so the two packages' FLOP and MFU fields differ in scope.
-    """
+    The calls are queued behind a device-side sleep of ``cycles``, so they
+    run back to back on the card: a call shorter than the host's cost of
+    issuing it (a kernel launched through ctypes costs the host 40-70 us)
+    is timed on the device, not at the host's pace."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, device, iters: int = 10) -> float:
+    """Milliseconds a call of ``fn`` on ``device``: ``cuda_ms`` on a CUDA
+    device; on the CPU (a rehearsal) the host's ``_best_of``."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, iters)
+    return _best_of(fn, lambda: None, iters=iters) * 1000
+
+
+def train_step_setup(device="cuda", batch_size: int = 128,
+                     num_frames: int = 400, tiny: bool = False,
+                     int16_rows: bool = False, pad_mask: bool = False,
+                     conv1_s2d: bool = False,
+                     remat_policy: Optional[str] = None) -> tuple:
+    """(step, state, batch) of the headline's train step on ``device``:
+    the full student (``build_student("emovoxceleb-student")``'s pipeline,
+    seed 0, its conv1 as ``conv1_s2d`` asks) on float32 randn ``[128,
+    64384]`` rows (seed 0), hot-cross-ent at T=2, SGD without weight decay,
+    under ``remat_policy``. ``int16_rows`` feeds the same rows as int16 PCM
+    (x 0.1 full scale) and ``pad_mask`` adds an all-ones ``pad_mask`` that
+    the step passes to the student (its masked BatchNorm branch), as
+    ``run_distillation``'s steps do; the headline uses neither, as
+    ``bench.py``'s step does."""
+    import torch
+
+    from mcncrossmodalemotions_torch.models.pipeline import (
+        AudioStudentPipeline,
+    )
     from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
     from mcncrossmodalemotions_torch.train.state import (
         SGDConfig,
         TrainState,
         make_train_step,
     )
-    from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+    from mcncrossmodalemotions_torch.zoo import student_loss_fn
 
     dev = _device(device)
     crop = DEFAULT_SPEC.crop_samples(num_frames)  # 4 s = 64,384 samples
@@ -155,12 +185,41 @@ def bench_train_step(details: dict, device="cuda", batch_size: int = 128,
     }
     if pad_mask:
         batch["pad_mask"] = torch.ones(batch_size, device=dev)
-    model = build_student("emovoxceleb-student", tiny=tiny,
-                          generator=torch.Generator().manual_seed(0))
+    widths = dict(fc6_features=64, fc7_features=32) if tiny else {}
+    model = AudioStudentPipeline(conv1_s2d=conv1_s2d,
+                                 generator=torch.Generator().manual_seed(0),
+                                 **widths)
     state = TrainState.create(model.to(dev),
                               torch.Generator(device=dev).manual_seed(1))
     step = make_train_step(student_loss_fn("hot-cross-ent", temperature=2.0),
-                           SGDConfig(weight_decay=0.0), pass_pad_mask=pad_mask)
+                           SGDConfig(weight_decay=0.0), pass_pad_mask=pad_mask,
+                           remat_policy=remat_policy)
+    return step, state, batch
+
+
+def bench_train_step(details: dict, device="cuda", batch_size: int = 128,
+                     num_frames: int = 400, tiny: bool = False,
+                     iters: int = 20, **forms) -> float:
+    """Headline: the full distillation train step on a batch on the card
+    (``train_step_setup``: float32 randn ``[128, 64384]``, seed 0: K1's
+    ``spectrogram_f32``, and K2's with-index forward and backward twice a
+    step). Returns utts/s. ``forms`` (``int16_rows``, ``pad_mask``,
+    ``conv1_s2d``, ``remat_policy``) go to ``train_step_setup``; the
+    headline uses none of them (``tools/step_variants.py`` times the rows'
+    and the mask's forms side by side, ``tools/ab_step_conv1.py`` and
+    ``probe_masked_bn.py`` conv1's and the mask's one form a process).
+
+    ``train_step_flops`` is counted by ``torch.utils.flop_counter.
+    FlopCounterMode`` over one step: convolutions and matrix products
+    only (the hand-written kernels, BatchNorm and elementwise passes
+    count nothing), where ``bench.py``'s XLA ``cost_analysis`` counts
+    every op, so the two packages' FLOP and MFU fields differ in scope.
+    """
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step, state, batch = train_step_setup(device, batch_size, num_frames,
+                                          tiny, **forms)
+    dev = batch["data"].device
     with FlopCounterMode(display=False) as counter:
         step(state, batch, 1e-4)
     flops = float(counter.get_total_flops())

@@ -328,14 +328,21 @@ def load_student_from_exp(exp_dir, epoch: int | str | None = None,
         raise KeyError(f"{exp_dir}: unknown student {cfg.student!r}")
     _, record = read_from_exp(exp_dir, epoch)
     state = record["model"]
-    if with_frontend:
-        model_cls, prefix = AudioStudentPipeline, "net."
-    else:
-        model_cls, prefix = VGGMStudent, ""
+    model = AudioStudentPipeline(
+        fc6_features=state["net.fc6.weight"].shape[0],
+        fc7_features=state["net.fc7.weight"].shape[0],
+        num_outputs=state["net.prediction.weight"].shape[0])
+    model.load_state_dict(state, strict=True)
+    if not with_frontend:
+        model = _bare_student_for(model)
         state = {k[len("net."):]: v for k, v in state.items()
                  if k.startswith("net.")}
-    model = model_cls(fc6_features=state[prefix + "fc6.weight"].shape[0],
-                      fc7_features=state[prefix + "fc7.weight"].shape[0],
-                      num_outputs=state[prefix + "prediction.weight"].shape[0])
-    model.load_state_dict(state, strict=True)
     return model.to(device), {k: v.to(device) for k, v in state.items()}
+
+
+def _bare_student_for(pipeline: AudioStudentPipeline) -> VGGMStudent:
+    """The spectrogram-input ``VGGMStudent`` of a pipeline: its ``net``,
+    with the pipeline's widths, head scale, conv1 form (``conv1_s2d``) and
+    weights (the JAX package builds a fresh module of those fields; a
+    PyTorch module carries its weights)."""
+    return pipeline.net

@@ -26,13 +26,15 @@ from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 class AudioStudentPipeline(nn.Module):
     """Frontend + VGG-M student. Input: [B, N] waveforms (float32, int16
-    PCM or uint8 mu-law)."""
+    PCM or uint8 mu-law). ``conv1_s2d`` is the student's
+    (``VGGMStudent``; the JAX default is True, the port's False)."""
 
     def __init__(self, spec: SpecConfig = DEFAULT_SPEC, num_outputs: int = 8,
                  dropout_rate: float = 0.0, fc6_features: int = 4096,
                  fc7_features: int = 1024, head_init_scale: float = 1e-4,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv1_s2d: bool = False):
         super().__init__()
         self.spec = spec
         self.net = VGGMStudent(num_outputs=num_outputs,
@@ -40,7 +42,7 @@ class AudioStudentPipeline(nn.Module):
                                fc7_features=fc7_features,
                                dropout_rate=dropout_rate,
                                head_init_scale=head_init_scale, dtype=dtype,
-                               generator=generator)
+                               generator=generator, conv1_s2d=conv1_s2d)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The student's scratch init (``VGGMStudent.reset_parameters``)."""

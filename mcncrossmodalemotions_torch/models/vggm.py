@@ -7,8 +7,12 @@ same function:
 - input [B, 512, T, 1] (the JAX NHWC layout at the public function);
   inside, activations are NCHW-shaped tensors in ``channels_last`` memory,
   so pool1/pool2 hand the kernel a contiguous NHWC view without a copy;
-- conv1 7x7/2 (the JAX ``SpaceToDepthConv1`` is a TPU layout trick with
-  the same parameters and the same result; here conv1 is a plain conv);
+- conv1 7x7/2, a plain conv by default; ``conv1_s2d=True`` runs it as
+  ``SpaceToDepthConv1`` (the JAX module's form: a 4x4/1 conv over the
+  input regrouped 2x2 into channels, the same parameter and function; the
+  JAX default is True, the port's False, so its measured paths stay as
+  they were measured: ``tools/ab_step_conv1.py`` times the step in each
+  form);
 - BatchNorm (eps 1e-5), then ReLU, after every conv; with
   ``use_batchnorm=False`` the convs carry biases instead;
 - pool1 and pool2 are 3x3/2 VALID max pools through the K2 kernels
@@ -230,6 +234,55 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
     return y.to(x.dtype)
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] (even H and W) -> [B, 4C, H/2, W/2] in ``channels_last``
+    memory: channel ``c * 4 + 2 * di + dj`` holds ``x[:, c, 2i + di, 2j +
+    dj]`` (``F.pixel_unshuffle``'s order), in one copy."""
+    b, c, h, w = x.shape
+    z = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c)
+    z = z.permute(0, 1, 3, 5, 2, 4).reshape(b, h // 2, w // 2, 4 * c)
+    return z.permute(0, 3, 1, 2)
+
+
+def space_to_depth_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A 7x7 kernel ``[O, C, 7, 7]`` laid out for ``space_to_depth`` input:
+    zero-padded to 8x8, then ``[O, 4C, 4, 4]`` with ``w2[o, c * 4 + 2 * di
+    + dj, a, b] = w[o, c, 2a + di, 2b + dj]``. Differentiable: the gradient
+    reaches the 7x7 kernel."""
+    o, c = weight.shape[:2]
+    w = F.pad(weight, (0, 1, 0, 1)).reshape(o, c, 4, 2, 4, 2)
+    return w.permute(0, 1, 3, 5, 2, 4).reshape(o, 4 * c, 4, 4)
+
+
+def space_to_depth_conv1(x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv1 (7x7/2 VALID) of NCHW ``x`` as a 4x4/1 VALID conv of its
+    ``space_to_depth`` regrouping with the re-laid ``weight``; odd H or W
+    takes the plain 7x7/2 conv (the 2x2 grid does not tile)."""
+    if x.shape[-2] % 2 or x.shape[-1] % 2:
+        return F.conv2d(x, weight, bias, 2)
+    return F.conv2d(space_to_depth(x), space_to_depth_weight(weight), bias)
+
+
+class SpaceToDepthConv1(nn.Conv2d):
+    """conv1 in space-to-depth form: 7x7/2 on Cin channels == 4x4/1 on 4 Cin.
+
+    Port of the JAX ``SpaceToDepthConv1``. The parameter is the plain
+    conv1's (``weight [96, Cin, 7, 7]``, ``bias`` without BatchNorm), so
+    ``state_dict`` keys and shapes, the bridge, the ``.mat`` and msgpack
+    loaders and surgery see no difference; each call lays the kernel out
+    again inside the graph (``space_to_depth_weight``) and the gradient
+    reaches the canonical parameter through autograd. Odd H or W falls back
+    to the plain conv."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 96,
+                 bias: bool = False):
+        super().__init__(in_channels, out_channels, 7, stride=2, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return space_to_depth_conv1(x, self.weight, self.bias)
+
+
 def global_rows(rows: int, mesh: Optional[DataMesh]) -> Tuple[int, slice]:
     """(the global batch's rows, this rank's slice of them) for a shard of
     ``rows``; (rows, all of them) without a mesh. A random draw made at the
@@ -265,21 +318,25 @@ class VGGMStudent(nn.Module):
     Input: spectrogram [B, 512, T, 1] (freq-major, instance-normalised).
     Output: logits [B, num_outputs], plus the fc7 embedding with
     ``return_embedding``. Built with Flax's scratch init
-    (``reset_parameters``).
+    (``reset_parameters``). ``conv1_s2d`` makes conv1 a
+    ``SpaceToDepthConv1`` (the same parameters and init draws).
     """
 
     def __init__(self, num_outputs: int = 8, fc6_features: int = 4096,
                  fc7_features: int = 1024, dropout_rate: float = 0.0,
                  use_batchnorm: bool = True, dtype: torch.dtype = torch.bfloat16,
                  head_init_scale: float = 1e-4,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv1_s2d: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.use_batchnorm = use_batchnorm
         self.head_init_scale = head_init_scale
+        self.conv1_s2d = conv1_s2d
         bias = not use_batchnorm
-        self.conv1 = nn.Conv2d(1, 96, 7, stride=2, bias=bias)
+        self.conv1 = (SpaceToDepthConv1(1, 96, bias=bias) if conv1_s2d
+                      else nn.Conv2d(1, 96, 7, stride=2, bias=bias))
         self.conv2 = nn.Conv2d(96, 256, 5, stride=2, bias=bias)
         self.conv3 = nn.Conv2d(256, 384, 3, padding=1, bias=bias)
         self.conv4 = nn.Conv2d(384, 256, 3, padding=1, bias=bias)
@@ -317,6 +374,8 @@ class VGGMStudent(nn.Module):
     def _conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
         conv = getattr(self, name)
         bias = None if conv.bias is None else conv.bias.to(self.dtype)
+        if isinstance(conv, SpaceToDepthConv1):
+            return space_to_depth_conv1(x, conv.weight.to(self.dtype), bias)
         return F.conv2d(x, conv.weight.to(self.dtype), bias, conv.stride,
                         conv.padding)
 
@@ -353,6 +412,11 @@ class VGGMStudent(nn.Module):
         else:
             pool = max_pool_3x3s2_cuda
         return pool(nhwc).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def _pool_5x3(x: torch.Tensor) -> torch.Tensor:
+        """pool5: 5x3 max pool, stride (3, 2), VALID."""
+        return F.max_pool2d(x, (5, 3), stride=(3, 2))
 
     def _pool6(self, x: torch.Tensor, valid_frames) -> torch.Tensor:
         """Masked temporal mean over the valid fc6 columns (replaces the
@@ -397,7 +461,7 @@ class VGGMStudent(nn.Module):
         def pool5(h, first):
             for i in (3, 4, 5):
                 h = self._conv_bn_relu(h, i, f"conv{i}", update=first, **bn)
-            return F.max_pool2d(h, (5, 3), stride=(3, 2))
+            return self._pool_5x3(h)
 
         def fc7(h, first):
             h = F.relu(F.linear(self._pool6(h, valid_frames).to(self.dtype),

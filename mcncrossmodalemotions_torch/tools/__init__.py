@@ -15,8 +15,14 @@ non-zero unless every probe ran and matched.
 
 The package's other tools are the counterparts of ``tools/run_demo.py``
 (``run_demo``), ``tools/sweep_convergence.py`` (``sweep_convergence``) and
-``tools/soak_dense_genesis.py`` (``soak_dense_genesis``); ``step_variants``
-times the bench's train step with and without a pad mask and int16 rows.
+``tools/soak_dense_genesis.py`` (``soak_dense_genesis``), and of the step,
+pool and FER+ studies of ``tools/`` under their names
+(``profile_train_step``, ``probe_masked_bn``, ``ab_step_conv1``,
+``probe_conv1_s2d``, ``probe_remat``, ``probe_pool_compose``,
+``bench_pool_bwd``, ``ablate_ferplus_resample``), each ``main(device=
+"cuda", ...)`` with its JAX sizes as defaults and printing its records as
+the last line; ``step_variants`` times the bench's train step with and
+without a pad mask and int16 rows.
 """
 
 from __future__ import annotations
@@ -86,3 +92,17 @@ def run_all(make_probes: Callable[[torch.device], Iterable[Probe]],
 def exit_code(results: Dict[str, Tuple[bool, bool]]) -> int:
     """0 when every probe ran and matched, else 1."""
     return 0 if all(ran and ok for ran, ok in results.values()) else 1
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The K1 and K2 wrappers' launch counts in this process (each wrapper
+    adds one where it launches its kernel), for a study's record."""
+    from mcncrossmodalemotions_torch.ops import pool
+    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
+        spectrogram_cuda,
+    )
+
+    return {"spectrogram": spectrogram_cuda.launches,
+            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda.launches,
+            "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda.launches,
+            "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda.launches}

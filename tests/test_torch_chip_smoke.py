@@ -43,6 +43,13 @@
   tested in ``test_torch_bench.py``); the demo phase rehearses on the CPU
   at tiny sizes. Both run after ``dense-chunked`` and before ``probes``,
   and the demo's counts join the kernel line's.
+- The studies phase rehearses on the CPU at small sizes, its
+  one-form-a-process studies run in this process in place of their
+  processes, and fails a study process that exits non-zero; the step
+  studies' launches on the card are those of their steps. The workflow
+  phase holds the worked example's run (``test_torch_full_workflow.py``)
+  to its gates. Both run after ``demo`` and before ``probes``, and their
+  counts join the kernel line's.
 """
 
 import shutil
@@ -418,7 +425,7 @@ def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
     online, ddp after verify, dense-chunked after ddp, bench and demo after
-    it and before probes,
+    it, studies and workflow after demo and before probes,
     their counts join the kernel line's launches, no phase runs inside an
     exception handler, and the device line is printed last."""
     import ast
@@ -432,9 +439,10 @@ def test_phases_in_order_and_the_last_line():
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
                       "verify", "ddp", "dense-chunked", "bench", "demo",
-                      "probes"]
+                      "studies", "workflow", "probes"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
-                   "ddp_counts", "dense_chunked_counts", "demo_counts"):
+                   "ddp_counts", "dense_chunked_counts", "demo_counts",
+                   "studies_counts", "workflow_counts"):
         assert f"{counts}[name]" in ast.get_source_segment(src, main)
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
@@ -516,3 +524,62 @@ def test_demo_phase_rehearses_on_the_cpu(tmp_path):
         torch.set_num_threads(threads)
     assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
     assert (tmp_path / "demo" / "demo_result.json").is_file()
+
+
+def _study_in_process(monkeypatch, rc=0):
+    """chip_smoke's study processes replaced by the study's ``main`` run in
+    this process at small sizes on the CPU (``rc`` the exit code)."""
+    import importlib
+    import json as _json
+
+    def run(cmd, cwd, capture_output, text, timeout):
+        assert cmd[1:3] == ["-m", cmd[2]] and "--iters" in cmd
+        assert cmd[-2:] == ["--device", "cpu"]
+        module = importlib.import_module(cmd[2])
+        name, form = cmd[2].rsplit(".", 1)[1], cmd[3]
+        if name == "probe_remat":
+            rec = module.main(form, 2, "cpu", iters=1, num_frames=100,
+                              tiny=True)
+        else:
+            rec = module.main(form, "cpu", iters=1, batch_size=2,
+                              num_frames=100, tiny=True)
+        return SimpleNamespace(returncode=rc, stdout=_json.dumps(rec) + "\n",
+                               stderr="")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+
+
+def test_studies_phase_rehearses_on_the_cpu(monkeypatch):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        wrappers = chip_smoke.kernel_wrappers()
+        _study_in_process(monkeypatch)
+        counts = chip_smoke.studies_phase("cpu", wrappers, 80.0, dev="cpu",
+                                          small=True)
+        assert counts == {k: 0 for k in wrappers}  # CPU: plain versions
+        _study_in_process(monkeypatch, rc=1)
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.studies_phase("cpu", wrappers, 80.0, dev="cpu",
+                                     small=True)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_step_study_launches_are_their_steps():
+    """2 + 3 x STUDY_ITERS steps a process: K1 once a step, the with-index
+    K2 twice plus the pools a remat policy recomputes, the backward twice;
+    probe_remat's memory forward adds K1 once and the with-index K2 twice."""
+    wrappers = chip_smoke.kernel_wrappers()
+    steps = 2 + 3 * chip_smoke.STUDY_ITERS
+    base = chip_smoke.step_study_launches(wrappers)
+    assert base == {k: 0 for k in wrappers} | {
+        "spectrogram": steps, "max_pool_3x3s2_idx": 2 * steps,
+        "max_pool_3x3s2_bwd": 2 * steps}
+    none = chip_smoke.step_study_launches(wrappers, "none")
+    nothing = chip_smoke.step_study_launches(wrappers, "nothing")
+    assert none["spectrogram"] == nothing["spectrogram"] == steps + 1
+    assert none["max_pool_3x3s2_idx"] == 2 * steps + 2
+    assert nothing["max_pool_3x3s2_idx"] == 4 * steps + 2
+    assert {m for m, _ in chip_smoke.STEP_STUDIES} == {
+        "probe_masked_bn", "ab_step_conv1", "probe_remat"}

@@ -15,8 +15,10 @@ teachers with ``ferplus_baselines`` (scratch, and from a VGGFace2 base
 (written here by the JAX package), lists the artifact registry through
 the CLI (``cli.main(["fetch"])``), runs ``verify_release`` over a tiny
 classic-``.mat`` release tree, runs the bench's frontend and numerics
-probe, writes a synthetic imdb's face frames (the port's JPEG writer) and
-runs a one-epoch tiny demo, and then inspects
+probe, writes a synthetic imdb's face frames (the port's JPEG writer),
+runs a one-epoch tiny demo, three of the studies at small sizes (a masked
+step with the space-to-depth conv1, conv1 in both forms, the composed
+pool) and the worked example's stage 0, and then inspects
 ``sys.modules``: no jax, flax, optax or JAX package, and none of
 ``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
 only to read ``-v7.3`` files, to draw, and to read frames where its own
@@ -238,6 +240,21 @@ SCRIPT = textwrap.dedent("""
         out = run_demo.main(Path(d) / "demo", device="cpu", num_epochs=1,
                             num_speakers=4, tracks_per_speaker=8, tiny=True)
         assert [t["epoch"] for t in out["trajectory"]] == [1]
+
+    from mcncrossmodalemotions_torch.examples import full_workflow
+    from mcncrossmodalemotions_torch.tools import (
+        probe_conv1_s2d, probe_masked_bn, probe_pool_compose)
+
+    rec = probe_masked_bn.main("masked", "cpu", iters=1, batch_size=2,
+                               num_frames=100, tiny=True, conv1_s2d=True)
+    assert rec["ms"] > 0
+    assert probe_conv1_s2d.main("cpu", batch_size=1, height=32, width=30,
+                                iters=1)["max_abs_diff_fp32"] < 1e-4
+    assert probe_pool_compose.main("cpu", shape=(1, 9, 9, 4),
+                                   iters=1)["fwd_bitwise"]
+    with tempfile.TemporaryDirectory() as d:
+        full_workflow.write_voxceleb(Path(d) / "voxceleb")
+        assert len(list((Path(d) / "voxceleb").rglob("*.jpg"))) == 48
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN + LAZY)
