@@ -23,9 +23,10 @@ policies); the release surface (the artifact registry's tree,
 ``torch.distributed`` (two ranks of this script on the one card); the
 dense build in bounded worker processes and the dense-genesis soak; the
 throughput bench and the convergence demo; the step, pool and FER+
-studies and the worked example of all five workloads; and the two Mosaic
-probe tools; each path with and without the kernels where a
-comparison applies. Phases:
+studies and the worked example of all five workloads; the driver's
+integration entry (``graft_entry.py``: the flagship forward and the
+multi-rank dry run); and the two Mosaic probe tools; each path with and
+without the kernels where a comparison applies. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc seconds per kernel library (spectrogram, max_pool_3x3s2,
@@ -274,9 +275,21 @@ comparison applies. Phases:
     every process exits 0 and K1 and every K2 kernel launch.
 22. workflow: the worked example (``examples/full_workflow.py``) at its
     own tiny sizes, without figures: each of its five stages' artifacts,
-    its extraction chunks those the k1 and k2 phases checked, K1 and every
-    K2 kernel launched.
-23. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
+    stage 3's ``meanAuc`` finite in both partitions (its teacher is the
+    JAX example's), its extraction chunks those the k1 and k2 phases
+    checked, K1 and every K2 kernel launched.
+23. graft: the integration entry (``mcncrossmodalemotions_torch/
+    graft_entry.py``). ``entry()``'s full-width forward with zero weights
+    on batch 8 of 4 s crops: [8, 8], finite, K1 launched once and the
+    index-free K2 twice, its ms; ``dryrun_multichip`` over the card count
+    (one NCCL rank a card) and over 2 gloo ranks on the one card: in every
+    rank the sharded SGD step, the fused online step, ``Trainer.fit`` for
+    2 epochs with a ragged tail and the resume to epoch 3 pass, the ranks'
+    states bitwise equal after each, 11 steps' launches a rank (K1 once,
+    K2's with-index forward and backward twice a step); each run's seconds.
+    The k1, k2 and k2-backward phases hold the kernels at the entry's and
+    the dry runs' launch shapes.
+24. probes: both probe tools (``tools.probe_mosaic``, ``probe_mosaic2``)
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
@@ -292,10 +305,10 @@ comparison applies. Phases:
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
 analysis, teacher, teacher-train, online, verify, ddp, dense-chunked,
-demo, studies and workflow phases (the ddp phase's over every rank, the
-dense-chunked phase's one-process build, the studies' processes as each
-reports them; the bench's processes are not counted), the probe kernels'
-over the probes run, each
+demo, studies, workflow and graft phases (the ddp and graft phases' over
+every rank, the dense-chunked phase's one-process build, the studies'
+processes as each reports them; the bench's processes are not counted),
+the probe kernels' over the probes run, each
 read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -439,6 +452,11 @@ STEP_STUDIES = (("probe_masked_bn", "baseline"), ("probe_masked_bn", "masked"),
                 ("probe_remat", "nothing"))
 WORKFLOW_BATCH = 4            # the worked example's distillation batch
 DEMO_BATCH = 16               # the demo's batch
+GRAFT_GLOO_RANKS = 2          # the graft phase's gloo dry run: both ranks on
+                              # the one card
+GRAFT_STEPS = 11              # train steps a dry-run rank takes: the SGD step,
+                              # the fused step, 2 fit epochs and the resumed
+                              # one of 3 batches each
 
 
 class SmokeFailure(RuntimeError):
@@ -607,13 +625,15 @@ def add_timing(timings: dict, work: dict, name: str, ms: list,
 
 
 def k2_backward_phase(card: str, timings: dict, errs: dict,
-                      work: dict) -> None:
+                      work: dict, dry_rows: list) -> None:
     """K2 with-index forward and backward vs their plain versions at the
-    train step's pool inputs, and at the demo's and the bench's epoch
-    steps' rows (phase 7)."""
+    train step's pool inputs, at the demo's and the bench's epoch steps'
+    rows and at the graft phase's dry-run shards (``dry_rows`` rows of
+    crops of ``graft_entry.TINY_FRAMES``) (phase 7)."""
     import torch
     import torch.nn.functional as F
 
+    from mcncrossmodalemotions_torch.graft_entry import TINY_FRAMES
     from mcncrossmodalemotions_torch.ops import pool
 
     dev = torch.device("cuda")
@@ -633,6 +653,9 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
               for who, rows in (("demo", DEMO_BATCH), ("bench epoch", BATCH),
                                 ("worked example", WORKFLOW_BATCH))
               for label, shape in pool_inputs(rows, 400, 512).items()]
+    cases += [(f"graft dry run {label}", shape, "post-ReLU", torch.bfloat16)
+              for rows in dry_rows
+              for label, shape in pool_inputs(rows, TINY_FRAMES, 512).items()]
     for label, shape, kind, dtype in cases:
         gen.manual_seed(SEED)
         if kind == "tie-heavy":
@@ -3335,42 +3358,25 @@ def ddp_worker(argv: list) -> int:
 
 def spawn_ranks(root: Path, world: int, dev: str, backend: str) -> list:
     """Run ``world`` ddp workers (this script, ``--ddp-worker``) to their
-    end and return their results; a run is started again only after a
-    failure that looks like the port being taken (the free-port probe is
-    bind-then-close). Any other failure or a timeout fails the phase."""
-    import socket
+    end through the port's rank spawner (``graft_entry.spawn_ranks``: a
+    new port only after a failure that says the port was taken) and return
+    their results. A failing rank, with its standard error, or a timeout
+    fails the phase."""
+    from mcncrossmodalemotions_torch.graft_entry import spawn_ranks as spawn
 
     outs = [root / f"ddp-{backend}-{world}-{r}.json" for r in range(world)]
-    for attempt in range(3):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
-             str(r), str(world), str(port), str(outs[r]), str(root), dev,
-             backend], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT) for r in range(world)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=DDP_TIMEOUT + 60)[0]
-                            .decode(errors="replace"))
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.wait()
-            raise SmokeFailure(f"a ddp worker ({backend}, {world} rank(s)) "
-                               "timed out")
-        if all(p.returncode == 0 for p in procs):
-            return [json.loads(o.read_text()) for o in outs]
-        bindish = any(k in log.lower() for log in logs
-                      for k in ("address already in use", "failed to connect"))
-        if not bindish or attempt == 2:
-            for r, (p, log) in enumerate(zip(procs, logs)):
-                if p.returncode:
-                    print(f"  ddp rank {r} ({backend}) exit {p.returncode}:\n"
-                          + log[-4000:], flush=True)
-            raise SmokeFailure(f"a ddp worker ({backend}) failed")
+
+    def command(rank: int, port: int) -> list:
+        return [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                str(rank), str(world), str(port), str(outs[rank]), str(root),
+                dev, backend]
+
+    try:
+        spawn(command, world, root, timeout=DDP_TIMEOUT + 60)
+    except (RuntimeError, TimeoutError) as exc:
+        raise SmokeFailure(f"a ddp worker ({backend}, {world} rank(s)) "
+                           f"failed: {exc}") from exc
+    return [json.loads(o.read_text()) for o in outs]
 
 
 def ddp_phase(card: str, root: Path, dense_imdb, wrappers: dict,
@@ -3832,7 +3838,8 @@ def workflow_phase(card: str, root: Path, wrappers: dict, dev="cuda",
     """The worked example (``examples/full_workflow.main``, phase 22) at
     its own tiny sizes (without figures where matplotlib is missing, as on
     the card's host): each stage's artifacts (the imdb cache, checkpoint 20
-    and ``metrics.jsonl``, the feature cache, the AUC cache, the teacher
+    and ``metrics.jsonl``, the feature cache, the AUC cache with
+    ``meanAuc`` finite in both partitions, the teacher
     histogram over every frame and a wav for each sampled track, the RML
     benchmark's accuracy and confusion), its extraction chunks those the k1 and k2 phases checked
     (``checked_chunks``, where given), and on the card K1 and every K2
@@ -3860,6 +3867,10 @@ def workflow_phase(card: str, root: Path, wrappers: dict, dev="cuda",
     check(out["imdb"].num_tracks == len(out["logits"])
           and all(l.shape == (1, 8) for l in out["logits"])
           and math.isfinite(final["loss"]), "the worked example's stages 2-3")
+    aucs = {p: a["meanAuc"] for p, a in out["aucs"].items()}
+    check(sorted(aucs) == ["train", "unheardVal"]
+          and all(math.isfinite(v) for v in aucs.values()),
+          f"the worked example's stage 3 scored no emotion: meanAuc {aucs}")
     hist = out["teacher_hist"]["emovoxceleb"]
     picked = sum(len(v) for v in out["samples"].values())
     check(hist.sum() == sum(len(w) for w in out["imdb"].wav_logits)
@@ -3880,6 +3891,99 @@ def workflow_phase(card: str, root: Path, wrappers: dict, dev="cuda",
                                           "max_pool_3x3s2_bwd")),
               f"the worked example did not launch every kernel: {counts}")
     return counts
+
+
+def graft_rows(cards: int) -> list:
+    """The rows of a rank's shard of each batch in the graft phase's dry
+    runs (``graft_entry.batch_rows``: full batches and the ragged one) over
+    ``cards`` NCCL ranks and ``GRAFT_GLOO_RANKS`` gloo ranks: the K1 and K2
+    launch shapes, with crops of ``graft_entry.TINY_FRAMES``."""
+    from mcncrossmodalemotions_torch.graft_entry import batch_rows
+
+    rows = set()
+    for n in (cards, GRAFT_GLOO_RANKS):
+        batch, samples = batch_rows(n)
+        rows |= {batch // n, (samples % batch or batch) // n}
+    return sorted(rows)
+
+
+def graft_phase(card: str, wrappers: dict, dev="cuda") -> dict:
+    """The driver's integration entry (``graft_entry.py``, phase 23). (a)
+    ``entry()``: the full-width flagship forward with zero weights on batch
+    8 of 4 s crops, output [8, 8] and finite, launching K1 once and K2's
+    index-free forward twice, and its ms (CUDA events); (b)
+    ``dryrun_multichip(torch.cuda.device_count())``, one NCCL rank a card;
+    (c) ``dryrun_multichip(2, backend="gloo")``, two ranks on the one card.
+    Each dry run: the four checks in every rank (the sharded SGD step, the
+    fused online step, ``Trainer.fit`` for 2 epochs with a ragged tail, the
+    resume to epoch 3), the ranks' state digests equal after each, every
+    rank launching K1 ``GRAFT_STEPS`` times and K2's with-index forward and
+    backward twice that; each run's wall seconds and rank 0's seconds a
+    stage. The k1, k2 and k2-backward phases hold the kernels at these
+    launch shapes. Returns the launches of the entry and of every rank.
+    With ``dev="cpu"`` (a rehearsal) the same with one and two gloo ranks
+    on the CPU, where nothing launches."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch import graft_entry
+
+    full = dev == "cuda"
+    fn, args = graft_entry.entry(dev)
+    reset_counts(wrappers)
+    out = fn(*args)
+    sync(dev)
+    counts = read_counts(wrappers)
+    want = {k: 0 for k in wrappers}
+    if full:
+        want |= {"spectrogram": 1, "max_pool_3x3s2": 2}
+    check(tuple(out.shape) == (8, 8) and bool(torch.isfinite(out).all()),
+          f"entry(): output {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    check(counts == want, f"entry() launched {counts}, expected {want}")
+    ms = cuda_ms(lambda: fn(*args), iters=5, warmup=1) if full else 0.0
+    print(f"  {card}: entry() forward {tuple(out.shape)} {out.dtype}, batch "
+          f"{graft_entry.ENTRY_BATCH} x {args[1].shape[1]} samples: "
+          f"{ms:.3f} ms; launches {counts}", flush=True)
+    del fn, args, out
+    if full:
+        torch.cuda.empty_cache()  # the ranks share the card
+
+    total = dict(counts)
+    cards = torch.cuda.device_count() if full else 1
+    runs = [(cards, None, "nccl" if full else "gloo"),
+            (GRAFT_GLOO_RANKS, "gloo", "gloo")]
+    rank_want = {k: 0 for k in wrappers}
+    if full:
+        rank_want |= {"spectrogram": GRAFT_STEPS,
+                      "max_pool_3x3s2_idx": 2 * GRAFT_STEPS,
+                      "max_pool_3x3s2_bwd": 2 * GRAFT_STEPS}
+    for n, backend, named in runs:
+        t0 = time.perf_counter()
+        records = graft_entry.dryrun_multichip(n, device=dev, backend=backend)
+        wall = time.perf_counter() - t0
+        check([r["rank"] for r in records] == list(range(n))
+              and all(r["backend"] == named for r in records),
+              f"dry run over {n} {named} rank(s): "
+              f"{[(r['rank'], r['backend']) for r in records]}")
+        check(all(r["digests"] == records[0]["digests"]
+                  and len(r["digests"]) == 4 for r in records),
+              f"dry run over {n} {named} rank(s): the ranks' states differ")
+        losses = records[0]["losses"]
+        check(all(np.isfinite([losses["step"], losses["fused"],
+                               losses["resume"]] + losses["fit"])),
+              f"dry run losses {losses}")
+        for r in records:
+            got = {k: r["launches"].get(k, 0) for k in wrappers}
+            check(got == rank_want, f"dry run over {n} {named} rank(s), rank "
+                  f"{r['rank']} launched {got}, expected {rank_want}")
+            add_counts(total, got)
+        print(f"  {card}: dryrun_multichip({n}) over {named}: {wall:.2f} s "
+              f"end to end; rank 0 s a stage "
+              f"{ {k: round(v, 3) for k, v in records[0]['seconds'].items()} }"
+              f"; losses {losses}; launches a rank {records[0]['launches']}",
+              flush=True)
+    return total
 
 
 def kernel_wrappers() -> dict:
@@ -3911,6 +4015,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from mcncrossmodalemotions_torch import graft_entry
     from mcncrossmodalemotions_torch.bench import audio_feats_wavs
     from mcncrossmodalemotions_torch.data import synthetic_track_imdb
     from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
@@ -3984,6 +4089,10 @@ def main() -> int:
                   f"{feats_chunks}")
             workflow_chunks = workflow_shapes(Path(tmp) / "workflow-shapes")
             print(f"  worked example chunks {workflow_chunks}")
+            # the graft phase's dry runs: a rank's rows of each batch
+            dry_rows = graft_rows(torch.cuda.device_count())
+            print(f"  graft dry-run rows a rank {dry_rows}, crops of "
+                  f"{graft_entry.TINY_FRAMES} frames")
 
         timings = {k: [0.0, 0.0, 0.0] for k in wrappers}  # kernel, plain, library
         work = {k: [0.0, 0.0] for k in wrappers}  # bytes, operations
@@ -4015,6 +4124,12 @@ def main() -> int:
                       ("bench epoch step", BATCH, bench_n, torch.int16, False),
                       ("bench headline", TRAIN_BATCH, bench_n, torch.float32,
                        False)]
+            cases += [("graft entry", graft_entry.ENTRY_BATCH,
+                       cfg.crop_samples(graft_entry.ENTRY_FRAMES),
+                       torch.float32, False)]
+            cases += [(f"graft dry run, {rows} row(s) a rank", rows,
+                       cfg.crop_samples(graft_entry.TINY_FRAMES),
+                       torch.float32, False) for rows in dry_rows]
             for label, rows, n, dtype, timed in cases:
                 gen.manual_seed(SEED)
                 x = torch.randn(rows, n, device=dev, generator=gen)
@@ -4070,7 +4185,8 @@ def main() -> int:
             k2_cases += [(rows, bucket, False) for rows, bucket in dict.fromkeys(
                 [(rows, bucket) for rows, _, bucket
                  in demo_chunks + feats_chunks + workflow_chunks]
-                + [(DEMO_BATCH, 400), (WORKFLOW_BATCH, 400)])
+                + [(DEMO_BATCH, 400), (WORKFLOW_BATCH, 400),
+                   (graft_entry.ENTRY_BATCH, graft_entry.ENTRY_FRAMES)])
                 if (rows, bucket) not in seen]
             for rows, bucket, timed in k2_cases:
                 for label, shape in pool_inputs(rows, bucket, cfg.nfft).items():
@@ -4189,7 +4305,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         with phase("k2-backward", walls):
-            k2_backward_phase(card, timings, errs, work)
+            k2_backward_phase(card, timings, errs, work, dry_rows)
 
         with phase("train", walls):
             train_counts = train_phase(card, wrappers)
@@ -4255,6 +4371,10 @@ def main() -> int:
             workflow_counts = workflow_phase(card, Path(tmp), wrappers,
                                              checked_chunks=workflow_chunks)
 
+        with phase("graft", walls):
+            torch.cuda.empty_cache()  # the ranks find the card free
+            graft_counts = graft_phase(card, wrappers)
+
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
 
@@ -4297,7 +4417,8 @@ def main() -> int:
                          + online_counts[name] + verify_counts[name]
                          + ddp_counts[name] + dense_chunked_counts[name]
                          + demo_counts[name] + studies_counts[name]
-                         + workflow_counts[name] + probe_counts[name]),
+                         + workflow_counts[name] + graft_counts[name]
+                         + probe_counts[name]),
             "max_abs_err": errs[name], "ms": timings[name][0],
             "plain_ms": timings[name][1], "bound_ms": bound,
             "bound_by": bound_by,

@@ -41,6 +41,8 @@ import numpy as np
 
 SPEAKERS, TRACKS, FRAMES = 3, 4, 4
 SECONDS = 5.0
+# the JAX example's teacher variables, keys "params/teacher/conv1/kernel"...
+TEACHER_VARIABLES = Path(__file__).with_name("tiny_teacher_jax.npz")
 
 
 def write_voxceleb(vox: Path) -> None:
@@ -63,17 +65,26 @@ def write_voxceleb(vox: Path) -> None:
 
 def tiny_teacher():
     """The JAX example's teacher: the tiny FER+ pipeline at 48x48, no
-    augmentation, from a seeded scratch init."""
-    import torch
-
+    augmentation, with the variables of the JAX example's scratch init
+    (``PRNGKey(0)``), which ``TEACHER_VARIABLES`` carries flattened."""
     from mcncrossmodalemotions_torch.exp.ferplus_baselines import (
         FerPlusConfig,
         build_pipeline,
     )
+    from mcncrossmodalemotions_torch.zoo import teacher_state_dict_from_flax
 
-    torch.manual_seed(0)
-    return build_pipeline(FerPlusConfig(tiny_model=True, input_size=48,
-                                        dropout=0.0, augment=False))
+    model = build_pipeline(FerPlusConfig(tiny_model=True, input_size=48,
+                                         dropout=0.0, augment=False))
+    variables: dict = {}
+    with np.load(TEACHER_VARIABLES) as z:
+        for key in z.files:
+            *path, leaf = key.split("/")
+            node = variables
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = z[key]
+    model.load_state_dict(teacher_state_dict_from_flax(variables), strict=True)
+    return model
 
 
 def main(workdir=None, device="cuda") -> dict:

@@ -425,7 +425,7 @@ def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
     online, ddp after verify, dense-chunked after ddp, bench and demo after
-    it, studies and workflow after demo and before probes,
+    it, studies, workflow and graft after demo and before probes,
     their counts join the kernel line's launches, no phase runs inside an
     exception handler, and the device line is printed last."""
     import ast
@@ -439,10 +439,10 @@ def test_phases_in_order_and_the_last_line():
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
                       "verify", "ddp", "dense-chunked", "bench", "demo",
-                      "studies", "workflow", "probes"]
+                      "studies", "workflow", "graft", "probes"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
                    "ddp_counts", "dense_chunked_counts", "demo_counts",
-                   "studies_counts", "workflow_counts"):
+                   "studies_counts", "workflow_counts", "graft_counts"):
         assert f"{counts}[name]" in ast.get_source_segment(src, main)
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
@@ -524,6 +524,26 @@ def test_demo_phase_rehearses_on_the_cpu(tmp_path):
         torch.set_num_threads(threads)
     assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
     assert (tmp_path / "demo" / "demo_result.json").is_file()
+
+
+def test_graft_phase_rehearses_on_the_cpu(capsys):
+    """The integration entry's phase at ``dev="cpu"``: ``entry()`` at full
+    width, then the dry run over one and over two gloo ranks, every check
+    of the phase passing with no launch (CPU tensors); the dry runs' shards
+    are of 1 and 2 rows whatever the card count."""
+    wrappers = chip_smoke.kernel_wrappers()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        counts = chip_smoke.graft_phase("cpu", wrappers, dev="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
+    printed = capsys.readouterr().out
+    for n in (1, chip_smoke.GRAFT_GLOO_RANKS):
+        assert f"dryrun_multichip({n}): checkpoint resume -> epoch 3 ok" \
+            in printed
+    assert chip_smoke.graft_rows(1) == chip_smoke.graft_rows(8) == [1, 2]
 
 
 def _study_in_process(monkeypatch, rc=0):

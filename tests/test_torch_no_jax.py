@@ -22,7 +22,9 @@ pool) and the worked example's stage 0, and then inspects
 ``sys.modules``: no jax, flax, optax or JAX package, and none of
 ``h5py``, ``matplotlib``, ``msgpack`` and ``PIL``, which the port imports
 only to read ``-v7.3`` files, to draw, and to read frames where its own
-decoder is switched off. The static checks parse the port's sources and
+decoder is switched off. A second fresh interpreter runs the integration
+entry's ``entry()`` and one ``--worker`` rank of its dry run (a one-rank
+gloo group) and inspects ``sys.modules`` the same way. The static checks parse the port's sources and
 ``chip_smoke.py``: no import statement names the JAX packages, and none
 at module level names ``PIL`` (comments and docstrings may name them).
 """
@@ -316,6 +318,39 @@ def test_torch_package_imports_no_jax(jax_exp_dir, jax_teacher_exp_dir):
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(jax_exp_dir),
                            str(jax_teacher_exp_dir)],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+
+
+GRAFT_SCRIPT = textwrap.dedent("""
+    import socket, sys, tempfile
+    from pathlib import Path
+
+    import torch
+
+    from mcncrossmodalemotions_torch import graft_entry
+
+    fn, args = graft_entry.entry("cpu")
+    assert tuple(fn(*args).shape) == (8, 8)
+    with tempfile.TemporaryDirectory() as d, socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+        s.close()
+        graft_entry._worker(["0", "1", port, str(Path(d) / "rank0.json"),
+                             str(Path(d) / "exp"), "cpu", "gloo"])
+        assert (Path(d) / "rank0.json").is_file()
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in {forbidden})
+    assert not leaked, leaked
+    print("NO_JAX_OK")
+""").replace("{forbidden}", repr(FORBIDDEN + LAZY))
+
+
+def test_graft_entry_imports_no_jax():
+    """``entry()`` and a ``--worker`` rank (a one-rank gloo group) in a
+    fresh interpreter leave no JAX module in ``sys.modules``."""
+    proc = subprocess.run([sys.executable, "-c", GRAFT_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
 
