@@ -293,14 +293,22 @@ without the kernels where a comparison applies. Phases:
     on the card: all 17 probes RUN with ``match=True``, launching
     ``probe_gather`` 15 times and the other two probe kernels once each;
     then every probe's kernel bitwise equal to its plain version (P9's
-    also exactly numpy's ``expect``), P9 again on random inputs with a row
-    stride, at the probe's shape and a ragged one, within 1e-5 of |a| @
-    |b| of float64 (its split along K sums in another order), P12 again
-    on small-integer inputs where both candidate branches fire (their
-    nonzero shares printed, each above 0), and each probe's kernel, plain
-    and library times, each beside its bound and the launch floor (a
-    one-element ``probe_gather`` timed the same way: the least a launch
-    takes on the card).
+    also exactly numpy's ``expect``), the path each gather and P12 took
+    (16-byte vectors or one element a thread, 32- or 64-bit offsets)
+    printed and held to the built launcher's own answer, P9 again on
+    random inputs with a row stride, at the probe's shape and a ragged
+    one, within 1e-5 of |a| @ |b| of float64 (its split along K sums in
+    another order), P12 again on small-integer inputs where both
+    candidate branches fire (their nonzero shares printed, each above 0),
+    and each probe's kernel, plain and library times, each beside its
+    bound and the launch floor (a one-element ``probe_gather`` timed the
+    same way: the least a launch takes on the card) with its share of
+    max(bound, floor). Last, the paths the probes do not take
+    (``probe_path_cases``), each bitwise equal to its plain version, one
+    launch, on the path expected: the gather at P4r's tile one element
+    into its buffer and with a ragged inner, f32 and bf16; P12 at C = 96
+    with even W and with 2 (Wh - 1) == W, at C = 5 with odd and even W,
+    and with a misaligned y.
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
@@ -859,38 +867,67 @@ def distill_phase(root: Path, wrappers: dict) -> tuple:
     return counts, imdb
 
 
-def probe_work(probe) -> tuple:
-    """(bytes, operations) a probe's kernel needs: each input element it
-    reads (a gather reads only the rows its index names) and each output
-    element once."""
+def probe_path_cases(dev) -> list:
+    """(label, kernel, plain, args, path) of the probe kernels' paths that
+    the probes themselves do not take: the gather at P4r's tile (x [16,
+    100, 96], P4r's index) one element into its buffer (no 16-byte
+    alignment) and with a ragged inner 95, f32 and bf16, and P12's
+    expansion at C = 96 with even W (196) and 2 (Wh - 1) == W (196, 99),
+    at C = 5 (one channel a thread) with odd and even W, and with y one
+    element into its buffer, these on small-integer ties."""
     import numpy as np
+    import torch
 
     from mcncrossmodalemotions_torch.ops import probes
+    from mcncrossmodalemotions_torch.tools import probe_mosaic2 as p2
 
-    if probe.kernel is probes.probe_gather:
-        x, index, axis = probe.args
-        n_out = index.values.numel()
-        rows = x.numel() // x.shape[axis]
-        used = len(np.unique(index.values.cpu().numpy()))
-        return (used * rows * x.element_size() + 4 * n_out
-                + 4 * rows * n_out, 0)
-    if probe.kernel is probes.probe_select_matmul:
-        (m, k), n = probe.args[0].shape, probe.args[1].shape[1]
-        return 4 * (m * k + k * n + m * n), 2 * m * k * n
-    # probe_col_candidates: 2 compares, 1 and and 2 adds per output
-    x, y, dy = probe.args
-    return 4 * (2 * x.numel() + y.numel() + dy.numel()), 5 * x.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def offset(shape, dtype, draw, k=1):
+        n = int(np.prod(shape))
+        return draw(n + k).to(dtype)[k:].view(shape)
+
+    def randn(n):
+        return torch.randn(n, device=dev, generator=gen)
+
+    def ties(n):
+        return torch.randint(0, 3, (n,), device=dev, generator=gen).float()
+
+    index = probes.index_map(np.repeat(np.arange(p2.WH), 2)[:p2.W], p2.WH, dev)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            (f"gather misaligned {tag}", probes.probe_gather, probes.gather,
+             (offset((p2.T, p2.WH, p2.C), dtype, randn), index, 1),
+             probes.Route(1, False)),
+            (f"gather ragged inner 95 {tag}", probes.probe_gather,
+             probes.gather, (offset((p2.T, p2.WH, 95), dtype, randn, 0),
+                             index, 1), probes.Route(1, False))]
+    for c, w, wh, k in ((96, 196, 100, 0), (96, 196, 99, 0), (5, 197, 100, 0),
+                        (5, 196, 99, 0), (96, 197, 100, 1)):
+        x = ties(p2.T * w * c).view(p2.T, w, c)
+        y = offset((p2.T, wh, c), torch.float32, ties, k)
+        dy = randn(p2.T * wh * c).view(p2.T, wh, c)
+        vec = 4 if c % 4 == 0 and k == 0 else 1
+        cases.append((f"P12 C={c} W={w} Wh={wh}" + (" y misaligned" if k else ""),
+                      probes.probe_col_candidates, probes.col_candidates,
+                      (x, y, dy), probes.Route(vec, False)))
+    return cases
 
 
 def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
                  work: dict) -> dict:
     """Both probe tools on the card, then each probe kernel against its
-    plain version and timed (phase 17); returns the tools' launch counts."""
+    plain version, on its path, and timed, then the paths the probes do
+    not take (phase 24); returns the tools' launch counts."""
     import numpy as np
     import torch
 
     from mcncrossmodalemotions_torch.ops import probes
     from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
+    from mcncrossmodalemotions_torch.tools.time_probes import probe_work
 
     dev = torch.device("cuda")
     reset_counts(wrappers)
@@ -920,6 +957,11 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
         err = (got - ref).abs().max().item()
         errs[name] = max(errs[name], err)
         exact = np.array_equal(got.cpu().numpy(), p.expect)
+        path = getattr(p.kernel, "route", None)
+        if path is not None:  # the launcher's own path is the one named
+            built = probes.library_route(p.kernel)
+            check(built == path, f"{p.name}: the launcher took {built}, "
+                  f"ops/probes.py names {path}")
         fns = [lambda: p.run(plain=True), lambda: p.run()]
         if p.kernel in library:
             fns.append(lambda: library[p.kernel](*p.args))
@@ -929,7 +971,10 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
         least = max(bound_ms(*probe_work(p))[0], floor)
         b += (f"; launch floor {floor:.5f} ms, {least / ms[1]:.1%} of "
               f"max(bound, floor)")
-        print(f"  {card}: {p.name} ({name}): kernel "
+        print(f"  {card}: {p.name} ({name}"
+              + ("" if path is None else f", {path.vec} element(s) a load, "
+                 f"{'64' if path.wide else '32'}-bit offsets")
+              + f"): kernel "
               f"{'bitwise equal to' if same else 'DIFFERENT from'} plain, "
               f"{'exactly' if exact else 'not exactly'} numpy's expect; "
               f"kernel {ms[1]:.5f} ms, plain {ms[0]:.5f} ms"
@@ -979,6 +1024,21 @@ def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
           f"output {nonzero:.4f}", flush=True)
     check(same, "P12 on ties: kernel not bitwise equal to its plain version")
     check(min(shares) > 0 and nonzero > 0, "P12 on ties: a branch never fired")
+
+    # the paths the probes do not take: misaligned, ragged, C = 5, even W
+    for label, kernel, plain, args, want in probe_path_cases(dev):
+        before = kernel.launches
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        same = got.shape == ref.shape and torch.equal(bits(got), bits(ref))
+        path, built = kernel.route, probes.library_route(kernel)
+        print(f"  {label}: kernel {'bitwise equal to' if same else 'DIFFERENT from'}"
+              f" plain; path {path} (launcher {built}, expected {want}); "
+              f"{kernel.launches - before} launch(es)", flush=True)
+        check(same, f"{label}: kernel not bitwise equal to its plain version")
+        check(path == built == want, f"{label}: path {path}, launcher {built}, "
+              f"expected {want}")
+        check(kernel.launches == before + 1, f"{label}: not one launch")
     return counts
 
 

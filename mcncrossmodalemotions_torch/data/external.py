@@ -1,14 +1,16 @@
 """External benchmark datasets (mcnDatasets' ``getRmlImdb``,
 ``getEnterfaceImdb``, ``getAfewImdb``).
 
-The port's copy of ``mcncrossmodalemotions_tpu/data/external.py`` but its
-synthetic face frames: the RML/eNTERFACE layout scan
-(``<root>/<emotion>/<track>.wav`` with an optional ``<track>/`` frame
-directory, compute_audio_feats.m:63-81), AFEW's predefined split
-(``<root>/{Train,Val}/<emotion>/<track>.wav``), and the tone-coded
-synthetic builder the tests and ``chip_smoke.py`` drive. The same seed
+The port's copy of ``mcncrossmodalemotions_tpu/data/external.py``: the
+RML/eNTERFACE layout scan (``<root>/<emotion>/<track>.wav`` with an
+optional ``<track>/`` frame directory, compute_audio_feats.m:63-81),
+AFEW's predefined split (``<root>/{Train,Val}/<emotion>/<track>.wav``),
+and the tone-coded synthetic builder the tests and ``chip_smoke.py``
+drive, in either layout and with or without face frames. The same seed
 gives the same wav bytes and the same manifest as the JAX builder, and
-the same tree the same manifests (``tests/test_torch_host_copies.py``).
+the same tree the same manifests; the frames' pixels are within 10 gray
+levels of the JAX builder's, whose files PIL writes
+(``tests/test_torch_host_copies.py``).
 """
 
 from __future__ import annotations
@@ -104,17 +106,40 @@ def build_synthetic_track_imdb(root: str | Path,
                                classes: Sequence[str] = RML_CLASSES,
                                tracks_per_class: int = 8, seed: int = 0,
                                sample_rate: int = 16000,
-                               duration: float = 2.0) -> TrackImdb:
-    """Synthetic RML/eNTERFACE-style dataset on disk, tone-coded (180 + 140
-    * label Hz) so a trained model's logits carry label signal."""
+                               duration: float = 2.0,
+                               with_frames: bool = False,
+                               afew_layout: bool = False) -> TrackImdb:
+    """Synthetic RML/eNTERFACE/AFEW-style dataset on disk, tone-coded (180 +
+    140 * label Hz) so a trained model's logits carry label signal.
+
+    ``afew_layout`` puts the first 70% of each class's tracks under
+    ``Train/`` and the rest under ``Val/`` and returns ``get_afew_imdb``'s
+    manifest; ``with_frames`` writes three synthetic face frames beside
+    each wav (``data/images.save_synthetic_frame``: the pixels of the JAX
+    builder's frames, through the port's own JPEG writer).
+    """
+    from mcncrossmodalemotions_torch.data.images import save_synthetic_frame
+
     root = Path(root)
     rng = np.random.RandomState(seed)
     for label, emotion in enumerate(classes):
         for t in range(tracks_per_class):
+            if afew_layout:
+                subset = "Train" if t < int(tracks_per_class * 0.7) else "Val"
+                wav_path = root / subset / emotion / f"track{t:03d}.wav"
+            else:
+                wav_path = root / emotion / f"track{t:03d}.wav"
             n = int(duration * sample_rate)
             tt = np.arange(n) / sample_rate
             freq = 180.0 + 140.0 * label
             wave = (0.5 * np.sin(2 * np.pi * freq * tt)
                     + 0.05 * rng.randn(n)).astype(np.float32)
-            write_wav(root / emotion / f"track{t:03d}.wav", wave, sample_rate)
+            write_wav(wav_path, wave, sample_rate)
+            if with_frames:
+                frame_dir = wav_path.with_suffix("")
+                for k in range(3):
+                    save_synthetic_frame(frame_dir / f"{k:02d}.jpg", label,
+                                         seed=seed + t * 10 + k)
+    if afew_layout:
+        return get_afew_imdb(root)
     return _track_imdb(root, classes)

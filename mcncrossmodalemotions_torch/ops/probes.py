@@ -17,7 +17,12 @@ wrapper's ``launches``:
 - ``probe_col_candidates(x, y, dy)``: the pool gradient's column-candidate
   expansion (P12); plain: the probe's masked sum.
 
-The plain versions take the wrappers' arguments.
+The plain versions take the wrappers' arguments. The gather and the
+expansion each pick a path from their arguments (16-byte vectors or one
+element a thread, 32- or 64-bit offsets): ``gather_route`` and
+``col_candidates_route`` compute it as the C launcher does, and each
+wrapper keeps its last launch's in ``route`` (``library_route`` asks the
+built library which path it took, for the tests on the card).
 """
 
 from __future__ import annotations
@@ -31,6 +36,44 @@ import torch
 from mcncrossmodalemotions_torch.ops import _build
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_NARROW = 2 ** 31  # 32-bit offsets below this many elements
+
+
+class Route(NamedTuple):
+    """The path a probe kernel's launcher takes."""
+
+    vec: int    # elements a thread moves a load: 16 bytes' worth, or 1
+    wide: bool  # 64-bit offsets (a tensor of 2^31 elements or more)
+
+
+def gather_route(x_ptr: int, out_ptr: int, itemsize: int, outer: int,
+                 n_in: int, n_out: int, inner: int) -> Route:
+    """``probe_gather``'s path: 16-byte vectors along ``inner`` where it is
+    a multiple of the vector width (4 f32, 8 bf16) and both base pointers
+    are 16-byte aligned; 64-bit offsets where x or out holds 2^31 elements
+    or more."""
+    vec = 16 // itemsize
+    vector = inner % vec == 0 and x_ptr % 16 == 0 and out_ptr % 16 == 0
+    wide = outer * max(n_in, n_out) * inner >= _NARROW
+    return Route(vec if vector else 1, wide)
+
+
+def gather_dims(shape, axis: int) -> tuple:
+    """(outer, inner): the element counts before and after ``axis``, the
+    ``[outer, n_in, inner]`` view ``probe_gather``'s kernel reads."""
+    axis = axis % len(shape)
+    return (int(np.prod(shape[:axis], dtype=np.int64)),
+            int(np.prod(shape[axis + 1:], dtype=np.int64)))
+
+
+def col_candidates_route(x_ptr: int, y_ptr: int, dy_ptr: int, out_ptr: int,
+                         t: int, w: int, wh: int, c: int) -> Route:
+    """``probe_col_candidates``' path: float4 channels where ``c`` is a
+    multiple of 4 and the four pointers are 16-byte aligned; 64-bit
+    offsets where x, y or dy holds 2^31 elements or more."""
+    ptrs = (x_ptr, y_ptr, dy_ptr, out_ptr)
+    vector = c % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return Route(4 if vector else 1, t * max(w, wh) * c >= _NARROW)
 
 
 class IndexMap(NamedTuple):
@@ -60,12 +103,21 @@ def _lib() -> ctypes.CDLL:
             ("probe_gather_f32", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
             ("probe_gather_bf16", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
             ("probe_select_matmul_f32", [ptr, cll, ptr, ptr] + [cint] * 3 + [ptr]),
-            ("probe_col_candidates_f32", [ptr] * 4 + [cint] * 4 + [ptr])):
+            ("probe_col_candidates_f32", [ptr] * 4 + [cint] * 4 + [ptr]),
+            ("probe_gather_route", [ptr, ptr, cint, cll, cint, cint, cll]),
+            ("probe_col_candidates_route", [ptr] * 4 + [cint] * 4)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.restype = cint
             fn.argtypes = argtypes
     return lib
+
+
+def library_route(wrapper) -> Route:
+    """The path the built library's launcher took at ``wrapper``'s last
+    launch on the card (asked again with the same arguments, no launch)."""
+    code = getattr(_lib(), f"{wrapper.__name__}_route")(*wrapper.route_args)
+    return Route(code // 2, bool(code % 2))
 
 
 def _on_cpu(x: torch.Tensor, who: str) -> bool:
@@ -113,8 +165,7 @@ def probe_gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
         raise TypeError(f"probe_gather: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("probe_gather expects a contiguous tensor")
-    outer = int(np.prod(x.shape[:axis], dtype=np.int64))
-    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    outer, inner = gather_dims(x.shape, axis)
     n_out = index.values.numel()
     out = torch.empty((*x.shape[:axis], n_out, *x.shape[axis + 1:]),
                       dtype=torch.float32, device=x.device)
@@ -122,6 +173,9 @@ def probe_gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
          (x.data_ptr(), index.values.data_ptr(), out.data_ptr(), outer,
           index.n_in, n_out, inner))
     probe_gather.launches += 1
+    probe_gather.route_args = (x.data_ptr(), out.data_ptr(), x.element_size(),
+                               outer, index.n_in, n_out, inner)
+    probe_gather.route = gather_route(*probe_gather.route_args)
     return out
 
 
@@ -201,13 +255,17 @@ def probe_col_candidates(x: torch.Tensor, y: torch.Tensor,
         raise ValueError("probe_col_candidates expects contiguous tensors")
     t, w, c = x.shape
     out = torch.empty_like(x)
-    _run("probe_col_candidates_f32", x,
-         (x.data_ptr(), y.data_ptr(), dy.data_ptr(), out.data_ptr(), t, w,
-          y.shape[1], c))
+    args = (x.data_ptr(), y.data_ptr(), dy.data_ptr(), out.data_ptr(), t, w,
+            y.shape[1], c)
+    _run("probe_col_candidates_f32", x, args)
     probe_col_candidates.launches += 1
+    probe_col_candidates.route_args = args
+    probe_col_candidates.route = col_candidates_route(*args)
     return out
 
 
 probe_gather.launches = 0
 probe_select_matmul.launches = 0
 probe_col_candidates.launches = 0
+probe_gather.route = probe_gather.route_args = None  # set at each launch
+probe_col_candidates.route = probe_col_candidates.route_args = None

@@ -94,8 +94,9 @@ def hamming(n: int, dtype=np.float32) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def dft_matrices_np(win_length: int, nfft: int):
-    """Hamming-windowed cos/sin DFT matrices [win_length, nfft//2+1].
+def dft_matrices_np(win_length: int, nfft: int, windowed: bool = True):
+    """cos/sin DFT matrices [win_length, nfft//2+1], the Hamming window
+    folded in unless ``windowed`` is False.
 
     Built in float64 and cast to float32 once. Cached numpy arrays are
     never written.
@@ -105,9 +106,19 @@ def dft_matrices_np(win_length: int, nfft: int):
     k = np.arange(nfft // 2 + 1)
     i = np.arange(win_length)
     angle = -2.0 * np.pi * np.outer(i, k) / nfft
-    w = hamming(win_length, np.float64)[:, None]
-    return ((np.cos(angle) * w).astype(np.float32),
-            (np.sin(angle) * w).astype(np.float32))
+    cos_m, sin_m = np.cos(angle), np.sin(angle)
+    if windowed:
+        w = hamming(win_length, np.float64)[:, None]
+        cos_m, sin_m = cos_m * w, sin_m * w
+    return cos_m.astype(np.float32), sin_m.astype(np.float32)
+
+
+def dft_matrices(win_length: int, nfft: int, windowed: bool = True,
+                 device: torch.device | str = "cuda"):
+    """``dft_matrices_np`` as float32 tensors on ``device`` (the card by
+    default), new copies at each call."""
+    return tuple(torch.from_numpy(m).to(device)
+                 for m in dft_matrices_np(win_length, nfft, windowed))
 
 
 _device_dft: Dict[Tuple[torch.device, int, int], torch.Tensor] = {}
@@ -147,6 +158,15 @@ def preemphasis(x: torch.Tensor, alpha: float = 0.97) -> torch.Tensor:
     return torch.cat([x[..., :1], x[..., 1:] - alpha * x[..., :-1]], dim=-1)
 
 
+def frame_signal(x: torch.Tensor, win_length: int,
+                 hop_length: int) -> torch.Tensor:
+    """[..., N] -> [..., T, win_length] frames (floor framing, no padding;
+    T = 0 where N < win_length), a view of ``x``."""
+    if x.shape[-1] < win_length:
+        return x.new_empty((*x.shape[:-1], 0, win_length))
+    return x.unfold(-1, win_length, hop_length)
+
+
 def mirror_bins(half: torch.Tensor, nfft: int) -> torch.Tensor:
     """Expand rFFT magnitudes [..., nfft//2+1] to the full [..., nfft]
     (|X[k]| = |X[nfft-k]| for real input)."""
@@ -161,7 +181,7 @@ def spectrogram_half_frames(x: torch.Tensor,
     lead, n = y.shape[:-1], y.shape[-1]
     if cfg.num_frames(n) == 0:
         raise ValueError(f"input too short: {n} samples -> 0 frames")
-    frames = y.reshape(-1, n).unfold(-1, cfg.win_length, cfg.hop_length)
+    frames = frame_signal(y.reshape(-1, n), cfg.win_length, cfg.hop_length)
     out = torch.matmul(frames, dft_matrix(cfg, y.device))  # [B, T, 2R]
     r = cfg.num_rbins
     re, im = out[..., :r], out[..., r:]
@@ -169,10 +189,15 @@ def spectrogram_half_frames(x: torch.Tensor,
     return half.reshape(*lead, *half.shape[1:])
 
 
+def spectrogram_frames(x: torch.Tensor,
+                       cfg: SpecConfig = DEFAULT_SPEC) -> torch.Tensor:
+    """[..., N] waveform -> [..., T, nfft] magnitude frames (time-major)."""
+    return mirror_bins(spectrogram_half_frames(x, cfg), cfg.nfft)
+
+
 def spectrogram(x: torch.Tensor, cfg: SpecConfig = DEFAULT_SPEC) -> torch.Tensor:
     """[..., N] waveform -> [..., F=nfft, T] spectrogram (freq-major)."""
-    full = mirror_bins(spectrogram_half_frames(x, cfg), cfg.nfft)
-    return full.transpose(-1, -2).contiguous()
+    return spectrogram_frames(x, cfg).transpose(-1, -2).contiguous()
 
 
 def instance_norm(spec: torch.Tensor, eps: float = 1e-8,

@@ -22,7 +22,9 @@ pool and FER+ studies of ``tools/`` under their names
 ``bench_pool_bwd``, ``ablate_ferplus_resample``), each ``main(device=
 "cuda", ...)`` with its JAX sizes as defaults and printing its records as
 the last line; ``step_variants`` times the bench's train step with and
-without a pad mask and int16 rows.
+without a pad mask and int16 rows; ``time_probes`` times the probe kernels
+beside their bounds and the launch floor, alone or against another
+checkout in turns.
 """
 
 from __future__ import annotations

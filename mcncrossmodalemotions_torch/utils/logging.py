@@ -1,8 +1,8 @@
 """Progress/ETA logging and the JSONL metrics log (zsvision ``zs_eta``).
 
-The port's copy of ``Eta`` and ``MetricsLogger`` from
+The port's copy of ``Eta``, ``progress`` and ``MetricsLogger`` from
 ``mcncrossmodalemotions_tpu/utils/logging.py``: the same lines, so that
-both packages' ``metrics.jsonl`` files read alike
+both packages' logs and ``metrics.jsonl`` files read alike
 (``tests/test_torch_host_copies.py`` holds them equal).
 """
 
@@ -12,6 +12,9 @@ import json
 import sys
 import time
 from pathlib import Path
+from typing import Iterable, Iterator, Optional, TypeVar
+
+T = TypeVar("T")
 
 
 class Eta:
@@ -40,6 +43,18 @@ class Eta:
             )
 
 
+def progress(items: Iterable[T], total: Optional[int] = None, name: str = "",
+             log_every: int = 50) -> Iterator[T]:
+    """Wrap an iterable with ETA logging (``Eta`` on stderr); without
+    ``total`` the items are listed first to count them."""
+    seq = list(items) if total is None else items
+    total = total if total is not None else len(seq)  # type: ignore[arg-type]
+    eta = Eta(total, name=name, log_every=log_every)
+    for item in seq:
+        yield item
+        eta.tick()
+
+
 class MetricsLogger:
     """Append-only JSONL metrics log, one record per epoch
     (run_distillation.m:186-207 prints the same statistics)."""
@@ -51,3 +66,9 @@ class MetricsLogger:
     def log(self, record: dict) -> None:
         with self.path.open("a") as f:
             f.write(json.dumps(record, default=float) + "\n")
+
+    def read(self) -> list[dict]:
+        if not self.path.exists():
+            return []
+        with self.path.open() as f:
+            return [json.loads(line) for line in f if line.strip()]

@@ -74,7 +74,8 @@ from mcncrossmodalemotions_torch.ops.spectrogram import (
     preemphasis,
     spectrogram,
 )
-from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2
+from mcncrossmodalemotions_torch.ops import probes
+from mcncrossmodalemotions_torch.tools import probe_mosaic, probe_mosaic2, time_probes
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -170,7 +171,7 @@ def test_k1_bound_counts_an_ffts_operations():
 
 def test_probe_work_counts_the_probes_bytes():
     cpu = torch.device("cpu")
-    work = {p.name.split()[0]: chip_smoke.probe_work(p)
+    work = {p.name.split()[0]: time_probes.probe_work(p)
             for p in probe_mosaic.make_probes(cpu) + probe_mosaic2.make_probes(cpu)}
     # P1: half of x2's 256 columns read, 256 int32 indices, [16, 256] out
     assert work["P1"] == (4 * 16 * 128 + 4 * 256 + 4 * 16 * 256, 0)
@@ -181,6 +182,29 @@ def test_probe_work_counts_the_probes_bytes():
     assert work["P4b"] == (2 * 16 * 99 * 96 + 4 * 197 + 4 * 16 * 197 * 96, 0)
     assert work["P12"] == (4 * (2 * 16 * 197 * 96 + 2 * 16 * 100 * 96),
                            5 * 16 * 197 * 96)
+
+
+def test_probe_path_cases_take_the_paths_they_name():
+    """The probes phase's extra gates: on the CPU the wrappers take their
+    plain versions, and each case's own pointers and shapes give the path
+    the gate expects of the card (the misaligned views are one element
+    into their buffers)."""
+    cases = chip_smoke.probe_path_cases(torch.device("cpu"))
+    for label, kernel, plain, args, want in cases:
+        if kernel is probes.probe_gather:
+            x, index, axis = args
+            outer, inner = probes.gather_dims(x.shape, axis)
+            got = probes.gather_route(x.data_ptr(), 0, x.element_size(), outer,
+                                      index.n_in, index.values.numel(), inner)
+        else:
+            x, y, dy = args
+            got = probes.col_candidates_route(
+                x.data_ptr(), y.data_ptr(), dy.data_ptr(), 0, *x.shape[:2],
+                y.shape[1], x.shape[2])
+            assert (x.shape[1] + 1) // 2 + 1 <= y.shape[1], label
+        assert got == want, label
+        assert torch.equal(kernel(*args), plain(*args)), label
+    assert [want.vec for *_, want in cases] == [1, 1, 1, 1, 4, 4, 1, 1, 1]
 
 
 @pytest.mark.parametrize("use_se", [False, True])

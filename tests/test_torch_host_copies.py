@@ -16,8 +16,10 @@ their originals on the same inputs.
   (``tests/test_torch_ferplus.py`` and ``tests/test_torch_warp.py`` cover
   every function);
 - ``data.external``: ``build_synthetic_track_imdb`` writes the same wavs
-  and returns equal manifests; ``get_rml_imdb``, ``get_enterface_imdb``
-  and ``get_afew_imdb`` read a tree alike;
+  and returns equal manifests, in AFEW's layout too, and its face frames
+  within 10 gray levels; ``get_rml_imdb``, ``get_enterface_imdb`` and
+  ``get_afew_imdb`` read a tree alike, and each package's builder's tree
+  alike;
 - ``data.native``: where the C++ library loads, the same crops as the JAX
   bindings and as the Python reads; switched off, the extractor reads in
   Python;
@@ -25,7 +27,8 @@ their originals on the same inputs.
   ``override``/``parse_overrides`` give equal configs (or the same error)
   and ``struct2str`` the same text, over dotted paths and value tokens
   drawn by hypothesis;
-- ``utils.logging``: ``MetricsLogger`` and ``Eta`` write the same lines.
+- ``utils.logging``: ``MetricsLogger``, ``Eta`` and ``progress`` write
+  the same lines, and ``MetricsLogger.read`` reads them back alike.
 """
 
 import dataclasses
@@ -51,6 +54,8 @@ from mcncrossmodalemotions_tpu.data import imdb as jimdb
 from mcncrossmodalemotions_tpu.data import native as jnative
 from mcncrossmodalemotions_tpu.utils import config as jconfig
 from mcncrossmodalemotions_tpu.utils import logging as jlogging
+
+FRAME_MAX = 10  # gray levels between the two builders' frames (PIL's file)
 
 
 def _wav_bytes(payload: bytes, fmt: int, channels: int, rate: int,
@@ -300,27 +305,82 @@ def test_synthetic_track_imdb_equal(tmp_path, classes):
                       jexternal.get_rml_imdb(tmp_path / "j"))
 
 
+def _relative(track_imdb, root):
+    """The manifest with its wav and frame paths relative to ``root``."""
+    cut = len(str(root)) + 1
+    return dataclasses.replace(
+        track_imdb,
+        wav_paths=np.asarray([p[cut:] for p in track_imdb.wav_paths],
+                             dtype=object),
+        frame_paths=[np.asarray([p[cut:] for p in f], dtype=object)
+                     for f in track_imdb.frame_paths])
+
+
+def _gray(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("L")).astype(int)
+
+
+@pytest.mark.parametrize("with_frames,afew_layout",
+                         [(True, False), (False, True), (True, True)])
+def test_synthetic_track_imdb_layouts_and_frames_equal(tmp_path, with_frames,
+                                                       afew_layout):
+    """The builder's AFEW layout and its face frames: the same wavs bitwise,
+    equal manifests, and frames whose pixels are within ``FRAME_MAX`` gray
+    levels of the JAX builder's (PIL writes those; the port's own writer
+    writes its own, as ``tests/test_torch_frames.py`` holds them)."""
+    kw = dict(classes=external.AFEW_CLASSES if afew_layout else ("a", "b"),
+              tracks_per_class=3, seed=5, duration=0.2,
+              with_frames=with_frames, afew_layout=afew_layout)
+    ours = external.build_synthetic_track_imdb(tmp_path / "t", **kw)
+    theirs = jexternal.build_synthetic_track_imdb(tmp_path / "j", **kw)
+    ours, theirs = _relative(ours, tmp_path / "t"), _relative(theirs, tmp_path / "j")
+    _assert_same_imdb(ours, theirs)
+    if afew_layout:
+        assert sorted(set(ours.set_id)) == [1, 2]
+    for rel in ours.wav_paths:
+        assert ((tmp_path / "t" / rel).read_bytes()
+                == (tmp_path / "j" / rel).read_bytes())
+    frames = [rel for f in ours.frame_paths for rel in f]
+    assert len(frames) == (3 * ours.num_tracks if with_frames else 0)
+    worst = max((np.abs(_gray(tmp_path / "t" / rel)
+                        - _gray(tmp_path / "j" / rel)).max()
+                 for rel in frames), default=0)
+    assert worst <= FRAME_MAX
+
+
 @pytest.mark.parametrize("with_frames", [False, True])
 def test_enterface_and_afew_getters_equal(tmp_path, with_frames):
-    """The port's eNTERFACE and AFEW scanners read a tree the JAX builder
-    wrote (AFEW's Train/Val layout, with and without face frames) as the
-    JAX scanners do: dropping frameless tracks, thinning frame lists."""
-    jexternal.build_synthetic_track_imdb(
-        tmp_path / "afew", classes=jexternal.AFEW_CLASSES, tracks_per_class=3,
-        duration=0.2, with_frames=with_frames, afew_layout=True)
-    jexternal.build_synthetic_track_imdb(tmp_path / "ent", tracks_per_class=2,
-                                         duration=0.2)
+    """The port's eNTERFACE and AFEW scanners read the trees the port's
+    builder wrote (AFEW's Train/Val layout, with and without face frames)
+    as the JAX scanners read the JAX builder's, and the JAX builder's tree
+    as the JAX scanners do: dropping frameless tracks, thinning frame
+    lists."""
+    for side, build in (("t", external.build_synthetic_track_imdb),
+                        ("j", jexternal.build_synthetic_track_imdb)):
+        build(tmp_path / side / "afew", classes=external.AFEW_CLASSES,
+              tracks_per_class=3, duration=0.2, with_frames=with_frames,
+              afew_layout=True)
+        build(tmp_path / side / "ent", tracks_per_class=2, duration=0.2)
     assert external.AFEW_CLASSES == jexternal.AFEW_CLASSES
     assert external.ENTERFACE_CLASSES == jexternal.ENTERFACE_CLASSES
-    _assert_same_imdb(external.get_enterface_imdb(tmp_path / "ent"),
-                      jexternal.get_enterface_imdb(tmp_path / "ent"))
+    ours, theirs = tmp_path / "t", tmp_path / "j"
+    _assert_same_imdb(
+        _relative(external.get_enterface_imdb(ours / "ent"), ours / "ent"),
+        _relative(jexternal.get_enterface_imdb(theirs / "ent"), theirs / "ent"))
+    _assert_same_imdb(external.get_enterface_imdb(theirs / "ent"),
+                      jexternal.get_enterface_imdb(theirs / "ent"))
     for kw in ({}, {"subsample_stride": 2}, {"drop_tracks_with_no_dets": False}):
-        ours = external.get_afew_imdb(tmp_path / "afew", **kw)
-        theirs = jexternal.get_afew_imdb(tmp_path / "afew", **kw)
-        _assert_same_imdb(ours, theirs)
-        assert sorted(set(ours.set_id)) == [1, 2]
-        for a, b in zip(ours.frame_paths, theirs.frame_paths):
-            assert list(a) == list(b)
+        got = external.get_afew_imdb(ours / "afew", **kw)
+        want = jexternal.get_afew_imdb(theirs / "afew", **kw)
+        _assert_same_imdb(_relative(got, ours / "afew"),
+                          _relative(want, theirs / "afew"))
+        _assert_same_imdb(external.get_afew_imdb(theirs / "afew", **kw), want)
+        assert sorted(set(got.set_id)) == [1, 2]
+        for a, b in zip(got.frame_paths, want.frame_paths):
+            stride = kw.get("subsample_stride", 1)
+            assert len(a) == len(b) == len(range(0, 3 * with_frames, stride))
 
 
 @pytest.fixture
@@ -492,6 +552,35 @@ def test_metrics_logger_and_eta_write_the_same_lines(tmp_path, monkeypatch):
         eta.tick(2)
         out[key] = buf.getvalue()
     assert out["t"] == out["j"] and out["t"].count("\n") == 4
+
+
+@pytest.mark.parametrize("total", [None, 11])
+def test_progress_yields_and_writes_the_same_lines(monkeypatch, capsys, total):
+    """``progress`` over a generator, counted by listing it (no total) or
+    given its total: the same items and the same ETA lines on stderr."""
+    out = {}
+    for key, mod in (("t", logging), ("j", jlogging)):
+        clock = iter(np.arange(0.0, 100.0, 0.5))
+        monkeypatch.setattr(time, "monotonic", lambda: float(next(clock)))
+        items = list(mod.progress((i * i for i in range(11)), total=total,
+                                  name="tracks", log_every=4))
+        out[key] = (items, capsys.readouterr().err)
+    assert out["t"] == out["j"]
+    assert out["t"][0] == [i * i for i in range(11)]
+    assert out["t"][1].count("\n") == 3
+
+
+def test_metrics_logger_reads_back_alike(tmp_path):
+    ours = logging.MetricsLogger(tmp_path / "t" / "m.jsonl")
+    theirs = jlogging.MetricsLogger(tmp_path / "j" / "m.jsonl")
+    assert ours.read() == theirs.read() == []
+    for r in ({"epoch": 1, "loss": np.float32(0.5)}, {"epoch": 2, "s": "x"}):
+        ours.log(r)
+        theirs.log(r)
+    with (tmp_path / "t" / "m.jsonl").open("a") as f:  # a blank line
+        f.write("\n")
+    assert ours.read() == theirs.read() == [{"epoch": 1, "loss": 0.5},
+                                            {"epoch": 2, "s": "x"}]
 
 
 def test_write_run_meta_writes_on_rank_0_only(tmp_path, monkeypatch):

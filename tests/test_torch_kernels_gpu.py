@@ -455,6 +455,138 @@ def test_probe_col_candidates_on_ties(cuda, w, wh):
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
+def _offset_view(shape, dtype, offset, gen, cuda):
+    """A contiguous randn tensor of ``shape`` on the card whose storage
+    starts ``offset`` elements into its buffer (1: not 16-byte aligned)."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + offset, generator=gen).to(dtype).to(cuda)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,shape,axis,offset", [
+    ("vector", (16, 100, 96), 1, 0),        # P4r's shape: inner 96
+    ("misaligned", (16, 100, 96), 1, 1),    # the same, one element in
+    ("lanes", (16, 256), 1, 0),             # inner == 1
+    ("ragged", (4, 37, 13), 1, 0),          # inner 13: no vector width
+    ("inner 12", (3, 20, 12), 1, 0),        # f32 vectors, bf16 elements
+    ("outer past the grid", (70000, 5, 4), 1, 0)])
+def test_probe_gather_paths(cuda, dtype, case, shape, axis, offset):
+    """Each path of the gather bitwise equal to its plain version, one
+    launch each, the launcher's path the one ``gather_route`` names."""
+    gen = torch.Generator().manual_seed(sum(shape) + offset)
+    x = _offset_view(shape, dtype, offset, gen, cuda)
+    n_in = shape[axis]
+    idx = np.random.RandomState(n_in).randint(0, n_in, n_in + 3)
+    index = probes.index_map(idx, n_in, cuda)
+    before = probes.probe_gather.launches
+    got = probes.probe_gather(x, index, axis)
+    torch.cuda.synchronize()
+    assert probes.probe_gather.launches == before + 1
+    ref = probes.gather(x, index, axis)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    inner = probes.gather_dims(shape, axis)[1]
+    vec = 16 // x.element_size()
+    want = vec if offset == 0 and inner % vec == 0 else 1
+    assert probes.probe_gather.route == probes.Route(want, False)
+    assert probes.library_route(probes.probe_gather) == probes.probe_gather.route
+
+
+def test_probe_gather_rows_past_the_grid(cuda):
+    """More output rows than 65535 blocks of 256 threads cover: the rows'
+    grid stride."""
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(1)).to(cuda)
+    idx = np.random.RandomState(1).randint(0, 1000, 65535 * 256 + 3)
+    index = probes.index_map(idx, 1000, cuda)
+    before = probes.probe_gather.launches
+    got = probes.probe_gather(x, index, 0)
+    torch.cuda.synchronize()
+    assert probes.probe_gather.launches == before + 1
+    assert torch.equal(got, probes.gather(x, index, 0))
+    assert probes.probe_gather.route == probes.Route(1, False)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_gather_64_bit_offsets(cuda, offset):
+    """bf16 x of 3 x 2^30 elements and an f32 out of 2^31: the 64-bit
+    path, in vectors and, one element in, one element a thread (about 26
+    GB of the card's memory at the peak)."""
+    buf = torch.empty(3 * 2 ** 30 + offset, dtype=torch.bfloat16, device=cuda)
+    x = buf[offset:].view(3, 2 ** 30)
+    x.copy_(torch.arange(2 ** 30, device=cuda, dtype=torch.float32)
+            .remainder_(257).to(torch.bfloat16).expand(3, -1))
+    x[1].neg_()
+    x[2].mul_(0.5)
+    index = probes.index_map([2, 0], 3, cuda)
+    before = probes.probe_gather.launches
+    got = probes.probe_gather(x, index, 0)
+    torch.cuda.synchronize()
+    assert probes.probe_gather.launches == before + 1
+    assert probes.probe_gather.route == probes.Route(1 if offset else 8, True)
+    assert probes.library_route(probes.probe_gather) == probes.probe_gather.route
+    for j, src in enumerate((2, 0)):
+        assert torch.equal(got[j].view(torch.int32),
+                           x[src].float().view(torch.int32))
+    del buf, x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("c", [96, 5])
+@pytest.mark.parametrize("w,wh", [(197, 100), (196, 100), (196, 99)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_col_candidates_paths(cuda, c, w, wh, offset):
+    """C = 96 (float4) and C = 5 (one channel a thread), odd W (a half pair
+    at the end), even W, 2 (Wh - 1) == W exactly, and y one element into
+    its buffer (one channel a thread): bitwise the plain version on
+    small-integer ties, both branches firing, one launch."""
+    gen = torch.Generator().manual_seed(w * c + offset)
+    x = torch.randint(0, 3, (4, w, c), generator=gen).float().to(cuda)
+    ybuf = torch.randint(0, 3, (4 * wh * c + offset,), generator=gen).float()
+    y = ybuf.to(cuda)[offset:].view(4, wh, c)
+    dy = torch.randn(4, wh, c, generator=gen).to(cuda)
+    before = probes.probe_col_candidates.launches
+    got = probes.probe_col_candidates(x, y, dy)
+    torch.cuda.synchronize()
+    assert probes.probe_col_candidates.launches == before + 1
+    ref = probes.col_candidates(x, y, dy)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    for k2 in (0, 1):  # each branch adds a nonzero somewhere
+        yc = torch.repeat_interleave(y[:, 1 - k2:], 2, dim=1)[:, :w]
+        fired = x == yc
+        if k2:
+            fired[:, 1::2] = False
+        assert fired.any()
+    want = 4 if c % 4 == 0 and offset == 0 else 1
+    assert probes.probe_col_candidates.route == probes.Route(want, False)
+    assert (probes.library_route(probes.probe_col_candidates)
+            == probes.probe_col_candidates.route)
+
+
+def test_probe_col_candidates_64_bit_offsets(cuda):
+    """x [2, 2^15, 2^15] (2^31 elements): the 64-bit float4 path, each
+    image held bitwise to the plain version on its own."""
+    t, w, c = 2, 2 ** 15, 2 ** 15
+    wh = w // 2 + 1
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 3, (t, w, c), device=cuda, generator=gen).float()
+    y = torch.randint(0, 3, (t, wh, c), device=cuda, generator=gen).float()
+    dy = torch.randn(t, wh, c, device=cuda, generator=gen)
+    before = probes.probe_col_candidates.launches
+    got = probes.probe_col_candidates(x, y, dy)
+    torch.cuda.synchronize()
+    assert probes.probe_col_candidates.launches == before + 1
+    assert probes.probe_col_candidates.route == probes.Route(4, True)
+    assert (probes.library_route(probes.probe_col_candidates)
+            == probes.probe_col_candidates.route)
+    for k in range(t):
+        ref = probes.col_candidates(x[k:k + 1], y[k:k + 1], dy[k:k + 1])
+        assert torch.equal(got[k:k + 1].view(torch.int32), ref.view(torch.int32))
+        del ref
+    del x, y, dy, got
+    torch.cuda.empty_cache()
+
+
 def test_probe_wrappers_refuse_what_they_cannot_take(cuda):
     x = torch.zeros(4, 6, device=cuda)
     index = probes.index_map([0, 5], 6, cuda)

@@ -10,11 +10,15 @@ the kernel body's own op outside ``pallas_call`` (``jnp.take``, or
 ``expect``. Each probe of the port, on a CPU tensor its kernel's plain
 version, must give the JAX output bit for bit, from the same numpy
 ``expect``. P12 runs again on small-integer inputs, where both candidate
-branches fire, through the JAX probe's own kernel.
+branches fire, through the JAX probe's own kernel. The paths the gather
+and P12's expansion take on the card (16-byte vectors or one element a
+thread, 32- or 64-bit offsets) are chosen on the host by plain functions,
+tested here; the card's tests hold the built launchers to them.
 """
 
 import functools
 import importlib.util
+import json
 from pathlib import Path
 
 import jax
@@ -31,6 +35,7 @@ from mcncrossmodalemotions_torch.tools import (
     probe_mosaic,
     probe_mosaic2,
     run_probe,
+    time_probes,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -199,3 +204,124 @@ def test_tools_default_to_the_card(monkeypatch):
     for tool in (probe_mosaic, probe_mosaic2):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main()
+
+
+@pytest.mark.parametrize("itemsize,inner,x_off,out_off,vec", [
+    (4, 96, 0, 0, 4), (4, 4, 0, 0, 4), (4, 96, 4, 0, 1), (4, 96, 0, 8, 1),
+    (4, 1, 0, 0, 1), (4, 31, 0, 0, 1), (4, 6, 0, 0, 1),
+    (2, 96, 0, 0, 8), (2, 8, 16, 32, 8), (2, 12, 0, 0, 1), (2, 4, 0, 0, 1),
+    (2, 96, 2, 0, 1), (2, 96, 0, 4, 1)])
+def test_gather_route_vector_width(itemsize, inner, x_off, out_off, vec):
+    """16 bytes a thread where inner is a multiple of the vector width (4
+    f32, 8 bf16) and both base pointers are 16-byte aligned; else one
+    element a thread."""
+    got = probes.gather_route(4096 + x_off, 8192 + out_off, itemsize, 3, 7, 9,
+                              inner)
+    assert got == probes.Route(vec, False)
+
+
+@pytest.mark.parametrize("outer,n_in,n_out,inner,wide", [
+    (16, 100, 197, 96, False), (1, 2 ** 31 - 1, 1, 1, False),
+    (1, 1, 2 ** 31 - 1, 1, False), (2, 2 ** 30, 1, 1, True),
+    (1, 3, 2 ** 30, 2, True), (1, 4, 4, 2 ** 29 - 1, False),
+    (1, 4, 4, 2 ** 29, True), (2 ** 31, 1, 1, 1, True)])
+def test_gather_route_offset_width(outer, n_in, n_out, inner, wide):
+    """32-bit offsets while x and out both hold fewer than 2^31 elements."""
+    assert probes.gather_route(0, 0, 4, outer, n_in, n_out, inner).wide is wide
+
+
+@pytest.mark.parametrize("c,offsets,vec", [
+    (96, (0, 0, 0, 0), 4), (4, (0, 0, 0, 0), 4), (5, (0, 0, 0, 0), 1),
+    (6, (0, 0, 0, 0), 1), (96, (4, 0, 0, 0), 1), (96, (0, 8, 0, 0), 1),
+    (96, (0, 0, 12, 0), 1), (96, (0, 0, 0, 4), 1), (96, (16, 32, 48, 64), 4)])
+def test_col_candidates_route_vector_width(c, offsets, vec):
+    ptrs = [4096 * (k + 1) + off for k, off in enumerate(offsets)]
+    assert probes.col_candidates_route(*ptrs, 16, 197, 100, c) == probes.Route(
+        vec, False)
+
+
+@pytest.mark.parametrize("t,w,wh,c,wide", [
+    (16, 197, 100, 96, False), (1, 2 ** 31 - 1, 2 ** 30 + 1, 1, False),
+    (2, 2 ** 30, 2 ** 29 + 1, 1, True), (1, 9, 2 ** 31 - 1, 1, False),
+    (2 ** 21, 8, 8, 128, True), (2 ** 21 - 1, 8, 8, 128, False)])
+def test_col_candidates_route_offset_width(t, w, wh, c, wide):
+    assert probes.col_candidates_route(0, 0, 0, 0, t, w, wh, c).wide is wide
+
+
+def test_every_probe_takes_its_expected_path():
+    """At 16-byte aligned pointers (a fresh tensor's), every probe is
+    narrow; the gathers along a lane axis (inner 1) and the reshapes take
+    one element a thread, the others 16-byte vectors; P12 float4."""
+    vector = {"P2 2D sublane gather", "P3 3D sublane gather",
+              "P4 3D sublane repeat", "P6 2D sublane repeat",
+              "P4r 3D sublane repeat (Wh=100,C=96)",
+              "P4s shifted sublane repeat", "P4b 3D sublane repeat bf16"}
+    seen = 0
+    for p in probe_mosaic.make_probes(CPU) + probe_mosaic2.make_probes(CPU):
+        if p.kernel is probes.probe_gather:
+            x, index, axis = p.args
+            outer, inner = probes.gather_dims(x.shape, axis)
+            got = probes.gather_route(0, 0, x.element_size(), outer,
+                                      index.n_in, index.values.numel(), inner)
+            want = 16 // x.element_size() if p.name in vector else 1
+        elif p.kernel is probes.probe_col_candidates:
+            x, y, _ = p.args
+            got = probes.col_candidates_route(0, 0, 0, 0, *x.shape[:2],
+                                              y.shape[1], x.shape[2])
+            want = 4
+        else:
+            continue
+        seen += 1
+        assert got == probes.Route(want, False), p.name
+    assert seen == 16
+
+
+@pytest.mark.parametrize("shape,axis,dims", [
+    ((16, 256), 1, (16, 1)), ((16, 256), 0, (1, 256)), ((8, 16, 128), -2, (8, 128)),
+    ((16384,), 0, (1, 1)), ((2, 3, 5, 7), 2, (6, 7))])
+def test_gather_dims(shape, axis, dims):
+    assert probes.gather_dims(shape, axis) == dims
+
+
+def test_time_probes_rehearses_on_the_cpu(capsys):
+    """The timing tool's flow on the CPU: a record a probe, no path (the
+    wrappers take their plain versions), the bytes bound of each, the sums
+    by kernel printed."""
+    records = time_probes.main("cpu", iters=1)
+    rows = records["this"]["probes"]
+    assert [r["name"] for r in rows] == NAMES
+    assert all(r["path"] is None and r["bound_ms"] > 0 for r in rows)
+    assert [r["library_ms"] is None for r in rows].count(True) == 1  # P12
+    out = capsys.readouterr().out
+    assert "probe_gather: 15 launch(es)" in out
+    assert json.loads(out.strip().splitlines()[-1]) == json.loads(
+        json.dumps(records))
+
+
+def test_time_probes_against_a_checkout_in_turns(monkeypatch, capsys):
+    """Against another tree: four workers in turns (it, this, this, it),
+    each tree's two runs averaged."""
+    order = []
+
+    def fake(tree, device, iters):
+        order.append(tree)
+        k = len(order)
+        return {"package": str(tree), "floor_ms": float(k), "probes": [
+            {"name": "P", "kernel": "probe_gather", "path": [4, False],
+             "kernel_ms": 10.0 * k, "plain_ms": 1.0, "library_ms": None,
+             "bound_ms": 0.5}]}
+
+    monkeypatch.setattr(time_probes, "_worker", fake)
+    records = time_probes.main("cpu", iters=1, against=REPO / "build")
+    assert order == [REPO / "build", REPO, REPO, REPO / "build"]
+    assert records["against"]["probes"][0]["kernel_ms"] == 25.0
+    assert records["this"]["probes"][0]["kernel_ms"] == 25.0
+    assert records["this"]["floor_ms"] == 2.5
+    assert "against 25.00000 ms" in capsys.readouterr().out
+
+
+def test_time_probes_worker_imports_the_trees_package():
+    """A worker process times the package of the tree it is given."""
+    record = time_probes._worker(REPO, "cpu", 1)
+    assert record["package"] == str(REPO / "mcncrossmodalemotions_torch")
+    assert [r["name"] for r in record["probes"]] == NAMES

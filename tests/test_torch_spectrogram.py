@@ -2,7 +2,9 @@
 
 The same numpy inputs (from a seed) go through both packages. On the CPU
 the K1 wrapper runs its plain version; the JAX Pallas kernel runs in
-interpret mode, as tests/test_spectrogram.py runs it.
+interpret mode, as tests/test_spectrogram.py runs it. The frontend's
+helpers (``frame_signal``, ``dft_matrices`` with and without the window,
+``spectrogram_frames``) are held to JAX's too.
 """
 
 import importlib
@@ -18,9 +20,12 @@ from mcncrossmodalemotions_torch.ops.spectrogram import (
     DEFAULT_SPEC,
     SpecConfig,
     decode_pcm,
+    dft_matrices,
+    frame_signal,
     hamming,
     instance_norm,
     spectrogram,
+    spectrogram_frames,
     waveform_to_input,
 )
 
@@ -53,6 +58,51 @@ def test_spectrogram_matches_jax_and_pallas(frames):
     assert got.shape == pallas.shape == plain.shape == (1, 512, frames)
     np.testing.assert_allclose(got, pallas, atol=5e-4)
     np.testing.assert_allclose(got, plain, atol=5e-4)
+
+
+@pytest.mark.parametrize("shape,win,hop", [((2, 3, 1600), 400, 160),
+                                           ((1999,), 400, 160),
+                                           ((2, 560), 400, 160),
+                                           ((3, 17), 5, 3),
+                                           ((2, 399), 400, 160),
+                                           ((2, 100), 400, 160)])
+def test_frame_signal_matches_jax(shape, win, hop):
+    """Floor framing bitwise, down to no frame at all (N < win)."""
+    x = np.random.RandomState(len(shape) + shape[-1]).randn(*shape).astype(
+        np.float32)
+    got = frame_signal(torch.from_numpy(x), win, hop).numpy()
+    ref = np.asarray(jspec.frame_signal(jnp.asarray(x), win, hop))
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("windowed", [True, False])
+@pytest.mark.parametrize("win,nfft", [(400, 512), (256, 256), (7, 16)])
+def test_dft_matrices_match_jax(windowed, win, nfft):
+    """Built in float64 and cast once in both packages: bitwise equal."""
+    got = dft_matrices(win, nfft, windowed=windowed, device="cpu")
+    ref = jspec.dft_matrices(win, nfft, windowed=windowed)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == (win, nfft // 2 + 1)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    if windowed:  # the window folded in: row i scaled by hamming(win)[i]
+        plain = dft_matrices(win, nfft, windowed=False, device="cpu")
+        np.testing.assert_allclose(
+            got[0].numpy(), plain[0].numpy() * hamming(win)[:, None],
+            rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError):
+        dft_matrices(nfft + 1, nfft, windowed=windowed, device="cpu")
+
+
+@pytest.mark.parametrize("frames", [150, 33])
+def test_spectrogram_frames_matches_jax(frames):
+    """Time-major magnitudes [..., T, nfft], two leading axes."""
+    rng = np.random.RandomState(frames + 1)
+    x = rng.randn(2, 1, DEFAULT_SPEC.crop_samples(frames)).astype(np.float32)
+    got = spectrogram_frames(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jspec.spectrogram_frames(jnp.asarray(x)))
+    assert got.shape == ref.shape == (2, 1, frames, 512)
+    np.testing.assert_allclose(got, ref, atol=5e-4)
 
 
 @pytest.mark.parametrize("frames", [400, 150])
