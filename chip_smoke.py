@@ -427,12 +427,11 @@ SOAK_FRAMES = 32768           # the soak: 256 batches of 128; the kill lands at
 SOAK_CPU_FRAMES = 640         # the CPU rehearsal's soak: 640 batches of 1
 BENCH_TIMEOUT = 900           # seconds the bench --full subprocess may take
 # what the JAX package's `bench.py --full` measures into its details file,
-# under the port's names (frontend_plain_ms/kernel_ms for jnp/pallas);
-# bench_keys() adds the fields derived from the link-bound ones
+# under the port's names (frontend_plain_ms/kernel_ms for jnp/pallas),
+# but its host-link health and the fields derived from it
 BENCH_KEYS = (
     "train_step_ms", "train_step_utts_per_sec", "train_step_flops",
     "achieved_tflops", "mfu_estimate", "device_kind", "backend",
-    "link_put_mb_per_sec",
     "end_to_end_epoch_utts_per_sec", "end_to_end_epoch_samples",
     "end_to_end_feed_bound_frac", "end_to_end_feed_bytes_per_utt",
     "end_to_end_epoch_utts_per_sec_mulaw8", "end_to_end_epoch_samples_mulaw8",
@@ -469,15 +468,6 @@ GRAFT_STEPS = 11              # train steps a dry-run rank takes: the SGD step,
 
 class SmokeFailure(RuntimeError):
     pass
-
-
-def bench_keys() -> tuple:
-    """``BENCH_KEYS`` and the ``_per_link_mbps`` and ``_best`` fields the
-    bench derives from each of its link-bound metrics."""
-    from mcncrossmodalemotions_torch.bench import _LINK_BOUND_KEYS
-
-    return BENCH_KEYS + tuple(f"{k}_{field}" for k in _LINK_BOUND_KEYS
-                              for field in ("per_link_mbps", "best"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3676,7 +3666,7 @@ def bench_phase(card: str, root: Path) -> float:
     mcncrossmodalemotions_torch.bench --full --out-dir <tmp>`` in a fresh
     process (its end-to-end and numerics workers are processes of their
     own), with the card free. It must exit 0, print the headline with a
-    value above 0 last, and write every key of ``bench_keys()`` with
+    value above 0 last, and write every key of ``BENCH_KEYS`` with
     ``numerics_ok`` true; each value is printed with the card's name and
     power limit. Its launches happen in its processes, not in this one's
     counts. Returns its headline ``train_step_ms``."""
@@ -3703,7 +3693,7 @@ def bench_phase(card: str, root: Path) -> float:
     check(headline.get("metric") == "distillation_train_throughput"
           and headline.get("value", 0) > 0, f"bench headline {headline}")
     details = json.loads((out_dir / "bench_details.json").read_text())
-    keys = bench_keys()
+    keys = BENCH_KEYS
     for key in keys:
         print(f"  {card}: bench {key} = {details.get(key, 'MISSING')}")
     missing = [k for k in keys if k not in details]

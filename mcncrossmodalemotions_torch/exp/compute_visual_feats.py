@@ -44,6 +44,7 @@ from mcncrossmodalemotions_torch.parallel.mesh import (
     gather_rows,
     process_index,
 )
+from mcncrossmodalemotions_torch.utils import trace
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 from mcncrossmodalemotions_torch.utils.logging import Eta
 
@@ -58,6 +59,10 @@ class VisualFeatureExtractor:
     CUDA device the default raises) and the forward is a
     ``functional_call`` with it, so ``model``'s own tensors are never read.
     One prefetch thread decodes batch i+1 while the device runs batch i.
+    While ``utils/trace`` records, a batch's spans are ``visual.decode_wait``
+    (waiting on the prefetch), ``visual.decode`` (on the prefetch thread),
+    ``visual.h2d`` (pin and copy), ``visual.forward`` and ``visual.read``
+    (the synchronising read of the logits).
     ``crop_ratio`` 1.0 is the reference's external-face default (no
     CropSize, compute_visual_feats.m:123-143); the EmoVoxCeleb build uses
     1/1.6 (fetch_emovoxceleb_imdb.m:169). With ``mesh`` this is one rank
@@ -116,14 +121,16 @@ class VisualFeatureExtractor:
 
     def _forward(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch)
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with trace.span("visual.h2d"):
+            if self.device.type == "cuda":
+                x = x.pin_memory().to(self.device, non_blocking=True)
+        with trace.span("visual.forward"), torch.inference_mode():
             return functional_call(self.model, self._state, (x,), strict=True)
 
     def _decode(self, chunk: Sequence[str]) -> np.ndarray:
-        return load_frame_batch(chunk, self.input_size, self.num_threads,
-                                self.crop_ratio)
+        with trace.span("visual.decode"):
+            return load_frame_batch(chunk, self.input_size, self.num_threads,
+                                    self.crop_ratio)
 
     def frame_logits(self, frame_paths: Sequence[str],
                      verbose: bool = True,
@@ -191,7 +198,8 @@ class VisualFeatureExtractor:
             future = prefetcher.submit(self._decode,
                                        self._rank_chunk(chunks[0]))
             for ci, chunk in enumerate(chunks):
-                batch = future.result()
+                with trace.span("visual.decode_wait"):
+                    batch = future.result()
                 if ci + 1 < len(chunks):  # decode the next batch meanwhile
                     future = prefetcher.submit(
                         self._decode, self._rank_chunk(chunks[ci + 1]))
@@ -199,7 +207,8 @@ class VisualFeatureExtractor:
                     logits = self._forward(self._pad_batch(batch))
                 else:
                     logits = gather_rows(self._forward(batch), mesh)
-                out.append(logits[: len(chunk)].float().cpu().numpy())
+                with trace.span("visual.read"):
+                    out.append(logits[: len(chunk)].float().cpu().numpy())
                 if eta:
                     eta.tick(len(chunk))
                 if partial_path and (ci + 1) % effective_every == 0:

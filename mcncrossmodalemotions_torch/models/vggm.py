@@ -69,6 +69,7 @@ from mcncrossmodalemotions_torch.ops.pool import (
     max_pool_3x3s2_train,
 )
 from mcncrossmodalemotions_torch.parallel.mesh import DataMesh, all_reduce_sum
+from mcncrossmodalemotions_torch.utils import trace
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
@@ -204,7 +205,29 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
     differentiable all-reduce) before the mean and variance are formed, so
     every rank normalises with the GLOBAL batch's statistics and makes the
     same running update, as Flax under pjit does. A rank whose rows are
-    all padding contributes zeros."""
+    all padding contributes zeros.
+
+    While ``utils/trace`` records, the forward is the span ``vggm.bn`` and,
+    under grad, its backward the span ``vggm.bn.backward`` on the thread
+    that runs the backward: a hook on the result's gradient opens it and
+    a hook on ``x``'s closes it (tensor hooks, so the graph and the
+    gradients are those of a run that does not record)."""
+    if not trace.recording():
+        return _batch_norm_train(x, bn, pad_mask, update, mesh)
+    with trace.span("vggm.bn"):
+        y = _batch_norm_train(x, bn, pad_mask, update, mesh)
+    if torch.is_grad_enabled() and x.requires_grad:
+        opened: list = []
+        y.register_hook(
+            lambda g: opened.append(trace.open_span("vggm.bn.backward")))
+        x.register_hook(
+            lambda g: trace.close_span(opened.pop() if opened else None))
+    return y
+
+
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
+                      pad_mask: Optional[torch.Tensor], update: bool,
+                      mesh: Optional[DataMesh]) -> torch.Tensor:
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if pad_mask is None and mesh is None:
         mean = xf.mean(dim=(0, 2, 3))

@@ -16,7 +16,10 @@ a side stream one batch ahead and records an event that the compute stream
 waits on before the step reads the batch. Each epoch records where its
 wall went: ``feed_wait_s`` (the loop waiting on the host feed),
 ``device_drain_s`` (the epoch-end sync that drains queued device work) and
-``feed_bound_frac`` (feed wait / wall).
+``feed_bound_frac`` (feed wait / wall). While ``utils/trace`` records, the
+loop's spans are ``train.feed_wait`` (each wait that ``feed_wait_s``
+sums), ``train.step`` (attribute ``step``; its children are the step's,
+``train/state.py``), ``train.metrics`` and ``train.drain``.
 
 Under a mesh every rank runs the same loop over the same host batches: a
 ragged batch is padded to a multiple of the world size
@@ -31,6 +34,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import os
 import queue
 import threading
 import time
@@ -55,6 +60,7 @@ from mcncrossmodalemotions_torch.train.state import (
     make_eval_step,
     make_train_step,
 )
+from mcncrossmodalemotions_torch.utils import trace
 from mcncrossmodalemotions_torch.utils.logging import MetricsLogger
 
 
@@ -354,19 +360,22 @@ class Trainer:
             feed_iter = iter(self._prefetched(batches))
             stack.callback(feed_iter.close)  # ends the producer on any exit
             while max_samples is None or samples_done < max_samples:
-                t_wait = time.monotonic()
-                try:
-                    bsz, device_batch, event = next(feed_iter)
-                except StopIteration:
-                    feed_wait += time.monotonic() - t_wait
+                t_wait, w0 = time.time_ns(), time.monotonic_ns()
+                item = next(feed_iter, None)
+                waited = time.monotonic_ns() - w0
+                feed_wait += waited / 1e9
+                trace.add("train.feed_wait", t_wait, t_wait + waited)
+                if item is None:
                     break
-                feed_wait += time.monotonic() - t_wait
+                bsz, device_batch, event = item
                 self._wait(device_batch, event)
                 if train:
-                    state, metrics = self._train_step(state, device_batch, lr)
+                    with trace.span("train.step", step=state.step):
+                        state, metrics = self._train_step(state, device_batch, lr)
                 else:
                     metrics = self._eval_step(state, device_batch)
-                avg.update(metrics, bsz)
+                with trace.span("train.metrics"):
+                    avg.update(metrics, bsz)
                 samples_done += bsz
                 n_batches += 1
                 if n_batches % self.cfg.log_every == 0:
@@ -388,7 +397,9 @@ class Trainer:
                 "count with drop_remainder=True; shrink batch_size or "
                 "raise mini_epoch_ratio/dataset size")
         t_drain = time.monotonic()
-        stats = summarize_class_stats(avg.result(), self.class_names)
+        with trace.span("train.drain"):
+            result = avg.result()
+        stats = summarize_class_stats(result, self.class_names)
         wall = max(time.monotonic() - t0, 1e-9)
         stats["samples_per_sec"] = avg.count / wall
         stats["num_samples"] = avg.count
@@ -405,16 +416,31 @@ class Trainer:
 
     @contextlib.contextmanager
     def _profiler(self):
-        """torch.profiler over the epoch; the Chrome trace goes to
-        ``profile_dir/trace.json``."""
+        """torch.profiler over the epoch, with the program's spans
+        recorded (``utils/trace``); the Chrome trace goes to
+        ``profile_dir/trace.json``, the spans in it as ``program`` events
+        on the file's own time base, over the device's timeline."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            yield
+        was_on = trace.recording()
+        trace.enable()
+        since = time.time_ns()
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                yield
+        finally:
+            if not was_on:
+                trace.disable()
         out = Path(self.cfg.profile_dir)
         out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace.json"))
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
+        doc = json.loads(path.read_text())
+        doc["traceEvents"].extend(trace.chrome_events(
+            trace.snapshot()["spans"], int(doc.get("baseTimeNanoseconds", 0)),
+            os.getpid(), since))
+        path.write_text(json.dumps(doc))
 
     def fit(self, train_batches_fn: Callable[[int], Iterable],
             val_batches_fn: Optional[Callable[[int], Iterable]] = None,

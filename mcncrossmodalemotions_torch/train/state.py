@@ -39,6 +39,7 @@ from mcncrossmodalemotions_torch.parallel.mesh import (
     DataMesh,
     all_reduce_tensors,
 )
+from mcncrossmodalemotions_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +175,10 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
     global batch); the loss function reads ``pad_total`` (the loss stacks
     of ``zoo`` do), the gradients are summed over the ranks before the
     update, and the metrics returned are the global batch's.
+
+    While ``utils/trace`` records, the step's spans are ``train.forward``,
+    ``train.loss``, ``train.backward`` (``torch.autograd.grad``) and
+    ``train.sgd`` (``apply_sgd_update``).
     """
     policy = resolve_remat_policy(remat_policy)
 
@@ -198,13 +203,18 @@ def make_train_step(loss_fn: LossFn, sgd: SGDConfig = SGDConfig(),
                                  "mesh: its BatchNorm would see one shard")
             kwargs["mesh"] = mesh
             batch = _global_weight(batch, mesh)
-        outputs = model(batch["data"], **kwargs)
-        loss, metrics = loss_fn(outputs, batch)
+        with trace.span("train.forward"):
+            outputs = model(batch["data"], **kwargs)
+        with trace.span("train.loss"):
+            loss, metrics = loss_fn(outputs, batch)
         names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, params)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
         if mesh is not None:
             grads = all_reduce_tensors(grads, mesh)
-        apply_sgd_update(state, dict(zip(names, grads)), lr, sgd, lr_scale_fn)
+        with trace.span("train.sgd"):
+            apply_sgd_update(state, dict(zip(names, grads)), lr, sgd,
+                             lr_scale_fn)
         state.step += 1
         return state, _global_metrics(loss, metrics, mesh)
 

@@ -475,19 +475,19 @@ def test_phases_in_order_and_the_last_line():
 
 def _fake_bench(monkeypatch, rc=0, drop=(), numerics_ok=True):
     """chip_smoke's bench process replaced by one that writes a details
-    file of every ``bench_keys()`` key but ``drop`` and the headline."""
+    file of every ``BENCH_KEYS`` key but ``drop`` and the headline."""
     import json as _json
 
     def run(cmd, cwd, stdout, stderr, timeout):
         assert cmd[1:4] == ["-m", "mcncrossmodalemotions_torch.bench", "--full"]
         out = Path(cmd[cmd.index("--out-dir") + 1])
         out.mkdir(parents=True)
-        details = {k: 1.0 for k in chip_smoke.bench_keys() if k not in drop}
+        details = {k: 1.0 for k in chip_smoke.BENCH_KEYS if k not in drop}
         details["numerics_ok"] = numerics_ok
         (out / "bench_details.json").write_text(_json.dumps(details))
         stdout.write("running ...\n" + _json.dumps(
             {"metric": "distillation_train_throughput", "value": 1880.5,
-             "unit": "utts/sec/chip", "vs_baseline": 31.34}) + "\n")
+             "unit": "utts/sec/chip"}) + "\n")
         return SimpleNamespace(returncode=rc)
 
     monkeypatch.setattr(chip_smoke.subprocess, "run", run)
@@ -496,8 +496,9 @@ def _fake_bench(monkeypatch, rc=0, drop=(), numerics_ok=True):
 def _jax_full_keys() -> set:
     """Every details key the JAX package's ``bench.py --full`` writes,
     read from its source: the ``details[...]`` stores, the
-    ``details.update`` literals, the end-to-end keymaps, the frontend's
-    under the port's names and the link-bound keys' two derived fields."""
+    ``details.update`` literals, the end-to-end keymaps and the frontend's
+    under the port's names, but the host-link health, which the port's
+    bench does not write."""
     import ast
 
     tree = ast.parse((REPO / "bench.py").read_text())
@@ -519,11 +520,14 @@ def _jax_full_keys() -> set:
               and getattr(node.targets[0], "id", None) == "_LINK_BOUND_KEYS"):
             link = tuple(e.value for e in node.value.elts)
     keys |= {"frontend_plain_ms", "frontend_kernel_ms"}  # jnp, pallas
-    return keys | {f"{k}_{s}" for k in link for s in ("per_link_mbps", "best")}
+    # the host-link health and the fields the JAX bench derives from it
+    # for the ``_LINK_BOUND_KEYS`` are the JAX bench's alone
+    assert link and "link_put_mb_per_sec" in keys
+    return keys - {"link_put_mb_per_sec"}
 
 
 def test_bench_phase_holds_the_bench_to_the_jax_keys(tmp_path, monkeypatch):
-    keys = chip_smoke.bench_keys()
+    keys = chip_smoke.BENCH_KEYS
     assert len(set(keys)) == len(keys)
     assert set(keys) == _jax_full_keys()
     _fake_bench(monkeypatch)
