@@ -309,6 +309,18 @@ without the kernels where a comparison applies. Phases:
     into its buffer and with a ragged inner, f32 and bf16; P12 at C = 96
     with even W and with 2 (Wh - 1) == W, at C = 5 with odd and even W,
     and with a misaligned y.
+25. teacher-epilogue: the face teachers' epilogue kernels
+    (``csrc/teacher_epilogue.cu``, ``ops/epilogue.py``) at every shape the
+    full-width teachers launch them at, batch 128 in bf16, each within one
+    bf16 unit in the last place of its plain version: ``affine_relu`` at
+    the stem's output and each stage's inner width, ``affine_squeeze`` and
+    the four tails (gated or not, identity or projection residual) at each
+    stage's output width. At stage 1 and stage 4, ``affine_relu``,
+    ``affine_squeeze`` and the gated identity tail are timed: kernel, plain
+    and library times in turns (the library: ``F.batch_norm`` and what
+    follows it, eagerly), each call's inputs cold in the L2, beside the
+    bound of its bytes. The teacher phase counts their launches: 33 / 16 /
+    16 a SENet50 forward, 33 / 0 / 16 a ResNet50 one.
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
@@ -316,7 +328,8 @@ analysis, teacher, teacher-train, online, verify, ddp, dense-chunked,
 demo, studies, workflow and graft phases (the ddp and graft phases' over
 every rank, the dense-chunked phase's one-process build, the studies'
 processes as each reports them; the bench's processes are not counted),
-the probe kernels' over the probes run, each
+the probe kernels' over the probes run, the epilogue kernels' over the
+teacher phase's golden forwards and its dense build, each
 read between a reset just before and just after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
@@ -459,6 +472,17 @@ STEP_STUDIES = (("probe_masked_bn", "baseline"), ("probe_masked_bn", "masked"),
                 ("probe_remat", "nothing"))
 WORKFLOW_BATCH = 4            # the worked example's distillation batch
 DEMO_BATCH = 16               # the demo's batch
+EPILOGUE_BATCH = 128          # the dense pass's batch
+EPILOGUE_SHAPES = {"stem": (112, 64, None),    # the teachers' h = w, inner
+                   "stage 1": (56, 64, 256),   # and output widths at
+                   "stage 2": (28, 128, 512),  # 224x224 (the stem: its
+                   "stage 3": (14, 256, 1024),  # conv's output)
+                   "stage 4": (7, 512, 2048)}
+EPILOGUE_TIMED = ("stage 1", "stage 4")
+EPILOGUE_TAILS = ((True, False), (True, True),  # (gate, projection): SENet50's
+                  (False, False), (False, True))  # tails, then ResNet50's
+EPILOGUE_COLD_BYTES = 100e6   # a timed call's inputs, rotated over copies,
+                              # are at least this far apart: twice the L2
 GRAFT_GLOO_RANKS = 2          # the graft phase's gloo dry run: both ranks on
                               # the one card
 GRAFT_STEPS = 11              # train steps a dry-run rank takes: the SGD step,
@@ -2124,7 +2148,8 @@ def dense_tree(root: Path, wav_paths: list, frames: int) -> list:
 
 
 def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
-                  dev="cuda") -> tuple:
+                  dev="cuda", epilogue_launches: dict | None = None
+                  ) -> tuple:
     """The teacher's serving path (phase 13): the port's JPEG decoder on
     the card's host against the golden's libjpeg frames and PIL RGB (bit
     for bit); full-width SENet50 and ResNet50 loaded from classic ``.mat``
@@ -2137,7 +2162,10 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     decode-only frames/s at 8 and ``os.cpu_count()`` threads, teacher-only
     frames/s at the card's pace, dense frames/s, the dense run's device
     busy share, device time by op and peak memory; one
-    ``run_distillation`` epoch on the built imdb.
+    ``run_distillation`` epoch on the built imdb. The epilogue kernels'
+    launches over each golden forward and over the one-pass dense build
+    are held to ``teacher_epilogue_launches`` (none on the CPU, where the
+    plain versions run) and added to ``epilogue_launches``.
     Returns that epoch's launch counts and the built imdb (its teacher is
     ``root / "dense.mat"``). With ``dev="cpu"`` (a rehearsal on
     a machine without a card) the golden checks run as they are and the
@@ -2209,8 +2237,11 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
         errs = {}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             model.teacher.dtype = dtype
+            reset_epilogue_counts()
             with torch.inference_mode():
                 got = model(x.to(dev)).float().cpu().numpy()
+            count_epilogues(f"{arch} {tag} forward", use_se, full,
+                            epilogue_launches)
             check(got.shape == ref.shape and bool(np.isfinite(got).all()),
                   f"{arch} {tag}: logits not finite {ref.shape}")
             errs[tag] = float(np.abs(got - ref).max())
@@ -2248,12 +2279,18 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     before = thread_cpu()
+    reset_epilogue_counts()
     t0 = time.perf_counter()
     imdb = build_imdb(tree, model, state, **kw)
     sync(dev)
     dense_s = time.perf_counter() - t0
     after = thread_cpu()
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    forwards = -(-n_frames // batch)
+    count_epilogues(f"dense build ({forwards} forwards)", True, full,
+                    epilogue_launches, forwards=forwards)
+    print(f"  dense: the teacher's prepared weights built "
+          f"{model.teacher.prepared.builds} time(s) so far", flush=True)
     launches = read_counts(wrappers)
     check(not any(launches.values()),
           f"the teacher path launched kernels of the kernel line: {launches}")
@@ -4036,6 +4073,213 @@ def graft_phase(card: str, wrappers: dict, dev="cuda") -> dict:
     return total
 
 
+def epilogue_inputs(kernel: str, b: int, hw: int, c: int, dtype, dev,
+                    seed: int, gate: bool = True, proj: bool = False) -> dict:
+    """One call's inputs of an epilogue kernel in NHWC: y, the
+    BatchNorm's running statistics and affine (s, t) and, for the tail,
+    the residual, the SE gate (``gate``) and the projection's affine
+    (``proj``)."""
+    import torch
+
+    from mcncrossmodalemotions_torch.ops import epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = {"y": torch.randn(b, hw, hw, c, device=dev, generator=gen).to(dtype),
+         "weight": torch.randn(c, device=dev, generator=gen) * 0.5 + 1.0,
+         "bias": torch.randn(c, device=dev, generator=gen),
+         "mean": torch.randn(c, device=dev, generator=gen),
+         "var": torch.rand(c, device=dev, generator=gen) + 0.5}
+    d["s"], d["t"] = epilogue.bn_affine(d["weight"], d["bias"], d["mean"],
+                                        d["var"], 1e-5)
+    if kernel == "affine_gate_add_relu":
+        d["r"] = torch.randn(b, hw, hw, c, device=dev, generator=gen).to(dtype)
+        d["gate"] = (torch.rand(b, c, device=dev, generator=gen).to(dtype)
+                     if gate else None)
+        d["proj"] = (epilogue.bn_affine(
+            torch.randn(c, device=dev, generator=gen) * 0.5 + 1.0,
+            torch.randn(c, device=dev, generator=gen),
+            torch.randn(c, device=dev, generator=gen),
+            torch.rand(c, device=dev, generator=gen) + 0.5, 1e-5)
+            if proj else None)
+    return d
+
+
+def epilogue_calls(kernel: str, d: dict) -> tuple:
+    """(kernel, plain, library) calls on the inputs ``d``; the library's is
+    the eager composition the kernel replaces (``F.batch_norm``, then
+    ``F.relu``; the squeeze's mean; the gate's multiply and the residual
+    add), which the port's fused path never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from mcncrossmodalemotions_torch.ops import epilogue
+
+    y, s, t = d["y"], d["s"], d["t"]
+
+    def bn():
+        return F.batch_norm(y.permute(0, 3, 1, 2), d["mean"], d["var"],
+                            d["weight"], d["bias"], False, 0.0, 1e-5)
+
+    if kernel == "affine_relu":
+        out = y.new_empty(y.shape)
+        return (lambda: epilogue.affine_relu(y, s, t, out=out),
+                lambda: epilogue.affine_relu_plain(y, s, t),
+                lambda: F.relu_(bn()))
+    if kernel == "affine_squeeze":
+        return (lambda: epilogue.affine_squeeze(y, s, t),
+                lambda: epilogue.affine_squeeze_plain(y, s, t),
+                lambda: bn().mean(dim=(2, 3), dtype=torch.float32))
+    out, r, g, proj = y.new_empty(y.shape), d["r"], d["gate"], d["proj"]
+    if g is None or proj is not None:
+        library = None  # timed only gated with an identity residual
+    else:
+        def library():
+            return F.relu_(bn() * g[:, :, None, None] + r.permute(0, 3, 1, 2))
+    return (lambda: epilogue.affine_gate_add_relu(
+                y, s, t, r, gate=g, residual_affine=proj, out=out),
+            lambda: epilogue.affine_gate_add_relu_plain(
+                y, s, t, r, gate=g, residual_affine=proj),
+            library)
+
+
+def epilogue_case(kernel: str, label: str, batch: int, hw: int, c: int,
+                  dev, gate: bool = True, proj: bool = False) -> float:
+    """One shape of an epilogue kernel against its plain version, within
+    one bf16 unit in the last place and 1e-5 of the largest value, in one
+    launch; returns its max abs error."""
+    import torch
+
+    from mcncrossmodalemotions_torch.ops import epilogue
+
+    d = epilogue_inputs(kernel, batch, hw, c, torch.bfloat16, dev,
+                        SEED + hw + c + 2 * gate + proj, gate, proj)
+    call, plain, _ = epilogue_calls(kernel, d)
+    wrapper = getattr(epilogue, kernel)
+    before = wrapper.launches
+    got, ref = call().float(), plain().float()
+    sync(dev)
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    ok = not ((got - ref).abs() > 2.0 ** -7 * ref.abs()
+              + 1e-5 * scale).any().item()
+    tail = (f" ({'gated' if gate else 'no gate'}, "
+            f"{'projection' if proj else 'identity'})"
+            if kernel == "affine_gate_add_relu" else "")
+    print(f"  {kernel}{tail} {label} [{batch}, {hw}, {hw}, {c}] bf16: max "
+          f"abs {err:.3e} of max |plain| {scale:.3f}", flush=True)
+    check(ok, f"{kernel}{tail} {label}: off its plain version")
+    check(wrapper.launches == before + (dev == "cuda"),
+          f"{kernel}{tail} {label}: not one launch")
+    return err
+
+
+def epilogue_bytes(kernel: str, b: int, hw: int, c: int, itemsize: int) -> int:
+    """The least bytes of one call: each input and output moved once."""
+    act, vec = b * hw * hw * c * itemsize, b * c * itemsize
+    return {"affine_relu": 2 * act, "affine_squeeze": act + vec,
+            "affine_gate_add_relu": 3 * act + vec}[kernel]
+
+
+def epilogue_phase(card: str, dev="cuda", batch: int = EPILOGUE_BATCH,
+                   shapes: dict = EPILOGUE_SHAPES,
+                   timed: tuple = EPILOGUE_TIMED) -> dict:
+    """The teachers' epilogue kernels (phase 25) at every shape the
+    full-width teachers launch them at (``shapes``: label -> (h = w, inner
+    width, output width or None)), batch 128, bf16, each against its plain
+    version (``epilogue_case``): ``affine_relu`` at the inner width,
+    ``affine_squeeze`` and the four tails at the output width. At the
+    ``timed`` shapes, on the card, ``affine_relu``, ``affine_squeeze`` and
+    the gated identity tail: the kernel, plain and library times in turns,
+    each timed call's inputs rotated over enough copies that no call finds
+    them in the L2 (``EPILOGUE_COLD_BYTES``), beside the bound of its
+    bytes. Returns, per kernel, [kernel ms, plain ms, library ms, bytes]
+    summed over the timed shapes and the max abs error over every case
+    (times 0 on the CPU, a rehearsal)."""
+    import torch
+
+    rows = {k: [0.0, 0.0, 0.0, 0, 0.0] for k in
+            ("affine_relu", "affine_squeeze", "affine_gate_add_relu")}
+    for label, (hw, inner, out_c) in shapes.items():
+        cases = [("affine_relu", inner, True, False)]
+        if out_c is not None:
+            cases.append(("affine_squeeze", out_c, True, False))
+            cases += [("affine_gate_add_relu", out_c, g, p)
+                      for g, p in EPILOGUE_TAILS]
+        for kernel, c, gate, proj in cases:
+            err = epilogue_case(kernel, label, batch, hw, c, dev, gate, proj)
+            rows[kernel][4] = max(rows[kernel][4], err)
+        if label not in timed:
+            continue
+        for kernel in rows:
+            c = inner if kernel == "affine_relu" else out_c
+            nbytes = epilogue_bytes(kernel, batch, hw, c, 2)
+            rows[kernel][3] += nbytes
+            if dev != "cuda":
+                continue
+            copies = max(1, math.ceil(EPILOGUE_COLD_BYTES / nbytes))
+            sets = [epilogue_inputs(kernel, batch, hw, c, torch.bfloat16, dev,
+                                    SEED + i) for i in range(copies)]
+            calls = [epilogue_calls(kernel, d) for d in sets]
+            turn = [0]
+
+            def rotate(which):
+                def call():
+                    turn[0] = (turn[0] + 1) % copies
+                    return calls[turn[0]][which]()
+                return call
+
+            k, p, lib = turns_ms(rotate(0), rotate(1), rotate(2))
+            for i, v in enumerate((k, p, lib)):
+                rows[kernel][i] += v
+            bound, by = bound_ms(nbytes, 0)
+            print(f"  {card}: {kernel} {label}: kernel {k:.4f} ms, plain "
+                  f"{p:.4f} ms, library {lib:.4f} ms; bound {bound:.4f} ms "
+                  f"({by}, {nbytes / 1e6:.1f} MB), {bound / k:.1%} of it; "
+                  f"{copies} input set(s)", flush=True)
+            del sets, calls
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+EPILOGUE_NAMES = ("affine_relu", "affine_squeeze", "affine_gate_add_relu")
+
+
+def epilogue_counts() -> dict:
+    """The epilogue kernels' launches since they were last reset."""
+    from mcncrossmodalemotions_torch.ops import epilogue
+
+    return {k: getattr(epilogue, k).launches for k in EPILOGUE_NAMES}
+
+
+def reset_epilogue_counts() -> None:
+    from mcncrossmodalemotions_torch.ops import epilogue
+
+    for k in EPILOGUE_NAMES:
+        getattr(epilogue, k).launches = 0
+
+
+def count_epilogues(label: str, use_se: bool, on_card: bool,
+                    total: dict | None, forwards: int = 1) -> None:
+    """Hold the epilogue launches since the last reset to ``forwards``
+    full-width forwards' (none off the card) and add them to ``total``."""
+    got = epilogue_counts()
+    want = teacher_epilogue_launches(use_se, forwards * on_card)
+    print(f"  {label}: epilogue launches {got}", flush=True)
+    check(got == want, f"{label}: epilogue launches {got}, expected {want}")
+    if total is not None:
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+
+def teacher_epilogue_launches(use_se: bool, forwards: int) -> dict:
+    """The epilogue launches of ``forwards`` full-width eval forwards on the
+    card: affine_relu after the stem and twice a bottleneck (1 + 2 x 16),
+    a squeeze a bottleneck with SE, a tail a bottleneck."""
+    return dict(zip(EPILOGUE_NAMES, (33 * forwards, 16 * forwards * use_se,
+                                     16 * forwards)))
+
+
 def kernel_wrappers() -> dict:
     """The kernel line's wrappers by name, each counting its launches."""
     from mcncrossmodalemotions_torch.ops import pool, probes
@@ -4377,8 +4621,10 @@ def main() -> int:
             del student, student_state
 
         with phase("teacher", walls):
+            epilogue_launches = {}
             teacher_counts, dense_imdb = teacher_phase(
-                card, Path(tmp), imdb_paths(imdb), wrappers)
+                card, Path(tmp), imdb_paths(imdb), wrappers,
+                epilogue_launches=epilogue_launches)
 
         with phase("teacher-train", walls):
             teacher_train_counts = teacher_train_phase(card, Path(tmp),
@@ -4428,6 +4674,9 @@ def main() -> int:
         with phase("probes", walls):
             probe_counts = probes_phase(card, wrappers, timings, errs, work)
 
+        with phase("teacher-epilogue", walls):
+            epilogue_rows = epilogue_phase(card)
+
     print("  phase walls (s): " + ", ".join(f"{k} {v:.2f}"
                                             for k, v in walls.items()))
     print(f"  {card}: kernel times summed over the main runs' launch shapes "
@@ -4476,6 +4725,17 @@ def main() -> int:
         print(f"  {card}: {name}: {timings[name][0]:.5f} ms against a bound "
               f"of {bound:.5f} ms ({bound_by}; {bound / timings[name][0]:.1%} "
               f"of it), library call: {library.get(name)}")
+    for name, (k, p, lib, nbytes, err) in epilogue_rows.items():
+        bound, bound_by = bound_ms(nbytes, 0)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": source + "teacher_epilogue.cu", "replaces": None,
+            "launches": epilogue_launches[name], "max_abs_err": err,
+            "ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib})
+        print(f"  {card}: {name}: {k:.5f} ms against a bound of {bound:.5f} "
+              f"ms ({bound_by}; {bound / k:.1%} of it), library call: "
+              f"F.batch_norm and what follows it, eagerly")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

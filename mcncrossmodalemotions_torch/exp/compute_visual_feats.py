@@ -29,7 +29,7 @@ from typing import List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
 
 from mcncrossmodalemotions_torch.data.images import load_frame_batch
 from mcncrossmodalemotions_torch.exp.compute_audio_feats import (
@@ -56,8 +56,14 @@ class VisualFeatureExtractor:
     ``model`` is a ``FaceTeacherPipeline`` (uint8 gray frames in, logits
     out) and ``state`` its ``state_dict`` on any device; ``state`` is copied
     to ``device`` (the card unless the caller asks for ``"cpu"``; without a
-    CUDA device the default raises) and the forward is a
-    ``functional_call`` with it, so ``model``'s own tensors are never read.
+    CUDA device the default raises) and stands in for ``model``'s own
+    tensors, which are never read, through a whole ``frame_logits`` call:
+    ``functional_call``'s swap, made once a call rather than once a batch
+    (swapping SE-ResNet-50's 383 tensors in and out cost the card's host
+    about 3 ms a batch). So for the whole of a ``frame_logits`` call,
+    which may last hours, ``model`` holds the extractor's tensors: do not
+    use it from another thread meanwhile. It is still ``model`` that runs
+    (not a copy), so hooks on it see every batch.
     One prefetch thread decodes batch i+1 while the device runs batch i.
     While ``utils/trace`` records, a batch's spans are ``visual.decode_wait``
     (waiting on the prefetch), ``visual.decode`` (on the prefetch thread),
@@ -125,7 +131,7 @@ class VisualFeatureExtractor:
             if self.device.type == "cuda":
                 x = x.pin_memory().to(self.device, non_blocking=True)
         with trace.span("visual.forward"), torch.inference_mode():
-            return functional_call(self.model, self._state, (x,), strict=True)
+            return self.model(x)
 
     def _decode(self, chunk: Sequence[str]) -> np.ndarray:
         with trace.span("visual.decode"):
@@ -194,7 +200,8 @@ class VisualFeatureExtractor:
             self._settle(partial_path, writer)  # job complete
             return np.concatenate(out) if out else np.zeros((0, 8), np.float32)
         effective_every = max(checkpoint_every, len(chunks) // 20)
-        with ThreadPoolExecutor(max_workers=1) as prefetcher:
+        with ThreadPoolExecutor(max_workers=1) as prefetcher, \
+                _reparametrize_module(self.model, self._state, strict=True):
             future = prefetcher.submit(self._decode,
                                        self._rank_chunk(chunks[0]))
             for ci, chunk in enumerate(chunks):

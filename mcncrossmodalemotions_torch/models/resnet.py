@@ -28,8 +28,15 @@ module names as ``state_dict`` keys) and the same function, op for op:
 
 Compute runs in ``dtype`` (bf16 by default, fp32 for the tests) with fp32
 parameters. Eval-mode BatchNorm reads the running statistics (not folded
-into the convs): ``F.batch_norm`` computes ``(x - mean) * rsqrt(var + eps)
-* scale + bias`` in fp32 and casts to the compute dtype, as Flax does.
+into the convs). Two paths: under autograd, in train mode and on the CPU,
+``F.batch_norm`` computes ``(x - mean) * rsqrt(var + eps) * scale + bias``
+in fp32 and casts to the compute dtype, as Flax does, and the ReLU, the SE
+gate and the residual add follow as their own operations. An eval call on
+the card without autograd takes ``fused_forward``: each BatchNorm becomes
+the fp32 affine ``s y + t`` applied to the raw conv output inside the
+epilogue kernels of ``ops/epilogue.py``, with the ReLU, the SE squeeze,
+gate and residual add, rounded once (``PreparedEval`` holds the affines
+and the compute-dtype weights, built once per weight version).
 Train mode (FER+ fine-tuning) normalises with the batch statistics of the
 rows where ``pad_mask > 0`` and moves the running ones by Flax's rule
 (``models/vggm.batch_norm_train``: fp32 statistics, the biased variance,
@@ -39,7 +46,8 @@ is the unbiased one. ``reset_parameters`` is Flax's scratch init.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +58,7 @@ from mcncrossmodalemotions_torch.models.vggm import (
     dropout,
     lecun_normal_,
 )
+from mcncrossmodalemotions_torch.ops import epilogue
 from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 STAGE_SIZES = {50: (3, 4, 6, 3)}
@@ -76,6 +85,111 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 def stem_pool(x: torch.Tensor) -> torch.Tensor:
     """Caffe pad-(0,1) 3x3/2 max pool (the released teachers' geometry)."""
     return F.max_pool2d(x, 3, 2, padding=0, ceil_mode=True)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The NHWC view of an NCHW-shaped ``channels_last`` tensor."""
+    return x.permute(0, 2, 3, 1)
+
+
+def _affine_relu_(y: torch.Tensor, st: tuple, stream: Optional[int]) -> None:
+    """``relu(s y + t)`` in place over a ``channels_last`` conv output."""
+    yn = _nhwc(y)
+    epilogue.affine_relu(yn, *st, out=yn, stream=stream)
+
+
+# Submodules assigned anywhere in the process (``Module.__setattr__`` and
+# ``add_module`` call the hook): ``PreparedEval`` walks a model's modules
+# again only when this count has moved, not at every call (the walk costs
+# the host about three times the rest of its check).
+_module_registrations = [0]
+
+
+def _count_module_registration(module, name, submodule) -> None:
+    _module_registrations[0] += 1
+
+
+torch.nn.modules.module.register_module_module_registration_hook(
+    _count_module_registration)
+
+
+class PreparedEval:
+    """What the fused eval forward reads instead of the module's tensors,
+    built from the tensors in use (under ``functional_call``, the state's):
+    each BatchNorm's fp32 ``(s, t)`` (``epilogue.bn_affine``), each conv
+    weight in the compute dtype and ``channels_last`` memory (cuDNN's own
+    layout for a ``channels_last`` input, so no call copies it), the SE
+    weights and biases in the compute dtype.
+
+    Kept until a tensor in use is another object (a replaced submodule
+    brings its own: the modules are walked again after any submodule is
+    assigned), or its ``_version`` (an in-place update,
+    ``load_state_dict``) or its ``data_ptr()`` (a ``.data`` assignment,
+    ``module.to``) changes, or the device or dtype does. ``builds`` counts the builds. A model whose
+    tensors are inference tensors (made under ``torch.inference_mode``,
+    which tracks no versions) is rebuilt at every call."""
+
+    def __init__(self):
+        self.builds = 0
+        self._walked: Optional[int] = None  # _module_registrations then
+        self._slots: List[tuple] = []  # (dict, name) of each tensor in use
+        self._stamp: Optional[tuple] = None
+        self._tensors: List[torch.Tensor] = []
+        self.stem: tuple = ()
+        self.blocks: List[dict] = []
+
+    def __getstate__(self) -> dict:
+        return {"builds": self.builds}  # a copy starts with no cache
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__()
+        self.builds = state["builds"]
+
+    def get(self, model: "ResNet", device: torch.device) -> "PreparedEval":
+        if self._walked != _module_registrations[0]:
+            self._walked = _module_registrations[0]
+            self._slots = [(d, n) for m in model.modules()
+                           for d in (m._parameters, m._buffers)
+                           for n, v in d.items()
+                           if v is not None and n != "num_batches_tracked"]
+        tensors = [d[n] for d, n in self._slots]
+        try:
+            stamp = (device, model.dtype,
+                     tuple([(v._version, v.data_ptr()) for v in tensors]))
+        except RuntimeError:  # inference tensors keep no version
+            stamp = None
+        if (stamp is None or stamp != self._stamp
+                or any(a is not b for a, b in zip(tensors, self._tensors))):
+            with torch.inference_mode(False), torch.no_grad():
+                self._build(model)
+            self._tensors, self._stamp = tensors, stamp
+        return self
+
+    def _build(self, model: "ResNet") -> None:
+        dt = model.dtype
+
+        def conv(c: nn.Conv2d) -> torch.Tensor:
+            return c.weight.to(dt).contiguous(memory_format=torch.channels_last)
+
+        def bn(b: nn.BatchNorm2d) -> tuple:
+            return epilogue.bn_affine(b.weight, b.bias, b.running_mean,
+                                      b.running_var, b.eps)
+
+        self.stem = (conv(model.conv1), bn(model.bn1))
+        self.blocks = []
+        for name in model.blocks:
+            blk = getattr(model, name)
+            p = {"conv1": conv(blk.conv1), "bn1": bn(blk.bn1),
+                 "conv2": conv(blk.conv2), "bn2": bn(blk.bn2),
+                 "conv3": conv(blk.conv3), "bn3": bn(blk.bn3)}
+            if blk.project:
+                p["down"], p["bn_down"] = conv(blk.downsample), bn(blk.bn_down)
+            if blk.se is not None:
+                p["se"] = tuple(v.to(dt) for v in (
+                    blk.se.fc1.weight, blk.se.fc1.bias,
+                    blk.se.fc2.weight, blk.se.fc2.bias))
+            self.blocks.append(p)
+        self.builds += 1
 
 
 class SEBlock(nn.Module):
@@ -133,6 +247,33 @@ class Bottleneck(nn.Module):
             residual = _bn(_conv(x, self.downsample), self.bn_down, **bn)
         return F.relu(y + residual)
 
+    def fused_forward(self, x: torch.Tensor, p: dict,
+                      stream: Optional[int]) -> torch.Tensor:
+        """Eval without autograd: the convs with ``p``'s weights
+        (``PreparedEval``), each BatchNorm and what follows it in one
+        epilogue kernel (``ops/epilogue.py``), written over the conv
+        outputs."""
+        y = F.conv2d(x, p["conv1"], None, self.conv1.stride)
+        _affine_relu_(y, p["bn1"], stream)
+        y = F.conv2d(y, p["conv2"], None, 1, 1)
+        _affine_relu_(y, p["bn2"], stream)
+        y = _nhwc(F.conv2d(y, p["conv3"]))
+        gate = None
+        if self.se is not None:
+            w1, b1, w2, b2 = p["se"]
+            squeezed = epilogue.affine_squeeze(y, *p["bn3"], stream=stream)
+            gate = torch.sigmoid(F.linear(F.linear(squeezed, w1, b1).relu_(),
+                                          w2, b2))
+        if self.project:
+            down = F.conv2d(x, p["down"], None, self.downsample.stride)
+            out = epilogue.affine_gate_add_relu(
+                y, *p["bn3"], _nhwc(down), gate=gate,
+                residual_affine=p["bn_down"], out=y, stream=stream)
+        else:
+            out = epilogue.affine_gate_add_relu(y, *p["bn3"], _nhwc(x),
+                                                gate=gate, out=y, stream=stream)
+        return out.permute(0, 3, 1, 2)
+
 
 class ResNet(nn.Module):
     """ResNet-v1 with optional SE blocks; 8-way emotion head by default
@@ -168,6 +309,7 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 in_features = features * 4
         self.prediction = nn.Linear(in_features, num_outputs)
+        self.prepared = PreparedEval()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -197,7 +339,10 @@ class ResNet(nn.Module):
         updates the running ones, and draws the dropout from
         ``generator``; under ``mesh`` both are the global batch's. The
         weights come from ``load_state_dict`` (the bridge, a release) or
-        ``reset_parameters``."""
+        ``reset_parameters``. An eval call on the card without autograd
+        takes ``fused_forward``."""
+        if not train and x.is_cuda and not torch.is_grad_enabled():
+            return self.fused_forward(x, return_embedding)
         bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
         x = F.relu(_bn(_conv(x, self.conv1), self.bn1, **bn))
@@ -210,6 +355,32 @@ class ResNet(nn.Module):
             x = dropout(x, self.dropout_rate, generator, mesh)
         logits = F.linear(x, self.prediction.weight.float(),
                           self.prediction.bias.float())
+        if return_embedding:
+            return logits, embedding
+        return logits
+
+    def fused_forward(self, x: torch.Tensor, return_embedding: bool = False):
+        """The eval forward with the epilogue kernels (their plain versions
+        for a CPU tensor, as the tests call it): each conv's BatchNorm,
+        ReLU, SE squeeze and gate and residual add applied by
+        ``ops/epilogue.py`` to the raw conv output with the affines and
+        weights of ``self.prepared``, built once per weight version. The
+        stream is read once, and the device entered once, a call."""
+        cuda = x.is_cuda
+        with torch.cuda.device(x.device) if cuda else contextlib.nullcontext():
+            p = self.prepared.get(self, x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream if cuda \
+                else None
+            x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
+            w, st = p.stem
+            y = F.conv2d(x, w, None, self.conv1.stride, self.conv1.padding)
+            _affine_relu_(y, st, stream)
+            x = stem_pool(y)
+            for name, bp in zip(self.blocks, p.blocks):
+                x = getattr(self, name).fused_forward(x, bp, stream)
+            embedding = x.mean(dim=(2, 3), dtype=torch.float32)
+            logits = F.linear(embedding, self.prediction.weight.float(),
+                              self.prediction.bias.float())
         if return_embedding:
             return logits, embedding
         return logits

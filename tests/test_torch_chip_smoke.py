@@ -37,6 +37,9 @@
   bounded-worker build bitwise one process's, the soak's three builds);
   it runs after ``ddp`` and before ``probes``, and its counts join the
   kernel line's.
+- The teacher-epilogue phase rehearses on the CPU at small shapes (the
+  plain versions against themselves, the byte counts of its bounds); it
+  runs after ``probes``.
 - The bench phase passes a bench run whose details hold every key of the
   JAX bench's ``--full`` run with ``numerics_ok`` true, and fails one that
   exits non-zero, lacks a key or fails its numerics (the bench itself is
@@ -449,7 +452,8 @@ def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
 def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
     online, ddp after verify, dense-chunked after ddp, bench and demo after
-    it, studies, workflow and graft after demo and before probes,
+    it, studies, workflow and graft after demo and before probes, the
+    teacher epilogues after probes,
     their counts join the kernel line's launches, no phase runs inside an
     exception handler, and the device line is printed last."""
     import ast
@@ -463,7 +467,8 @@ def test_phases_in_order_and_the_last_line():
                       "k2-backward", "train", "distill", "reader", "release",
                       "analysis", "teacher", "teacher-train", "online",
                       "verify", "ddp", "dense-chunked", "bench", "demo",
-                      "studies", "workflow", "graft", "probes"]
+                      "studies", "workflow", "graft", "probes",
+                      "teacher-epilogue"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
                    "ddp_counts", "dense_chunked_counts", "demo_counts",
                    "studies_counts", "workflow_counts", "graft_counts"):
@@ -471,6 +476,48 @@ def test_phases_in_order_and_the_last_line():
     assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
     last = ast.get_source_segment(src, main).rstrip().splitlines()[-5:]
     assert 'json.dumps({"ok": True, "device": {' in "\n".join(last)
+
+
+def test_epilogue_phase_rehearses_on_the_cpu(capsys):
+    """The epilogue phase at small shapes on the CPU (plain versions, no
+    times): affine_relu checked at the stem's and each stage's shape, the
+    squeeze and the four tails at each stage's; its byte counts, over the
+    timed shapes only, are each input and output moved once."""
+    rows = chip_smoke.epilogue_phase(
+        "cpu", dev="cpu", batch=2,
+        shapes={"stem": (9, 16, None), "tiny": (5, 16, 64),
+                "untimed": (3, 32, 128)}, timed=("tiny",))
+    assert sorted(rows) == ["affine_gate_add_relu", "affine_relu",
+                            "affine_squeeze"]
+    act = 2 * 5 * 5 * 64 * 2
+    assert rows["affine_relu"][3] == 2 * act // 4  # at the inner width
+    assert rows["affine_squeeze"][3] == act + 2 * 64 * 2
+    assert rows["affine_gate_add_relu"][3] == 3 * act + 2 * 64 * 2
+    assert all(r[:3] == [0.0, 0.0, 0.0] for r in rows.values())
+    out = capsys.readouterr().out
+    assert "affine_relu stem [2, 9, 9, 16]" in out
+    for label, hw, c in (("tiny", 5, 64), ("untimed", 3, 128)):
+        assert f"affine_squeeze {label} [2, {hw}, {hw}, {c}]" in out
+        for tail in ("gated, identity", "gated, projection",
+                     "no gate, identity", "no gate, projection"):
+            assert (f"affine_gate_add_relu ({tail}) {label} "
+                    f"[2, {hw}, {hw}, {c}]") in out
+
+
+def test_teacher_epilogue_launches_are_counted_a_forward():
+    """chip_smoke's count of a full-width forward's epilogue launches: 33
+    / 16 / 16 for SENet50, 33 / 0 / 16 for ResNet50, and a wrong count
+    fails the phase."""
+    assert chip_smoke.teacher_epilogue_launches(True, 2) == {
+        "affine_relu": 66, "affine_squeeze": 32, "affine_gate_add_relu": 32}
+    assert chip_smoke.teacher_epilogue_launches(False, 1) == {
+        "affine_relu": 33, "affine_squeeze": 0, "affine_gate_add_relu": 16}
+    total = {}
+    chip_smoke.reset_epilogue_counts()
+    chip_smoke.count_epilogues("cpu", True, False, total)  # nothing launched
+    assert total == dict.fromkeys(chip_smoke.EPILOGUE_NAMES, 0)
+    with pytest.raises(chip_smoke.SmokeFailure, match="epilogue launches"):
+        chip_smoke.count_epilogues("card", True, True, total)
 
 
 def _fake_bench(monkeypatch, rc=0, drop=(), numerics_ok=True):

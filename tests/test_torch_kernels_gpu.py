@@ -9,11 +9,18 @@ machine without it:
 (``--noconftest``: tests/conftest.py imports jax.)
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from mcncrossmodalemotions_torch.ops import pool, probes, spectrogram_kernel
+from mcncrossmodalemotions_torch.ops import (
+    epilogue,
+    pool,
+    probes,
+    spectrogram_kernel,
+)
 from mcncrossmodalemotions_torch.ops.spectrogram import (
     DEFAULT_SPEC,
     SpecConfig,
@@ -675,3 +682,244 @@ def test_remat_policy_launches_and_state(cuda, policy):
         assert torch.equal(remat.model.state_dict()[k], v), k
     for k, v in plain.velocity.items():
         assert torch.equal(remat.velocity[k], v), k
+
+
+# The teachers' epilogue kernels (ops/epilogue.py). Per stage of the
+# full-width teachers: (h = w, the bottleneck's inner width, its output
+# width); stage 0 is the stem conv's output.
+EPILOGUE_STAGES = {0: (112, 64, None), 1: (56, 64, 256), 2: (28, 128, 512),
+                   3: (14, 256, 1024), 4: (7, 512, 2048)}
+EPILOGUE_KERNELS = ["affine_relu", "affine_squeeze", "tail", "tail_gate",
+                    "tail_proj", "tail_gate_proj"]
+TEACHER_GOLDEN = (Path(__file__).resolve().parent / "fixtures"
+                  / "torch_teacher_golden.npz")
+TEACHER_FP32_RTOL = 2e-3  # chip_smoke's gates against the JAX golden
+TEACHER_BF16_RTOL = 1e-2
+
+
+def _epilogue_args(kernel, shape, dtype, device, seed, offset=0):
+    """The kernel's inputs (y, s, t and the tail's residual, gate and
+    projection affine) with y and the residual placed ``offset`` elements
+    into a buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    b, c = shape[0], shape[3]
+
+    def act():
+        buf = torch.empty(int(np.prod(shape)) + offset, dtype=dtype,
+                          device=device)
+        view = buf[offset:].view(shape)
+        view.copy_(torch.randn(shape, generator=gen).to(dtype))
+        return view
+
+    def affine():
+        s = (torch.randn(c, generator=gen) * 0.5 + 1.0).to(device)
+        return s, torch.randn(c, generator=gen).to(device)
+
+    y = act()
+    s, t = affine()
+    kw = {}
+    if kernel.startswith("tail"):
+        kw["residual"] = act()
+        if "gate" in kernel:
+            kw["gate"] = torch.rand(b, c, generator=gen).to(dtype).to(device)
+        if "proj" in kernel:
+            kw["residual_affine"] = affine()
+    return y, s, t, kw
+
+
+def _epilogue_call(kernel, y, s, t, kw, plain=False):
+    if kernel == "affine_relu":
+        fn = epilogue.affine_relu_plain if plain else epilogue.affine_relu
+        return fn(y, s, t)
+    if kernel == "affine_squeeze":
+        fn = epilogue.affine_squeeze_plain if plain else epilogue.affine_squeeze
+        return fn(y, s, t)
+    kw = dict(kw)
+    r = kw.pop("residual")
+    if plain:
+        return epilogue.affine_gate_add_relu_plain(y, s, t, r, **kw)
+    return epilogue.affine_gate_add_relu(y, s, t, r, **kw)
+
+
+def _wrapper(kernel):
+    return {"affine_relu": epilogue.affine_relu,
+            "affine_squeeze": epilogue.affine_squeeze}.get(
+                kernel, epilogue.affine_gate_add_relu)
+
+
+def _epilogue_matches_plain(kernel, y, s, t, kw):
+    """The kernel against its plain version: within one unit in the last
+    place of the output type (a fused multiply-add against a multiply and
+    an add, another summation order) and 1e-5 of the largest value."""
+    wrapper = _wrapper(kernel)
+    before = wrapper.launches
+    got = _epilogue_call(kernel, y, s, t, kw)
+    ref = _epilogue_call(kernel, y, s, t, kw, plain=True)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype == y.dtype
+    ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 2.0 ** -22
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    bad = (got - ref).abs() > ulp * ref.abs() + 1e-5 * scale
+    assert not bad.any().item(), (got[bad][:8], ref[bad][:8])
+    assert torch.isfinite(got).all().item()
+
+
+@pytest.mark.parametrize("batch", [128, 3])
+@pytest.mark.parametrize("kernel,stage", [
+    (k, stage) for stage in EPILOGUE_STAGES for k in EPILOGUE_KERNELS
+    if stage or k == "affine_relu"])  # the stem's output: affine_relu alone
+def test_epilogue_kernels_match_plain_at_the_teachers_shapes(
+        cuda, kernel, stage, batch):
+    """bf16 at each stage's full width: affine_relu at the inner width
+    (and the stem's output), the squeeze and the tails at the output's."""
+    hw, inner, out = EPILOGUE_STAGES[stage]
+    c = inner if kernel == "affine_relu" else out
+    y, s, t, kw = _epilogue_args(kernel, (batch, hw, hw, c), torch.bfloat16,
+                                 cuda, seed=stage * 10 + batch)
+    _epilogue_matches_plain(kernel, y, s, t, kw)
+
+
+@pytest.mark.parametrize("kernel", EPILOGUE_KERNELS)
+def test_epilogue_kernels_fp32(cuda, kernel):
+    """The fp32 kernels (the teachers' fp32 forward), 4 elements a lane."""
+    y, s, t, kw = _epilogue_args(kernel, (3, 14, 14, 1024), torch.float32,
+                                 cuda, seed=7)
+    _epilogue_matches_plain(kernel, y, s, t, kw)
+
+
+@pytest.mark.parametrize("dtype,shape,offset", [
+    (torch.bfloat16, (2, 5, 7, 12), 0),     # 24 bytes a pixel
+    (torch.bfloat16, (2, 5, 7, 16), 1),     # base 2 bytes off
+    (torch.float32, (2, 5, 7, 6), 0),       # 24 bytes a pixel
+    (torch.float32, (2, 5, 7, 8), 2)])      # base 8 bytes off
+@pytest.mark.parametrize("kernel", EPILOGUE_KERNELS)
+def test_epilogue_kernels_refuse_narrow_or_misaligned(cuda, kernel, dtype,
+                                                      shape, offset):
+    """No narrower path: C x the element size not a multiple of 16 bytes,
+    or y and the residual off 16-byte alignment, raise and launch
+    nothing."""
+    y, s, t, kw = _epilogue_args(kernel, shape, dtype, cuda, seed=sum(shape),
+                                 offset=offset)
+    wrapper = _wrapper(kernel)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        _epilogue_call(kernel, y, s, t, kw)
+    assert wrapper.launches == before
+
+
+def test_epilogue_in_place_is_the_same_as_apart(cuda):
+    """``out=y`` (the teachers' use) writes what a new tensor gets."""
+    for kernel in ("affine_relu", "tail_gate_proj"):
+        y, s, t, kw = _epilogue_args(kernel, (4, 14, 14, 256), torch.bfloat16,
+                                     cuda, seed=3)
+        apart = _epilogue_call(kernel, y, s, t, kw)
+        fn = _wrapper(kernel)
+        args = (y, s, t) if kernel == "affine_relu" else (
+            y, s, t, kw.pop("residual"))
+        assert fn(*args, **kw, out=y) is y
+        torch.cuda.synchronize()
+        assert torch.equal(y, apart)
+
+
+def test_epilogue_kernels_refuse_what_they_do_not_take(cuda):
+    y, s, t, kw = _epilogue_args("tail_gate_proj", (2, 7, 7, 64),
+                                 torch.bfloat16, cuda, seed=1)
+    r = kw["residual"]
+    nchw = y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        epilogue.affine_relu(nchw, s, t)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        epilogue.affine_squeeze(y[:, :, :, :32], s[:32], t[:32])
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        epilogue.affine_relu(y.half(), s, t)
+    with pytest.raises(ValueError, match="fp32"):
+        epilogue.affine_relu(y, s[:32], t[:32])
+    with pytest.raises(ValueError, match="fp32"):
+        epilogue.affine_squeeze(y, s.cpu(), t.cpu())
+    with pytest.raises(ValueError, match="fp32"):
+        epilogue.affine_relu(y, s.to(torch.bfloat16), t)
+    with pytest.raises(ValueError, match="gate"):
+        epilogue.affine_gate_add_relu(y, s, t, r, gate=kw["gate"][:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.affine_gate_add_relu(y, s, t, r.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.affine_gate_add_relu(y, s, t, nchw)
+    with pytest.raises(ValueError, match="fp32"):
+        epilogue.affine_gate_add_relu(y, s, t, r, residual_affine=(s[:8], t))
+
+
+def _full_teacher(use_se, dtype, cuda):
+    from mcncrossmodalemotions_torch.models.resnet import ResNet
+
+    model = ResNet(use_se=use_se, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(cuda).eval()
+
+
+@pytest.mark.parametrize("use_se", [True, False], ids=["senet50", "resnet50"])
+def test_teacher_eval_forward_launches_the_epilogues(cuda, use_se):
+    """One full-width eval forward at batch 128 without autograd: 33
+    affine_relu (the stem, two a bottleneck), 16 squeezes with SE and 16
+    tails; the prepared weights built once over two calls; an eval call
+    under autograd launches none."""
+    model = _full_teacher(use_se, torch.bfloat16, cuda)
+    x = torch.randn(128, 224, 224, 3, device=cuda) * 60
+    wrappers = (epilogue.affine_relu, epilogue.affine_squeeze,
+                epilogue.affine_gate_add_relu)
+    for _ in range(2):
+        before = [w.launches for w in wrappers]
+        with torch.inference_mode():
+            logits = model(x)
+        torch.cuda.synchronize()
+        assert [w.launches - b for w, b in zip(wrappers, before)] == \
+            [33, 16 if use_se else 0, 16]
+    assert logits.shape == (128, 8) and torch.isfinite(logits).all().item()
+    assert model.prepared.builds == 1
+    before = [w.launches for w in wrappers]
+    model(x[:2]).sum().backward()
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("arch", ["senet50", "resnet50"])
+def test_teacher_eval_forward_holds_the_golden(cuda, arch, dtype):
+    """The fused forward on the golden's four frames against the JAX
+    package's fp32 logits: fp32 (TF32 off) within 2e-3 x max|golden|, bf16
+    within max(2 x JAX's own bf16 error, 1e-2 x max|golden|), chip_smoke's
+    teacher gates."""
+    from mcncrossmodalemotions_torch.models.resnet import ResNet
+    from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_torch.zoo.bridge import (
+        random_teacher_variables,
+        teacher_state_dict_from_flax,
+    )
+
+    gold = np.load(TEACHER_GOLDEN)
+    frames = gold["frames_crop0625"][gold["logit_index"]][..., None]
+    use_se = arch == "senet50"
+    v = random_teacher_variables(seed=0, use_se=use_se)
+    state = teacher_state_dict_from_flax(
+        {"params": {"teacher": v["params"]},
+         "batch_stats": {"teacher": v["batch_stats"]}})
+    model = FaceTeacherPipeline(ResNet(use_se=use_se, dtype=dtype))
+    model.load_state_dict(state)
+    model = model.to(cuda).eval()
+    before = epilogue.affine_gate_add_relu.launches
+    with torch.no_grad():
+        got = model(torch.from_numpy(frames).to(cuda)).cpu().numpy()
+    assert epilogue.affine_gate_add_relu.launches == before + 16
+    ref = gold[f"logits_{arch}_fp32"]
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    if dtype == torch.float32:
+        gate = TEACHER_FP32_RTOL * scale
+    else:
+        jax_bf16 = float(np.abs(gold[f"logits_{arch}_bf16"] - ref).max())
+        gate = max(2 * jax_bf16, TEACHER_BF16_RTOL * scale)
+    print(f"{arch} {dtype}: max abs {err:.3e}, gate {gate:.3e}")
+    assert err <= gate
