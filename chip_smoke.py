@@ -113,7 +113,14 @@ without the kernels where a comparison applies. Phases:
     card by ``load_pretrained_teacher(with_pipeline=True)``: logits on the
     golden's four frames within 2e-3 x max|golden| of the JAX package's
     in fp32 (TF32 off), and in bf16 within max(2 x JAX's own bf16 error,
-    1e-2 x max|golden|); the dense build (``build_imdb``, SENet50 bf16,
+    1e-2 x max|golden|); full-width VGG-VD-16 as ``vgg-vd-face-fer``
+    (``vgg16_golden``: ``random_vggface_variables``' seeded weights, conv
+    biases, no BatchNorm) on the same frames, its fused eval forward in
+    fp32 within 2e-3 x max|logit| and in bf16 within max(2 x the unfused
+    bf16 forward's own error, 1e-2 x max|logit|) of its unfused fp32
+    forward (TF32 off), and both within the SENet50 gates of the JAX
+    package's fp32 logits (``tests/fixtures/torch_vgg16_golden.npz``); the
+    dense build (``build_imdb``, SENet50 bf16,
     batch 128) over the smoke's 126 tracks with 16 fixture frames each
     (2,016 frames, the last batch padded): a 1,024-frame bounded call and
     its resume bitwise equal to one pass, which launches none of the
@@ -319,8 +326,12 @@ without the kernels where a comparison applies. Phases:
     ``affine_squeeze`` and the gated identity tail are timed: kernel, plain
     and library times in turns (the library: ``F.batch_norm`` and what
     follows it, eagerly), each call's inputs cold in the L2, beside the
-    bound of its bytes. The teacher phase counts their launches: 33 / 16 /
-    16 a SENet50 forward, 33 / 0 / 16 a ResNet50 one.
+    bound of its bytes. ``affine_relu_pool2x2`` is checked and timed the
+    same way at VGG-VD-16's five block-end conv outputs (``VD16_POOL_SHAPES``,
+    every other channel's scale negative; the library: ``F.batch_norm``,
+    ``F.relu_`` and ``F.max_pool2d``). The teacher phase counts their
+    launches: 33 / 16 / 16 / 0 a SENet50 forward, 33 / 0 / 16 / 0 a
+    ResNet50 one, 10 / 0 / 0 / 5 a VGG-VD-16 one.
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
@@ -384,6 +395,7 @@ FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 dense, tensor cores
 FIXTURES = ROOT / "tests" / "fixtures"
 TEACHER_GOLDEN = FIXTURES / "torch_teacher_golden.npz"
+VGG16_GOLDEN = FIXTURES / "torch_vgg16_golden.npz"  # the JAX VGG-VD-16's
 FACES = FIXTURES / "torch_faces"
 TEACHER_BATCH = 128           # compute_visual_feats.m:83-98
 TEACHER_FP32_RTOL = 2e-3      # fp32 convs, TF32 off, against the JAX golden
@@ -481,6 +493,13 @@ EPILOGUE_SHAPES = {"stem": (112, 64, None),    # the teachers' h = w, inner
 EPILOGUE_TIMED = ("stage 1", "stage 4")
 EPILOGUE_TAILS = ((True, False), (True, True),  # (gate, projection): SENet50's
                   (False, False), (False, True))  # tails, then ResNet50's
+VD16_POOL_SHAPES = {"block 1": (224, 64),   # VGG-VD-16's block-end conv
+                    "block 2": (112, 128),  # outputs at 224x224 (h = w,
+                    "block 3": (56, 256),   # c), which affine_relu_pool2x2
+                    "block 4": (28, 512),   # reads
+                    "block 5": (14, 512)}
+VD16_GOLDEN_WIDTH = 1 / 16    # the CPU rehearsal's VGG-VD-16 (full width on
+                              # the card)
 EPILOGUE_COLD_BYTES = 100e6   # a timed call's inputs, rotated over copies,
                               # are at least this far apart: twice the L2
 GRAFT_GLOO_RANKS = 2          # the graft phase's gloo dry run: both ranks on
@@ -2147,6 +2166,94 @@ def dense_tree(root: Path, wav_paths: list, frames: int) -> list:
     return sorted(speakers)
 
 
+def vgg16_golden(card: str, frames, dev, epilogue_launches: dict | None
+                 ) -> None:
+    """VGG-VD-16 as ``vgg-vd-face-fer`` (conv biases, no BatchNorm) with
+    ``random_vggface_variables``' seeded weights in a ``FaceTeacherPipeline``
+    with the vgg_face mean, on the golden's frames: the fused eval forward
+    (``VGGFace.fused_forward``) in fp32 and in bf16 against the same
+    weights' unfused fp32 forward (autograd on, so unfused; TF32 off), fp32
+    within ``TEACHER_FP32_RTOL`` x its largest logit, bf16 within max(2 x
+    the unfused bf16 forward's own error, ``TEACHER_BF16_RTOL`` x it). On
+    the card, at full width, both fused forwards are also held to the JAX
+    package's fp32 logits of the same weights and frames
+    (``VGG16_GOLDEN``): fp32 within ``TEACHER_FP32_RTOL`` x max|golden|,
+    bf16 within max(2 x JAX's own bf16 error, ``TEACHER_BF16_RTOL`` x it).
+    Each fused forward's epilogue launches are held to 10 affine_relu and 5
+    affine_relu_pool2x2 and added to ``epilogue_launches``. Full width on
+    the card; width 1/16 on the CPU (a rehearsal, no launches, no JAX
+    golden)."""
+    import numpy as np
+    import torch
+
+    from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_torch.zoo import (
+        build_teacher,
+        random_vggface_variables,
+        teacher_state_dict_from_flax,
+    )
+
+    full = dev == "cuda"
+    tiny = {} if full else {"width_multiplier": VD16_GOLDEN_WIDTH,
+                            "fc_features": 64}
+    v = random_vggface_variables(seed=SEED, arch="vd", use_batchnorm=False,
+                                 **tiny)
+    model = FaceTeacherPipeline(build_teacher("vgg-vd-face-fer", tiny=not full),
+                                mean_rgb=(129.1863, 104.7624, 93.594),
+                                augment=False)
+    model.load_state_dict(teacher_state_dict_from_flax(
+        {"params": {"teacher": v["params"]}}), strict=True)
+    model = model.to(dev).eval()
+    x = frames.to(dev)
+    got = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model.teacher.dtype = dtype
+        with torch.enable_grad():
+            got[f"unfused {tag}"] = model(x).detach().float().cpu().numpy()
+        reset_epilogue_counts()
+        with torch.inference_mode():
+            got[tag] = model(x).float().cpu().numpy()
+        count_epilogues(f"vgg16 {tag} fused forward", "vgg16", full,
+                        epilogue_launches)
+    ref = got["unfused fp32"]
+    scale = float(np.abs(ref).max())
+    err = {k: float(np.abs(got[k] - ref).max())
+           for k in ("fp32", "bf16", "unfused bf16")}
+    bf16_gate = max(2 * err["unfused bf16"], TEACHER_BF16_RTOL * scale)
+    print(f"  {card}: vgg16 (vgg-vd-face-fer, {'full width' if full else 'width 1/16'}"
+          f"): fused forward vs the unfused fp32 one (max |logit| {scale:.4f}): "
+          f"fp32 max abs {err['fp32']:.3e} (gate "
+          f"{TEACHER_FP32_RTOL * scale:.3e}), bf16 {err['bf16']:.3e} (gate "
+          f"{bf16_gate:.3e}; the unfused bf16 forward's own "
+          f"{err['unfused bf16']:.3e}); prepared weights built "
+          f"{model.teacher.prepared.builds} time(s)", flush=True)
+    check(bool(np.isfinite(got["bf16"]).all()), "vgg16 logits not finite")
+    check(err["fp32"] <= TEACHER_FP32_RTOL * scale,
+          "vgg16 fused fp32 logits off the unfused fp32 forward")
+    check(err["bf16"] <= bf16_gate,
+          "vgg16 fused bf16 logits off the unfused fp32 forward")
+    if full:
+        check(model.teacher.prepared.builds == 2,
+              "vgg16: not one build a dtype")
+        jgold = np.load(VGG16_GOLDEN)
+        jref = jgold["logits_vgg16_fp32"]
+        jscale = float(np.abs(jref).max())
+        jax_bf16 = float(np.abs(jgold["logits_vgg16_bf16"] - jref).max())
+        jerr = {k: float(np.abs(got[k] - jref).max()) for k in ("fp32", "bf16")}
+        jgate = max(2 * jax_bf16, TEACHER_BF16_RTOL * jscale)
+        print(f"  {card}: vgg16 fused forward vs the JAX golden (max |golden| "
+              f"{jscale:.4f}): fp32 max abs {jerr['fp32']:.3e} (gate "
+              f"{TEACHER_FP32_RTOL * jscale:.3e}), bf16 {jerr['bf16']:.3e} "
+              f"(gate {jgate:.3e}; JAX's own bf16 vs fp32 {jax_bf16:.3e})",
+              flush=True)
+        check(jerr["fp32"] <= TEACHER_FP32_RTOL * jscale,
+              "vgg16 fused fp32 logits off the JAX golden")
+        check(jerr["bf16"] <= jgate,
+              "vgg16 fused bf16 logits off the JAX golden")
+
+
 def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
                   dev="cuda", epilogue_launches: dict | None = None
                   ) -> tuple:
@@ -2240,7 +2347,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
             reset_epilogue_counts()
             with torch.inference_mode():
                 got = model(x.to(dev)).float().cpu().numpy()
-            count_epilogues(f"{arch} {tag} forward", use_se, full,
+            count_epilogues(f"{arch} {tag} forward", arch, full,
                             epilogue_launches)
             check(got.shape == ref.shape and bool(np.isfinite(got).all()),
                   f"{arch} {tag}: logits not finite {ref.shape}")
@@ -2256,6 +2363,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
               f"{arch} fp32 logits off the golden")
         check(errs["bf16"] <= bf16_gate, f"{arch} bf16 logits off the golden")
         del model, state
+    vgg16_golden(card, x, dev, epilogue_launches)
     if dev == "cuda":
         torch.cuda.empty_cache()
 
@@ -2287,7 +2395,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     after = thread_cpu()
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     forwards = -(-n_frames // batch)
-    count_epilogues(f"dense build ({forwards} forwards)", True, full,
+    count_epilogues(f"dense build ({forwards} forwards)", "senet50", full,
                     epilogue_launches, forwards=forwards)
     print(f"  dense: the teacher's prepared weights built "
           f"{model.teacher.prepared.builds} time(s) so far", flush=True)
@@ -4091,6 +4199,9 @@ def epilogue_inputs(kernel: str, b: int, hw: int, c: int, dtype, dev,
          "var": torch.rand(c, device=dev, generator=gen) + 0.5}
     d["s"], d["t"] = epilogue.bn_affine(d["weight"], d["bias"], d["mean"],
                                         d["var"], 1e-5)
+    if kernel == "affine_relu_pool2x2":  # the affine before the max matters
+        d["weight"][::2].neg_()
+        d["s"][::2].neg_()
     if kernel == "affine_gate_add_relu":
         d["r"] = torch.randn(b, hw, hw, c, device=dev, generator=gen).to(dtype)
         d["gate"] = (torch.rand(b, c, device=dev, generator=gen).to(dtype)
@@ -4129,6 +4240,10 @@ def epilogue_calls(kernel: str, d: dict) -> tuple:
         return (lambda: epilogue.affine_squeeze(y, s, t),
                 lambda: epilogue.affine_squeeze_plain(y, s, t),
                 lambda: bn().mean(dim=(2, 3), dtype=torch.float32))
+    if kernel == "affine_relu_pool2x2":
+        return (lambda: epilogue.affine_relu_pool2x2(y, s, t),
+                lambda: epilogue.affine_relu_pool2x2_plain(y, s, t),
+                lambda: F.max_pool2d(F.relu_(bn()), 2, 2))
     out, r, g, proj = y.new_empty(y.shape), d["r"], d["gate"], d["proj"]
     if g is None or proj is not None:
         library = None  # timed only gated with an identity residual
@@ -4177,28 +4292,60 @@ def epilogue_bytes(kernel: str, b: int, hw: int, c: int, itemsize: int) -> int:
     """The least bytes of one call: each input and output moved once."""
     act, vec = b * hw * hw * c * itemsize, b * c * itemsize
     return {"affine_relu": 2 * act, "affine_squeeze": act + vec,
-            "affine_gate_add_relu": 3 * act + vec}[kernel]
+            "affine_gate_add_relu": 3 * act + vec,
+            "affine_relu_pool2x2": act + act // 4}[kernel]
 
 
 def epilogue_phase(card: str, dev="cuda", batch: int = EPILOGUE_BATCH,
                    shapes: dict = EPILOGUE_SHAPES,
-                   timed: tuple = EPILOGUE_TIMED) -> dict:
+                   timed: tuple = EPILOGUE_TIMED,
+                   pool_shapes: dict = VD16_POOL_SHAPES) -> dict:
     """The teachers' epilogue kernels (phase 25) at every shape the
     full-width teachers launch them at (``shapes``: label -> (h = w, inner
-    width, output width or None)), batch 128, bf16, each against its plain
-    version (``epilogue_case``): ``affine_relu`` at the inner width,
-    ``affine_squeeze`` and the four tails at the output width. At the
-    ``timed`` shapes, on the card, ``affine_relu``, ``affine_squeeze`` and
-    the gated identity tail: the kernel, plain and library times in turns,
-    each timed call's inputs rotated over enough copies that no call finds
-    them in the L2 (``EPILOGUE_COLD_BYTES``), beside the bound of its
-    bytes. Returns, per kernel, [kernel ms, plain ms, library ms, bytes]
-    summed over the timed shapes and the max abs error over every case
-    (times 0 on the CPU, a rehearsal)."""
+    width, output width or None); ``pool_shapes``: label -> (h = w, c) of
+    VGG-VD-16's block-end conv outputs), batch 128, bf16, each against its
+    plain version (``epilogue_case``): ``affine_relu`` at the inner width,
+    ``affine_squeeze`` and the four tails at the output width,
+    ``affine_relu_pool2x2`` at each block end. At the ``timed`` shapes, on
+    the card, ``affine_relu``, ``affine_squeeze`` and the gated identity
+    tail, and ``affine_relu_pool2x2`` at every block end: the kernel, plain
+    and library times in turns, each timed call's inputs rotated over
+    enough copies that no call finds them in the L2
+    (``EPILOGUE_COLD_BYTES``), beside the bound of its bytes. Returns, per
+    kernel, [kernel ms, plain ms, library ms, bytes] summed over the timed
+    shapes and the max abs error over every case (times 0 on the CPU, a
+    rehearsal)."""
     import torch
 
-    rows = {k: [0.0, 0.0, 0.0, 0, 0.0] for k in
-            ("affine_relu", "affine_squeeze", "affine_gate_add_relu")}
+    rows = {k: [0.0, 0.0, 0.0, 0, 0.0] for k in EPILOGUE_NAMES}
+
+    def timing(kernel: str, label: str, hw: int, c: int) -> None:
+        nbytes = epilogue_bytes(kernel, batch, hw, c, 2)
+        rows[kernel][3] += nbytes
+        if dev != "cuda":
+            return
+        copies = max(1, math.ceil(EPILOGUE_COLD_BYTES / nbytes))
+        sets = [epilogue_inputs(kernel, batch, hw, c, torch.bfloat16, dev,
+                                SEED + i) for i in range(copies)]
+        calls = [epilogue_calls(kernel, d) for d in sets]
+        turn = [0]
+
+        def rotate(which):
+            def call():
+                turn[0] = (turn[0] + 1) % copies
+                return calls[turn[0]][which]()
+            return call
+
+        k, p, lib = turns_ms(rotate(0), rotate(1), rotate(2))
+        for i, v in enumerate((k, p, lib)):
+            rows[kernel][i] += v
+        bound, by = bound_ms(nbytes, 0)
+        print(f"  {card}: {kernel} {label}: kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, library {lib:.4f} ms; bound {bound:.4f} ms "
+              f"({by}, {nbytes / 1e6:.1f} MB), {bound / k:.1%} of it; "
+              f"{copies} input set(s)", flush=True)
+        del sets, calls
+
     for label, (hw, inner, out_c) in shapes.items():
         cases = [("affine_relu", inner, True, False)]
         if out_c is not None:
@@ -4208,41 +4355,23 @@ def epilogue_phase(card: str, dev="cuda", batch: int = EPILOGUE_BATCH,
         for kernel, c, gate, proj in cases:
             err = epilogue_case(kernel, label, batch, hw, c, dev, gate, proj)
             rows[kernel][4] = max(rows[kernel][4], err)
-        if label not in timed:
-            continue
-        for kernel in rows:
-            c = inner if kernel == "affine_relu" else out_c
-            nbytes = epilogue_bytes(kernel, batch, hw, c, 2)
-            rows[kernel][3] += nbytes
-            if dev != "cuda":
-                continue
-            copies = max(1, math.ceil(EPILOGUE_COLD_BYTES / nbytes))
-            sets = [epilogue_inputs(kernel, batch, hw, c, torch.bfloat16, dev,
-                                    SEED + i) for i in range(copies)]
-            calls = [epilogue_calls(kernel, d) for d in sets]
-            turn = [0]
-
-            def rotate(which):
-                def call():
-                    turn[0] = (turn[0] + 1) % copies
-                    return calls[turn[0]][which]()
-                return call
-
-            k, p, lib = turns_ms(rotate(0), rotate(1), rotate(2))
-            for i, v in enumerate((k, p, lib)):
-                rows[kernel][i] += v
-            bound, by = bound_ms(nbytes, 0)
-            print(f"  {card}: {kernel} {label}: kernel {k:.4f} ms, plain "
-                  f"{p:.4f} ms, library {lib:.4f} ms; bound {bound:.4f} ms "
-                  f"({by}, {nbytes / 1e6:.1f} MB), {bound / k:.1%} of it; "
-                  f"{copies} input set(s)", flush=True)
-            del sets, calls
+        if label in timed:
+            for kernel in ("affine_relu", "affine_squeeze",
+                           "affine_gate_add_relu"):
+                timing(kernel, label, hw, inner if kernel == "affine_relu"
+                       else out_c)
+    for label, (hw, c) in pool_shapes.items():
+        err = epilogue_case("affine_relu_pool2x2", label, batch, hw, c, dev)
+        rows["affine_relu_pool2x2"][4] = max(rows["affine_relu_pool2x2"][4],
+                                             err)
+        timing("affine_relu_pool2x2", label, hw, c)
     if dev == "cuda":
         torch.cuda.empty_cache()
     return rows
 
 
-EPILOGUE_NAMES = ("affine_relu", "affine_squeeze", "affine_gate_add_relu")
+EPILOGUE_NAMES = ("affine_relu", "affine_squeeze", "affine_gate_add_relu",
+                  "affine_relu_pool2x2")
 
 
 def epilogue_counts() -> dict:
@@ -4259,12 +4388,13 @@ def reset_epilogue_counts() -> None:
         getattr(epilogue, k).launches = 0
 
 
-def count_epilogues(label: str, use_se: bool, on_card: bool,
+def count_epilogues(label: str, kind: str, on_card: bool,
                     total: dict | None, forwards: int = 1) -> None:
     """Hold the epilogue launches since the last reset to ``forwards``
-    full-width forwards' (none off the card) and add them to ``total``."""
+    full-width ``kind`` forwards' (none off the card) and add them to
+    ``total``."""
     got = epilogue_counts()
-    want = teacher_epilogue_launches(use_se, forwards * on_card)
+    want = teacher_epilogue_launches(kind, forwards * on_card)
     print(f"  {label}: epilogue launches {got}", flush=True)
     check(got == want, f"{label}: epilogue launches {got}, expected {want}")
     if total is not None:
@@ -4272,12 +4402,16 @@ def count_epilogues(label: str, use_se: bool, on_card: bool,
             total[k] = total.get(k, 0) + v
 
 
-def teacher_epilogue_launches(use_se: bool, forwards: int) -> dict:
-    """The epilogue launches of ``forwards`` full-width eval forwards on the
-    card: affine_relu after the stem and twice a bottleneck (1 + 2 x 16),
-    a squeeze a bottleneck with SE, a tail a bottleneck."""
-    return dict(zip(EPILOGUE_NAMES, (33 * forwards, 16 * forwards * use_se,
-                                     16 * forwards)))
+def teacher_epilogue_launches(kind: str, forwards: int) -> dict:
+    """The epilogue launches of ``forwards`` full-width eval forwards of
+    ``kind`` on the card: SENet50 and ResNet50 launch affine_relu after the
+    stem and twice a bottleneck (1 + 2 x 16), a squeeze a bottleneck with
+    SE and a tail a bottleneck; VGG-VD-16 affine_relu after each of its 8
+    mid-block convs, fc6 and fc7, and affine_relu_pool2x2 after each of
+    its 5 block-end convs."""
+    per = {"senet50": (33, 16, 16, 0), "resnet50": (33, 0, 16, 0),
+           "vgg16": (10, 0, 0, 5)}[kind]
+    return {k: n * forwards for k, n in zip(EPILOGUE_NAMES, per)}
 
 
 def kernel_wrappers() -> dict:
@@ -4730,7 +4864,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": source + "teacher_epilogue.cu", "replaces": None,
-            "launches": epilogue_launches[name], "max_abs_err": err,
+            "launches": epilogue_launches.get(name, 0), "max_abs_err": err,
             "ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib})
         print(f"  {card}: {name}: {k:.5f} ms against a bound of {bound:.5f} "

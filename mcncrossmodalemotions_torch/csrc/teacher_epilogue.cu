@@ -1,17 +1,20 @@
 // The face teachers' eval-mode BatchNorm epilogues: per-channel affines
 // applied to raw convolution outputs, with the ReLU, the squeeze of the
-// squeeze-excitation block, its gate and the residual add of a bottleneck
-// folded into the same passes, so that each activation is written once.
+// squeeze-excitation block, its gate and the residual add of a bottleneck,
+// or the 2x2/2 max pool that ends a VGG block, folded into the same
+// passes, so that each activation is written once.
 //
 // Replaces no TPU kernel: the JAX package leaves eval BatchNorm, ReLU, the
-// SE squeeze and gate and the residual add to XLA, which fuses them into
-// the convolutions' neighbours by itself. The port's eager forward ran
-// each as its own PyTorch kernel (about 12 block outputs' worth of bytes a
-// bottleneck); these three kernels move about 5.
+// SE squeeze and gate, the residual add and VGG's 2x2 pools to XLA, which
+// fuses them into the convolutions' neighbours by itself. The port's eager
+// forward ran each as its own PyTorch kernel (about 12 block outputs'
+// worth of bytes a bottleneck); the first three kernels move about 5. A
+// VGG block's last conv output was read and written three times and read
+// once more by its pool; the fourth reads it once.
 //
 // Every tensor is NHWC, [rows, c] with rows = batch x h x w, contiguous;
 // s and t are fp32 [c]: s = gamma * rsqrt(running_var + eps), t = beta -
-// running_mean * s. Arithmetic is fp32 from the loaded values with one
+// running_mean * s (+ s x the conv's bias, where it has one). Arithmetic is fp32 from the loaded values with one
 // rounding to the output type.
 //
 // 1. affine_relu: out = relu(s y + t); out may be y (in place).
@@ -21,6 +24,11 @@
 //    the block input as it is (identity shortcut) or rs yd + rt (the raw
 //    projection conv's output under its own BatchNorm); no gate for a
 //    block without squeeze-excitation. out may be y or r.
+// 4. affine_relu_pool2x2: out[b, i, j] = max over the 2x2 window at
+//    (2i, 2j) of relu(s y + t), [b, h / 2, w / 2, c] (floor: an odd last
+//    row or column is not read). The affine comes before the max, since s
+//    may be negative; the ReLU may come after it, being monotone. VGG's
+//    convs carry a bias and no BatchNorm: s = 1, t = the bias.
 //
 // What bounds them on the card: device-memory bytes. Each does a few
 // fused multiply-adds an element against 2 (squeeze) to 6 (projection
@@ -45,6 +53,14 @@
 //   at stage 4 (32 tiles), each lane with UNROLL rows in flight.
 // - The gate's 16-byte vector of a row's image is read per row; it is
 //   batch x c x 2 bytes in all (512 KB at stage 4), so L1 and L2 serve it.
+// - The pool walks output pixels as the elementwise kernels walk rows; a
+//   lane loads its vector of the window's four input pixels (two pairs of
+//   neighbours, each pair 2 c contiguous elements), POOL_UNROLL outputs in
+//   flight, and writes one vector: y is read once and a quarter of it
+//   written (VGG-VD-16's conv1_2 output at batch 128 is 822 MB in bf16, so
+//   its pool moves 1.03 GB, 0.31 ms at 3.35 TB/s). An output pixel's
+//   image, row and column are two 32-bit divisions (the launcher refuses
+//   2^31 output pixels or more).
 // - There is no narrower path: the launchers refuse a c that is not a
 //   multiple of the vector, or a base pointer of y, out, r or the gate
 //   that is not 16-byte aligned (cudaErrorInvalidValue; ops/epilogue.py
@@ -64,6 +80,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int LANES = 8;      // channel vectors across a block: 128 bytes
 constexpr int UNROLL = 4;     // rows a lane has in flight
+constexpr int POOL_UNROLL = 2;  // output pixels a lane has in flight (x4 loads)
 constexpr long long FILL_BLOCKS = 132LL * 8 * 2;
 
 // A 16-byte vector of T (V = 8 bf16 or 4 fp32) as four 32-bit words; bf16
@@ -242,6 +259,58 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// out[b, i, j] = relu(max over the 2x2 window of s y + t). Laid out as
+// affine_relu_kernel over the output pixels; a NaN in the window wins.
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+    affine_relu_pool2x2_kernel(const T* __restrict__ y, T* __restrict__ out,
+                               const float* __restrict__ s,
+                               const float* __restrict__ t, long long pixels,
+                               int ho, int wo, int h, int w, int c) {
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  if (lane * V >= c) return;
+  float sv[V], tv[V];
+  load_affine<V>(s, t, lane * V, sv, tv);
+  const long long step = (long long)gridDim.x * blockDim.y;
+  const long long below = (long long)w * c;  // the window's second row
+  for (long long p = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+       p < pixels; p += POOL_UNROLL * step) {
+    Words<T, V> win[POOL_UNROLL][4];
+#pragma unroll
+    for (int k = 0; k < POOL_UNROLL; ++k) {
+      const long long q = p + k * step;
+      if (q < pixels) {
+        const unsigned bi = (unsigned)q / (unsigned)wo;  // b ho + i
+        const unsigned j = (unsigned)q - bi * (unsigned)wo;
+        const unsigned b = bi / (unsigned)ho;
+        const unsigned i = bi - b * (unsigned)ho;
+        const T* src = y + (((long long)b * h + 2 * i) * w + 2 * j) * c + lane * V;
+        load<T, V>(src, win[k][0]);
+        load<T, V>(src + c, win[k][1]);
+        load<T, V>(src + below, win[k][2]);
+        load<T, V>(src + below + c, win[k][3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < POOL_UNROLL; ++k) {
+      const long long q = p + k * step;
+      if (q >= pixels) break;
+      float v[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float m = fmaf(sv[i], element(win[k][0], i), tv[i]);
+#pragma unroll
+        for (int n = 1; n < 4; ++n) {
+          const float a = fmaf(sv[i], element(win[k][n], i), tv[i]);
+          m = a > m || a != a ? a : m;
+        }
+        v[i] = relu(m);
+      }
+      store<T, V>(out + q * c + lane * V, v);
+    }
+  }
+}
+
 // Block shape for c / V channel vectors: up to LANES lanes across, the
 // rest of the 256 threads down the rows.
 struct Shape {
@@ -349,13 +418,37 @@ int run_tail(const T* y, const float* s, const float* t, const T* gate,
                                   (cudaStream_t)stream);
 }
 
+template <typename T, int V>
+int launch_pool(const T* y, T* out, const float* s, const float* t,
+                long long pixels, int ho, int wo, int h, int w, int c,
+                cudaStream_t stream) {
+  const Shape sh = shape(c / V);
+  affine_relu_pool2x2_kernel<T, V><<<walk_grid(pixels, sh),
+                                     dim3(sh.lx, sh.ly), 0, stream>>>(
+      y, out, s, t, pixels, ho, wo, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_pool(const T* y, T* out, const float* s, const float* t, int batch,
+             int h, int w, int c, void* stream) {
+  if (batch <= 0 || h < 2 || w < 2 || c <= 0) return (int)cudaErrorInvalidValue;
+  const long long pixels = (long long)batch * (h / 2) * (w / 2);
+  if (pixels > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (c % WIDE<T> != 0 || !aligned(y) || !aligned(out))
+    return (int)cudaErrorInvalidValue;
+  return launch_pool<T, WIDE<T>>(y, out, s, t, pixels, h / 2, w / 2, h, w, c,
+                                 (cudaStream_t)stream);
+}
+
 using bf16 = __nv_bfloat16;
 
 }  // namespace
 
 // y, out, r [batch, hw, c] contiguous (NHWC with hw = h x w); gate
 // [batch, c] or NULL (no gate); rs, rt fp32 [c] or both NULL (identity
-// shortcut); s, t fp32 [c]; squeeze's out [batch, c]. Each function
+// shortcut); s, t fp32 [c]; squeeze's out [batch, c]; the pool's y
+// [batch, h, w, c] and out [batch, h / 2, w / 2, c]. Each function
 // launches on `stream` and returns the cudaError_t of the launch
 // (0 = success).
 extern "C" int affine_relu_f32(const float* y, float* out, const float* s,
@@ -400,4 +493,19 @@ extern "C" int affine_gate_add_relu_bf16(const void* y, const float* s,
   return run_tail<bf16>(static_cast<const bf16*>(y), s, t,
                     static_cast<const bf16*>(gate), static_cast<const bf16*>(r),
                     rs, rt, static_cast<bf16*>(out), batch, hw, c, stream);
+}
+
+extern "C" int affine_relu_pool2x2_f32(const float* y, float* out,
+                                       const float* s, const float* t,
+                                       int batch, int h, int w, int c,
+                                       void* stream) {
+  return run_pool<float>(y, out, s, t, batch, h, w, c, stream);
+}
+
+extern "C" int affine_relu_pool2x2_bf16(const void* y, void* out,
+                                        const float* s, const float* t,
+                                        int batch, int h, int w, int c,
+                                        void* stream) {
+  return run_pool<bf16>(static_cast<const bf16*>(y), static_cast<bf16*>(out),
+                        s, t, batch, h, w, c, stream);
 }

@@ -35,8 +35,9 @@ gate and the residual add follow as their own operations. An eval call on
 the card without autograd takes ``fused_forward``: each BatchNorm becomes
 the fp32 affine ``s y + t`` applied to the raw conv output inside the
 epilogue kernels of ``ops/epilogue.py``, with the ReLU, the SE squeeze,
-gate and residual add, rounded once (``PreparedEval`` holds the affines
-and the compute-dtype weights, built once per weight version).
+gate and residual add, rounded once (``models/prepared.PreparedEval``
+holds the affines and the compute-dtype weights, built once per weight
+version).
 Train mode (FER+ fine-tuning) normalises with the batch statistics of the
 rows where ``pad_mask > 0`` and moves the running ones by Flax's rule
 (``models/vggm.batch_norm_train``: fp32 statistics, the biased variance,
@@ -47,12 +48,16 @@ is the unbiased one. ``reset_parameters`` is Flax's scratch init.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mcncrossmodalemotions_torch.models.prepared import (
+    PreparedEval,
+    conv_weight,
+)
 from mcncrossmodalemotions_torch.models.vggm import (
     batch_norm_train,
     dropout,
@@ -98,98 +103,9 @@ def _affine_relu_(y: torch.Tensor, st: tuple, stream: Optional[int]) -> None:
     epilogue.affine_relu(yn, *st, out=yn, stream=stream)
 
 
-# Submodules assigned anywhere in the process (``Module.__setattr__`` and
-# ``add_module`` call the hook): ``PreparedEval`` walks a model's modules
-# again only when this count has moved, not at every call (the walk costs
-# the host about three times the rest of its check).
-_module_registrations = [0]
-
-
-def _count_module_registration(module, name, submodule) -> None:
-    _module_registrations[0] += 1
-
-
-torch.nn.modules.module.register_module_module_registration_hook(
-    _count_module_registration)
-
-
-class PreparedEval:
-    """What the fused eval forward reads instead of the module's tensors,
-    built from the tensors in use (under ``functional_call``, the state's):
-    each BatchNorm's fp32 ``(s, t)`` (``epilogue.bn_affine``), each conv
-    weight in the compute dtype and ``channels_last`` memory (cuDNN's own
-    layout for a ``channels_last`` input, so no call copies it), the SE
-    weights and biases in the compute dtype.
-
-    Kept until a tensor in use is another object (a replaced submodule
-    brings its own: the modules are walked again after any submodule is
-    assigned), or its ``_version`` (an in-place update,
-    ``load_state_dict``) or its ``data_ptr()`` (a ``.data`` assignment,
-    ``module.to``) changes, or the device or dtype does. ``builds`` counts the builds. A model whose
-    tensors are inference tensors (made under ``torch.inference_mode``,
-    which tracks no versions) is rebuilt at every call."""
-
-    def __init__(self):
-        self.builds = 0
-        self._walked: Optional[int] = None  # _module_registrations then
-        self._slots: List[tuple] = []  # (dict, name) of each tensor in use
-        self._stamp: Optional[tuple] = None
-        self._tensors: List[torch.Tensor] = []
-        self.stem: tuple = ()
-        self.blocks: List[dict] = []
-
-    def __getstate__(self) -> dict:
-        return {"builds": self.builds}  # a copy starts with no cache
-
-    def __setstate__(self, state: dict) -> None:
-        self.__init__()
-        self.builds = state["builds"]
-
-    def get(self, model: "ResNet", device: torch.device) -> "PreparedEval":
-        if self._walked != _module_registrations[0]:
-            self._walked = _module_registrations[0]
-            self._slots = [(d, n) for m in model.modules()
-                           for d in (m._parameters, m._buffers)
-                           for n, v in d.items()
-                           if v is not None and n != "num_batches_tracked"]
-        tensors = [d[n] for d, n in self._slots]
-        try:
-            stamp = (device, model.dtype,
-                     tuple([(v._version, v.data_ptr()) for v in tensors]))
-        except RuntimeError:  # inference tensors keep no version
-            stamp = None
-        if (stamp is None or stamp != self._stamp
-                or any(a is not b for a, b in zip(tensors, self._tensors))):
-            with torch.inference_mode(False), torch.no_grad():
-                self._build(model)
-            self._tensors, self._stamp = tensors, stamp
-        return self
-
-    def _build(self, model: "ResNet") -> None:
-        dt = model.dtype
-
-        def conv(c: nn.Conv2d) -> torch.Tensor:
-            return c.weight.to(dt).contiguous(memory_format=torch.channels_last)
-
-        def bn(b: nn.BatchNorm2d) -> tuple:
-            return epilogue.bn_affine(b.weight, b.bias, b.running_mean,
-                                      b.running_var, b.eps)
-
-        self.stem = (conv(model.conv1), bn(model.bn1))
-        self.blocks = []
-        for name in model.blocks:
-            blk = getattr(model, name)
-            p = {"conv1": conv(blk.conv1), "bn1": bn(blk.bn1),
-                 "conv2": conv(blk.conv2), "bn2": bn(blk.bn2),
-                 "conv3": conv(blk.conv3), "bn3": bn(blk.bn3)}
-            if blk.project:
-                p["down"], p["bn_down"] = conv(blk.downsample), bn(blk.bn_down)
-            if blk.se is not None:
-                p["se"] = tuple(v.to(dt) for v in (
-                    blk.se.fc1.weight, blk.se.fc1.bias,
-                    blk.se.fc2.weight, blk.se.fc2.bias))
-            self.blocks.append(p)
-        self.builds += 1
+def _bn_affine(b: nn.BatchNorm2d) -> tuple:
+    return epilogue.bn_affine(b.weight, b.bias, b.running_mean, b.running_var,
+                              b.eps)
 
 
 class SEBlock(nn.Module):
@@ -250,7 +166,7 @@ class Bottleneck(nn.Module):
     def fused_forward(self, x: torch.Tensor, p: dict,
                       stream: Optional[int]) -> torch.Tensor:
         """Eval without autograd: the convs with ``p``'s weights
-        (``PreparedEval``), each BatchNorm and what follows it in one
+        (``ResNet._prepare_eval``), each BatchNorm and what follows it in one
         epilogue kernel (``ops/epilogue.py``), written over the conv
         outputs."""
         y = F.conv2d(x, p["conv1"], None, self.conv1.stride)
@@ -359,6 +275,29 @@ class ResNet(nn.Module):
             return logits, embedding
         return logits
 
+    def _prepare_eval(self) -> dict:
+        """What ``fused_forward`` reads (``self.prepared``): each
+        BatchNorm's fp32 ``(s, t)`` (``epilogue.bn_affine``), each conv
+        weight in the compute dtype and ``channels_last`` memory, the SE
+        weights and biases in the compute dtype."""
+        dt = self.dtype
+        blocks = []
+        for name in self.blocks:
+            blk = getattr(self, name)
+            p = {"conv1": conv_weight(blk.conv1, dt), "bn1": _bn_affine(blk.bn1),
+                 "conv2": conv_weight(blk.conv2, dt), "bn2": _bn_affine(blk.bn2),
+                 "conv3": conv_weight(blk.conv3, dt), "bn3": _bn_affine(blk.bn3)}
+            if blk.project:
+                p["down"] = conv_weight(blk.downsample, dt)
+                p["bn_down"] = _bn_affine(blk.bn_down)
+            if blk.se is not None:
+                p["se"] = tuple(v.to(dt) for v in (
+                    blk.se.fc1.weight, blk.se.fc1.bias,
+                    blk.se.fc2.weight, blk.se.fc2.bias))
+            blocks.append(p)
+        return {"stem": (conv_weight(self.conv1, dt), _bn_affine(self.bn1)),
+                "blocks": blocks}
+
     def fused_forward(self, x: torch.Tensor, return_embedding: bool = False):
         """The eval forward with the epilogue kernels (their plain versions
         for a CPU tensor, as the tests call it): each conv's BatchNorm,
@@ -372,11 +311,11 @@ class ResNet(nn.Module):
             stream = torch.cuda.current_stream(x.device).cuda_stream if cuda \
                 else None
             x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
-            w, st = p.stem
+            w, st = p["stem"]
             y = F.conv2d(x, w, None, self.conv1.stride, self.conv1.padding)
             _affine_relu_(y, st, stream)
             x = stem_pool(y)
-            for name, bp in zip(self.blocks, p.blocks):
+            for name, bp in zip(self.blocks, p["blocks"]):
                 x = getattr(self, name).fused_forward(x, bp, stream)
             embedding = x.mean(dim=(2, 3), dtype=torch.float32)
             logits = F.linear(embedding, self.prediction.weight.float(),

@@ -32,22 +32,47 @@ Same parameters (through ``zoo/bridge.py``: the Flax module names are the
 Compute runs in ``dtype`` (bf16 by default) with fp32 parameters; train-mode
 BatchNorm is Flax's (``models/vggm.batch_norm_train``: masked by
 ``pad_mask``, fp32 statistics, biased variance, momentum 0.9).
+
+Two paths, chosen as ``models/resnet.ResNet`` chooses them. Under
+autograd, in train mode and on the CPU each conv casts its weight and adds
+its bias in the compute dtype, and BatchNorm, ReLU and the pools follow as
+their own operations. An eval call on the card without autograd takes
+``fused_forward``: the convs run bias-free on weights cast once per weight
+version (``models/prepared.PreparedEval``; fc6 and fc7 as GEMMs on the
+NHWC-flattened activations), and what follows each conv is one epilogue
+kernel of ``ops/epilogue.py`` on its raw output, with the fp32 affine
+``s y + t`` (``s = 1``, ``t`` the bias without BatchNorm; BatchNorm's
+``bn_affine`` with any bias folded in): ``affine_relu`` in place, or
+``affine_relu_pool2x2`` at a VD-16 block's end, which reads the conv output
+once and writes the pooled quarter. A VD-16 forward launches 10
+``affine_relu`` (8 mid-block convs, fc6, fc7) and 5 ``affine_relu_pool2x2``;
+VGG-M's 3x3/2 pools stay ``stem_pool`` after an ``affine_relu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mcncrossmodalemotions_torch.models.resnet import _bn, stem_pool
+from mcncrossmodalemotions_torch.models.prepared import (
+    PreparedEval,
+    conv_weight,
+)
+from mcncrossmodalemotions_torch.models.resnet import (
+    _bn,
+    _bn_affine,
+    stem_pool,
+)
 from mcncrossmodalemotions_torch.models.vggm import (
     BN_EPS,
     dropout,
     lecun_normal_,
 )
+from mcncrossmodalemotions_torch.ops import epilogue
 from mcncrossmodalemotions_torch.parallel.mesh import DataMesh
 
 # Per-block 3x3 conv widths of VGG-VD-16 (vgg_face, Parkhi et al.); a
@@ -126,6 +151,7 @@ class VGGFace(nn.Module):
         self._add("fc6", in_ch, fc, fc6_extent(arch, input_size), 1, 0)
         self._add("fc7", fc, fc, 1, 1, 0)
         self.prediction = nn.Linear(fc, num_outputs)
+        self.prepared = PreparedEval()
 
     def _w(self, channels: int) -> int:
         return max(8, int(round(channels * self.width_multiplier)))
@@ -172,7 +198,10 @@ class VGGFace(nn.Module):
                 mesh: Optional[DataMesh] = None):
         """``train`` uses the batch statistics of the rows where
         ``pad_mask > 0``, updates the running ones and draws the dropout
-        from ``generator``; under ``mesh`` both are the global batch's."""
+        from ``generator``; under ``mesh`` both are the global batch's. An
+        eval call on the card without autograd takes ``fused_forward``."""
+        if not train and x.is_cuda and not torch.is_grad_enabled():
+            return self.fused_forward(x, return_embedding)
         bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
         for name, pool in self.layers:
@@ -190,6 +219,72 @@ class VGGFace(nn.Module):
         embedding = x
         head = self.prediction
         logits = F.linear(x, head.weight.float(), head.bias.float())
+        if return_embedding:
+            return logits, embedding
+        return logits
+
+    def _affine(self, name: str) -> tuple:
+        """The fp32 ``(s, t)`` that takes conv ``name``'s bias-free output
+        to its BatchNorm's (with the conv's bias folded in), or to the
+        output with its bias without BatchNorm."""
+        conv = getattr(self, name)
+        if self.use_batchnorm:
+            s, t = _bn_affine(getattr(self, f"bn_{name}"))
+        else:
+            s = torch.ones(conv.out_channels, device=conv.weight.device)
+            t = torch.zeros_like(s)
+        if conv.bias is not None:
+            t = t + s * conv.bias.float()
+        return s, t
+
+    def _prepare_eval(self) -> dict:
+        """What ``fused_forward`` reads (``self.prepared``): each conv's
+        weight in the compute dtype and ``channels_last`` memory, fc6's and
+        fc7's as [out, in] matrices over the NHWC-flattened input (a conv
+        weight's ``channels_last`` order, (kh, kw, in)), and every layer's
+        ``_affine``."""
+        dt = self.dtype
+
+        def fc(name: str) -> tuple:
+            w = getattr(self, name).weight.to(dt)
+            return (w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous(),
+                    self._affine(name))
+
+        return {"convs": [(conv_weight(getattr(self, name), dt),
+                           self._affine(name)) for name, _ in self.layers],
+                "fc6": fc("fc6"), "fc7": fc("fc7")}
+
+    def fused_forward(self, x: torch.Tensor, return_embedding: bool = False):
+        """The eval forward with the epilogue kernels (their plain versions
+        for a CPU tensor, as the tests call it) on the raw outputs of the
+        bias-free convs, with the weights and affines of ``self.prepared``,
+        built once per weight version. The stream is read once, and the
+        device entered once, a call."""
+        cuda = x.is_cuda
+        with torch.cuda.device(x.device) if cuda else contextlib.nullcontext():
+            p = self.prepared.get(self, x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream if cuda \
+                else None
+            x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, NHWC memory
+            for (name, pool), (w, st) in zip(self.layers, p["convs"]):
+                conv = getattr(self, name)
+                y = F.conv2d(x, w, None, conv.stride, conv.padding)
+                yn = y.permute(0, 2, 3, 1)  # NHWC, contiguous
+                if pool == "2x2":
+                    x = epilogue.affine_relu_pool2x2(
+                        yn, *st, stream=stream).permute(0, 3, 1, 2)
+                    continue
+                epilogue.affine_relu(yn, *st, out=yn, stream=stream)
+                x = stem_pool(y) if pool == "3x3" else y
+            x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order
+            for name in ("fc6", "fc7"):
+                w, st = p[name]
+                x = F.linear(x, w)
+                xn = x.view(x.shape[0], 1, 1, -1)
+                epilogue.affine_relu(xn, *st, out=xn, stream=stream)
+            embedding = x.float()
+            head = self.prediction
+            logits = F.linear(embedding, head.weight.float(), head.bias.float())
         if return_embedding:
             return logits, embedding
         return logits

@@ -1,19 +1,24 @@
-"""The face teachers' eval-mode BatchNorm epilogues
-(``csrc/teacher_epilogue.cu``).
+"""The face teachers' eval-mode epilogues (``csrc/teacher_epilogue.cu``).
 
-Replace no TPU kernel: the JAX package leaves eval BatchNorm, ReLU and
-the squeeze-excitation and residual elementwise work to XLA. In the port's
-eval forward without autograd (``models/resnet.ResNet.fused_forward``) each
-BatchNorm is a per-channel affine ``s y + t`` on the raw bf16 conv output,
-``s = gamma * rsqrt(running_var + eps)`` and ``t = beta - running_mean *
-s`` in fp32 (``bn_affine``), applied inside one of three kernels:
+Replace no TPU kernel: the JAX package leaves eval BatchNorm, ReLU, the
+squeeze-excitation and residual elementwise work and VGG's 2x2 pools to
+XLA. In the port's eval forward without autograd
+(``models/resnet.ResNet.fused_forward``, ``models/vggface.VGGFace.
+fused_forward``) each BatchNorm is a per-channel affine ``s y + t`` on the
+raw bf16 conv output, ``s = gamma * rsqrt(running_var + eps)`` and ``t =
+beta - running_mean * s`` in fp32 (``bn_affine``; a conv bias before it
+adds ``s * bias`` to ``t``), and a conv bias with no BatchNorm is ``s = 1``,
+``t = bias``; the affine is applied inside one of four kernels:
 
 - ``affine_relu``: ``relu(s y + t)``, in place with ``out=y``;
 - ``affine_squeeze``: the SE squeeze ``mean_hw(s y + t)`` summed in fp32,
   [B, C] in y's dtype (the one rounding the SE MLP's input takes);
 - ``affine_gate_add_relu``: ``relu((s y + t) gate + r)``, ``r`` the block
   input or ``rs yd + rt`` of the raw projection conv output
-  (``residual_affine=(rs, rt)``), ``gate`` [B, C] or None.
+  (``residual_affine=(rs, rt)``), ``gate`` [B, C] or None;
+- ``affine_relu_pool2x2``: ``max_pool2d(relu(s y + t), 2, 2)``, the end of
+  a VGG block, [B, H // 2, W // 2, C] (floor, as ``F.max_pool2d``): the
+  affine before the max, since ``s`` may be negative.
 
 Every tensor is NHWC [B, H, W, C]: the teachers keep their activations in
 ``channels_last`` memory, so ``y.permute(0, 2, 3, 1)`` of a conv output is
@@ -21,8 +26,8 @@ a contiguous NHWC view and costs no copy. Each wrapper runs its plain
 PyTorch version for a CPU tensor and its kernel for a CUDA one, raising on
 a CUDA tensor the kernel does not take (not contiguous NHWC, not
 bf16/fp32, mismatched shapes or dtypes, C not a whole number of 16-byte
-vectors, data not 16-byte aligned): there is no narrower path. Each
-launch adds one to the wrapper's ``.launches``.
+vectors, data not 16-byte aligned; for the pool, H or W under 2): there
+is no narrower path. Each launch adds one to the wrapper's ``.launches``.
 
 The host's path a launch is short, since a forward makes 65 of them: the
 library's functions and argument types are bound once, and a caller that
@@ -37,6 +42,7 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mcncrossmodalemotions_torch.ops import _build
 
@@ -54,7 +60,8 @@ def _fn(name: str):
             for base, argtypes in (
                     ("affine_relu", [ptr] * 4 + [cint] * 3 + [ptr]),
                     ("affine_squeeze", [ptr] * 4 + [cint] * 3 + [ptr]),
-                    ("affine_gate_add_relu", [ptr] * 8 + [cint] * 3 + [ptr])):
+                    ("affine_gate_add_relu", [ptr] * 8 + [cint] * 3 + [ptr]),
+                    ("affine_relu_pool2x2", [ptr] * 4 + [cint] * 4 + [ptr])):
                 f = getattr(lib, f"{base}_{sfx}")
                 f.restype, f.argtypes = cint, argtypes
                 _fns[f"{base}_{sfx}"] = f
@@ -94,6 +101,12 @@ def affine_gate_add_relu_plain(y: torch.Tensor, s: torch.Tensor,
     if residual_affine is not None:
         r = r * residual_affine[0] + residual_affine[1]
     return torch.relu(v + r).to(y.dtype)
+
+
+def affine_relu_pool2x2_plain(y: torch.Tensor, s: torch.Tensor,
+                              t: torch.Tensor) -> torch.Tensor:
+    v = torch.relu(y.float() * s + t).permute(0, 3, 1, 2)
+    return F.max_pool2d(v, 2, 2).permute(0, 2, 3, 1).to(y.dtype)
 
 
 # -- the kernels ----------------------------------------------------------
@@ -218,6 +231,27 @@ def affine_gate_add_relu(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     return out
 
 
+def affine_relu_pool2x2(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
+                        stream: Optional[int] = None) -> torch.Tensor:
+    """[B, H // 2, W // 2, C] in y's dtype: the 2x2/2 max pool of
+    ``relu(s y + t)`` over NHWC ``y``, into a new tensor."""
+    if y.dim() != 4 or y.shape[1] < 2 or y.shape[2] < 2:
+        raise ValueError(f"affine_relu_pool2x2 expects NHWC [B, H, W, C] with "
+                         f"H and W of 2 or more, got {tuple(y.shape)}")
+    if y.device.type == "cpu":
+        return affine_relu_pool2x2_plain(y, s, t)
+    _check("affine_relu_pool2x2", y, s, t)
+    b, h, w, c = y.shape
+    out = torch.empty((b, h // 2, w // 2, c), dtype=y.dtype, device=y.device)
+    if y.numel():
+        _launch("affine_relu_pool2x2", y, (y.data_ptr(), out.data_ptr(),
+                                           s.data_ptr(), t.data_ptr(), b, h, w,
+                                           c), stream)
+        affine_relu_pool2x2.launches += 1
+    return out
+
+
 affine_relu.launches = 0
 affine_squeeze.launches = 0
 affine_gate_add_relu.launches = 0
+affine_relu_pool2x2.launches = 0

@@ -59,7 +59,10 @@ VGGFACE2_MODELS = ("resnet50_ft-dag", "resnet50_scratch-dag",
 # classic pre-ResNet face models (ferPlusZoo.m:44-59): VGG-VD-16 and VGG-M
 # stacks (models/vggface.py); '-bn' names carry BatchNorm, the rest take the
 # useBnorm retrofit (build_teacher(use_bnorm=True)). 'resnet50-face-sfew' is
-# a plain ResNet50 and goes with the ResNet names.
+# a plain ResNet50 and goes with the ResNet names. The dense benchmark covers
+# 'vgg-vd-face-fer' (cell dense-vgg16-jpeg-b128: conv biases, no BatchNorm),
+# whose VGG-VD-16 stack the other 'vgg_face' / 'vgg-vd-face*' names share;
+# the VGG-M names run in no cell.
 CLASSIC_MODELS = ("vgg_face", "vgg-vd-face", "vgg-vd-face-fer",
                   "vgg-vd-face-sfew", "vgg-vd-face-sfew-dag",
                   "vgg-m-face-bn", "vgg-m-face-bn-fer")

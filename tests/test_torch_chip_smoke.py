@@ -481,18 +481,23 @@ def test_phases_in_order_and_the_last_line():
 def test_epilogue_phase_rehearses_on_the_cpu(capsys):
     """The epilogue phase at small shapes on the CPU (plain versions, no
     times): affine_relu checked at the stem's and each stage's shape, the
-    squeeze and the four tails at each stage's; its byte counts, over the
-    timed shapes only, are each input and output moved once."""
+    squeeze and the four tails at each stage's, affine_relu_pool2x2 at
+    each block end (even and odd sizes); its byte counts, over the timed
+    shapes and every block end, are each input and output moved once."""
     rows = chip_smoke.epilogue_phase(
         "cpu", dev="cpu", batch=2,
         shapes={"stem": (9, 16, None), "tiny": (5, 16, 64),
-                "untimed": (3, 32, 128)}, timed=("tiny",))
+                "untimed": (3, 32, 128)}, timed=("tiny",),
+        pool_shapes={"block a": (6, 16), "block b": (5, 32)})
     assert sorted(rows) == ["affine_gate_add_relu", "affine_relu",
-                            "affine_squeeze"]
+                            "affine_relu_pool2x2", "affine_squeeze"]
     act = 2 * 5 * 5 * 64 * 2
     assert rows["affine_relu"][3] == 2 * act // 4  # at the inner width
     assert rows["affine_squeeze"][3] == act + 2 * 64 * 2
     assert rows["affine_gate_add_relu"][3] == 3 * act + 2 * 64 * 2
+    pool_in = (2 * 6 * 6 * 16 + 2 * 5 * 5 * 32) * 2
+    assert rows["affine_relu_pool2x2"][3] == pool_in + (
+        2 * 6 * 6 * 16 * 2 // 4 + 2 * 5 * 5 * 32 * 2 // 4)
     assert all(r[:3] == [0.0, 0.0, 0.0] for r in rows.values())
     out = capsys.readouterr().out
     assert "affine_relu stem [2, 9, 9, 16]" in out
@@ -502,22 +507,30 @@ def test_epilogue_phase_rehearses_on_the_cpu(capsys):
                      "no gate, identity", "no gate, projection"):
             assert (f"affine_gate_add_relu ({tail}) {label} "
                     f"[2, {hw}, {hw}, {c}]") in out
+    for label, hw, c in (("block a", 6, 16), ("block b", 5, 32)):
+        assert f"affine_relu_pool2x2 {label} [2, {hw}, {hw}, {c}]" in out
 
 
 def test_teacher_epilogue_launches_are_counted_a_forward():
     """chip_smoke's count of a full-width forward's epilogue launches: 33
-    / 16 / 16 for SENet50, 33 / 0 / 16 for ResNet50, and a wrong count
-    fails the phase."""
-    assert chip_smoke.teacher_epilogue_launches(True, 2) == {
-        "affine_relu": 66, "affine_squeeze": 32, "affine_gate_add_relu": 32}
-    assert chip_smoke.teacher_epilogue_launches(False, 1) == {
-        "affine_relu": 33, "affine_squeeze": 0, "affine_gate_add_relu": 16}
+    / 16 / 16 / 0 for SENet50, 33 / 0 / 16 / 0 for ResNet50, 10 / 0 / 0 /
+    5 for VGG-VD-16, and a wrong count fails the phase."""
+    assert chip_smoke.teacher_epilogue_launches("senet50", 2) == {
+        "affine_relu": 66, "affine_squeeze": 32, "affine_gate_add_relu": 32,
+        "affine_relu_pool2x2": 0}
+    assert chip_smoke.teacher_epilogue_launches("resnet50", 1) == {
+        "affine_relu": 33, "affine_squeeze": 0, "affine_gate_add_relu": 16,
+        "affine_relu_pool2x2": 0}
+    assert chip_smoke.teacher_epilogue_launches("vgg16", 3) == {
+        "affine_relu": 30, "affine_squeeze": 0, "affine_gate_add_relu": 0,
+        "affine_relu_pool2x2": 15}
     total = {}
     chip_smoke.reset_epilogue_counts()
-    chip_smoke.count_epilogues("cpu", True, False, total)  # nothing launched
+    chip_smoke.count_epilogues("cpu", "senet50", False, total)  # nothing launched
     assert total == dict.fromkeys(chip_smoke.EPILOGUE_NAMES, 0)
-    with pytest.raises(chip_smoke.SmokeFailure, match="epilogue launches"):
-        chip_smoke.count_epilogues("card", True, True, total)
+    for kind in ("senet50", "vgg16"):
+        with pytest.raises(chip_smoke.SmokeFailure, match="epilogue launches"):
+            chip_smoke.count_epilogues("card", kind, True, total)
 
 
 def _fake_bench(monkeypatch, rc=0, drop=(), numerics_ok=True):

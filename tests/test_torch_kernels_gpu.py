@@ -690,9 +690,14 @@ def test_remat_policy_launches_and_state(cuda, policy):
 EPILOGUE_STAGES = {0: (112, 64, None), 1: (56, 64, 256), 2: (28, 128, 512),
                    3: (14, 256, 1024), 4: (7, 512, 2048)}
 EPILOGUE_KERNELS = ["affine_relu", "affine_squeeze", "tail", "tail_gate",
-                    "tail_proj", "tail_gate_proj"]
+                    "tail_proj", "tail_gate_proj", "affine_relu_pool2x2"]
+# VGG-VD-16's block-end conv outputs at 224x224, (h = w, c): what
+# affine_relu_pool2x2 reads
+VD16_BLOCK_ENDS = [(224, 64), (112, 128), (56, 256), (28, 512), (14, 512)]
 TEACHER_GOLDEN = (Path(__file__).resolve().parent / "fixtures"
                   / "torch_teacher_golden.npz")
+VGG16_GOLDEN = TEACHER_GOLDEN.with_name("torch_vgg16_golden.npz")
+VGG_FACE_MEAN = (129.1863, 104.7624, 93.594)
 TEACHER_FP32_RTOL = 2e-3  # chip_smoke's gates against the JAX golden
 TEACHER_BF16_RTOL = 1e-2
 
@@ -717,6 +722,8 @@ def _epilogue_args(kernel, shape, dtype, device, seed, offset=0):
 
     y = act()
     s, t = affine()
+    if kernel == "affine_relu_pool2x2":  # the affine before the max matters
+        s[::2] *= -1.0
     kw = {}
     if kernel.startswith("tail"):
         kw["residual"] = act()
@@ -734,6 +741,10 @@ def _epilogue_call(kernel, y, s, t, kw, plain=False):
     if kernel == "affine_squeeze":
         fn = epilogue.affine_squeeze_plain if plain else epilogue.affine_squeeze
         return fn(y, s, t)
+    if kernel == "affine_relu_pool2x2":
+        fn = (epilogue.affine_relu_pool2x2_plain if plain
+              else epilogue.affine_relu_pool2x2)
+        return fn(y, s, t)
     kw = dict(kw)
     r = kw.pop("residual")
     if plain:
@@ -743,7 +754,8 @@ def _epilogue_call(kernel, y, s, t, kw, plain=False):
 
 def _wrapper(kernel):
     return {"affine_relu": epilogue.affine_relu,
-            "affine_squeeze": epilogue.affine_squeeze}.get(
+            "affine_squeeze": epilogue.affine_squeeze,
+            "affine_relu_pool2x2": epilogue.affine_relu_pool2x2}.get(
                 kernel, epilogue.affine_gate_add_relu)
 
 
@@ -779,6 +791,49 @@ def test_epilogue_kernels_match_plain_at_the_teachers_shapes(
     y, s, t, kw = _epilogue_args(kernel, (batch, hw, hw, c), torch.bfloat16,
                                  cuda, seed=stage * 10 + batch)
     _epilogue_matches_plain(kernel, y, s, t, kw)
+
+
+@pytest.mark.parametrize("hw,c", VD16_BLOCK_ENDS)
+def test_pool_epilogue_matches_plain_at_the_vd16_block_ends(cuda, hw, c):
+    """affine_relu_pool2x2 at batch 128 in bf16 at each of VGG-VD-16's
+    five block ends, every other channel's scale negative."""
+    y, s, t, kw = _epilogue_args("affine_relu_pool2x2", (128, hw, hw, c),
+                                 torch.bfloat16, cuda, seed=hw + c)
+    _epilogue_matches_plain("affine_relu_pool2x2", y, s, t, kw)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (3, 15, 13, 64)),   # odd: the last row and column unread
+    (torch.bfloat16, (2, 3, 2, 8)),      # one 16-byte vector a pixel
+    (torch.float32, (3, 7, 9, 4)),
+    (torch.bfloat16, (1, 2, 2, 1024))])  # one window, eight channel tiles
+def test_pool_epilogue_at_odd_and_narrow_shapes(cuda, dtype, shape):
+    y, s, t, kw = _epilogue_args("affine_relu_pool2x2", shape, dtype, cuda,
+                                 seed=sum(shape))
+    _epilogue_matches_plain("affine_relu_pool2x2", y, s, t, kw)
+
+
+def test_pool_epilogue_keeps_a_nan_in_its_window(cuda):
+    y, s, t, _ = _epilogue_args("affine_relu_pool2x2", (2, 4, 4, 16),
+                                torch.bfloat16, cuda, seed=5)
+    y[0, 1, 2, 3] = float("nan")
+    got = epilogue.affine_relu_pool2x2(y, s, t)
+    ref = epilogue.affine_relu_pool2x2_plain(y, s, t)
+    assert torch.isnan(got[0, 0, 1, 3]).item()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+def test_pool_epilogue_refuses_what_it_cannot_pool(cuda):
+    y, s, t, _ = _epilogue_args("affine_relu_pool2x2", (2, 4, 4, 16),
+                                torch.bfloat16, cuda, seed=6)
+    before = epilogue.affine_relu_pool2x2.launches
+    with pytest.raises(ValueError, match="H and W of 2 or more"):
+        epilogue.affine_relu_pool2x2(y[:, :1], s, t)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        epilogue.affine_relu_pool2x2(y.permute(0, 2, 1, 3), s, t)
+    with pytest.raises(ValueError, match="fp32"):
+        epilogue.affine_relu_pool2x2(y, s[:8], t[:8])
+    assert epilogue.affine_relu_pool2x2.launches == before
 
 
 @pytest.mark.parametrize("kernel", EPILOGUE_KERNELS)
@@ -923,3 +978,132 @@ def test_teacher_eval_forward_holds_the_golden(cuda, arch, dtype):
         gate = max(2 * jax_bf16, TEACHER_BF16_RTOL * scale)
     print(f"{arch} {dtype}: max abs {err:.3e}, gate {gate:.3e}")
     assert err <= gate
+
+
+def _vggface(arch, bn, dtype, cuda):
+    """A full-width classic face network (VGG-VD-16 'vd', as
+    ``vgg-vd-face-fer`` without BatchNorm or with the useBnorm retrofit;
+    VGG-M 'm') with ``random_vggface_variables``' seeded weights."""
+    from mcncrossmodalemotions_torch.models.vggface import VGGFace
+    from mcncrossmodalemotions_torch.zoo.bridge import (
+        random_vggface_variables,
+        teacher_state_dict_from_flax,
+    )
+
+    model = VGGFace(arch, use_batchnorm=bn, dtype=dtype)
+    model.load_state_dict(teacher_state_dict_from_flax(
+        random_vggface_variables(seed=1, arch=arch, use_batchnorm=bn)))
+    return model.to(cuda).eval()
+
+
+@pytest.mark.parametrize("arch,bn", [("vd", False), ("vd", True), ("m", True)],
+                         ids=["vgg16", "vgg16_bn", "vggm_bn"])
+def test_vggface_fused_forward_matches_the_unfused_at_published_widths(
+        cuda, arch, bn):
+    """The classic face networks at full width on 8 frames: the fused eval
+    forward in fp32 within 2e-3 x max|logit| of the unfused fp32 forward
+    (autograd on, TF32 off), in bf16 within max(2 x the unfused bf16
+    forward's own error, 1e-2 x max|logit|); the embeddings too."""
+    x = torch.randn(8, 224, 224, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2)) * 60
+    out = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = _vggface(arch, bn, dtype, cuda)
+        with torch.enable_grad():
+            out[f"unfused {tag}"] = [v.detach().float() for v in
+                                     model(x, return_embedding=True)]
+        with torch.inference_mode():
+            out[tag] = [v.float() for v in model(x, return_embedding=True)]
+        assert model.prepared.builds == 1
+        del model
+    for i, what in enumerate(("logits", "embedding")):
+        ref = out["unfused fp32"][i]
+        scale = ref.abs().max().item()
+        err = {k: (out[k][i] - ref).abs().max().item()
+               for k in ("fp32", "bf16", "unfused bf16")}
+        print(f"{arch} {what}: max |ref| {scale:.4f}, {err}")
+        assert err["fp32"] <= TEACHER_FP32_RTOL * scale, what
+        assert err["bf16"] <= max(2 * err["unfused bf16"],
+                                  TEACHER_BF16_RTOL * scale), what
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("bn", [False, True], ids=["vgg16", "vgg16_bn"])
+def test_vgg16_fused_forward_holds_the_jax_golden(cuda, bn, dtype):
+    """Full-width VGG-VD-16 (BN-less as ``vgg-vd-face-fer``, and the
+    useBnorm retrofit) in a ``FaceTeacherPipeline`` with the vgg_face mean,
+    ``random_vggface_variables(seed=0)``' weights, the fused eval forward on
+    the teacher golden's four frames against the JAX package's fp32 logits
+    (``torch_vgg16_golden.npz``): fp32 (TF32 off) within 2e-3 x
+    max|golden|, bf16 within max(2 x JAX's own bf16 error, 1e-2 x
+    max|golden|), chip_smoke's teacher gates; 10 affine_relu and 5
+    affine_relu_pool2x2 launched."""
+    from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_torch.models.vggface import VGGFace
+    from mcncrossmodalemotions_torch.zoo.bridge import (
+        random_vggface_variables,
+        teacher_state_dict_from_flax,
+    )
+
+    gold = np.load(TEACHER_GOLDEN)
+    frames = gold["frames_crop0625"][gold["logit_index"]][..., None]
+    v = random_vggface_variables(seed=0, arch="vd", use_batchnorm=bn)
+    model = FaceTeacherPipeline(VGGFace("vd", use_batchnorm=bn, dtype=dtype),
+                                mean_rgb=VGG_FACE_MEAN, augment=False)
+    model.load_state_dict(teacher_state_dict_from_flax(
+        {k: {"teacher": tree} for k, tree in v.items()}), strict=True)
+    model = model.to(cuda).eval()
+    wrappers = (epilogue.affine_relu, epilogue.affine_relu_pool2x2)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        got = model(torch.from_numpy(frames).to(cuda)).cpu().numpy()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [10, 5]
+    arch = "vgg16_bn" if bn else "vgg16"
+    vgold = np.load(VGG16_GOLDEN)
+    ref = vgold[f"logits_{arch}_fp32"]
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    if dtype == torch.float32:
+        gate = TEACHER_FP32_RTOL * scale
+    else:
+        jax_bf16 = float(np.abs(vgold[f"logits_{arch}_bf16"] - ref).max())
+        gate = max(2 * jax_bf16, TEACHER_BF16_RTOL * scale)
+    print(f"{arch} {dtype}: max abs {err:.3e}, gate {gate:.3e}")
+    assert err <= gate
+
+
+def test_vgg16_eval_forward_launches_the_epilogues(cuda):
+    """``build_teacher('vgg-vd-face-fer')`` in a ``FaceTeacherPipeline``,
+    one eval forward at batch 128 without autograd: 10 affine_relu (8
+    mid-block convs, fc6, fc7) and 5 affine_relu_pool2x2, no squeeze or
+    tail; the prepared weights built once over two calls; an eval call
+    under autograd launches none."""
+    from mcncrossmodalemotions_torch.models.teacher_pipeline import (
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_torch.zoo import build_teacher
+
+    model = FaceTeacherPipeline(build_teacher("vgg-vd-face-fer"),
+                                mean_rgb=(129.1863, 104.7624, 93.594),
+                                augment=False)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    frames = torch.randint(0, 256, (128, 224, 224, 1), dtype=torch.uint8,
+                           device=cuda)
+    wrappers = (epilogue.affine_relu, epilogue.affine_squeeze,
+                epilogue.affine_gate_add_relu, epilogue.affine_relu_pool2x2)
+    for _ in range(2):
+        before = [w.launches for w in wrappers]
+        with torch.inference_mode():
+            logits = model(frames)
+        torch.cuda.synchronize()
+        assert [w.launches - b for w, b in zip(wrappers, before)] == \
+            [10, 0, 0, 5]
+    assert logits.shape == (128, 8) and torch.isfinite(logits).all().item()
+    assert model.teacher.prepared.builds == 1
+    before = [w.launches for w in wrappers]
+    model(frames[:2]).sum().backward()
+    assert [w.launches for w in wrappers] == before

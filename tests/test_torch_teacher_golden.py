@@ -15,12 +15,19 @@ full-width ``SENet50`` and ``ResNet50`` logits through
 ``FaceTeacherPipeline``, in fp32 and in bf16, on four of those frames,
 with ``random_teacher_variables(seed=0)``.
 
-Rewrite both (minutes: full-width JAX compiles on the CPU):
+``tests/fixtures/torch_vgg16_golden.npz`` holds the JAX package's
+full-width VGG-VD-16 (``VGGFace(arch="vd")``, 8-way head) logits through
+``FaceTeacherPipeline`` with the vgg_face mean, in fp32 and in bf16, without
+BatchNorm (as ``vgg-vd-face-fer``) and with the useBnorm retrofit, on the
+same four frames, with ``random_vggface_variables(seed=0)``.
+
+Rewrite them (minutes: full-width JAX compiles on the CPU):
 
     JAX_PLATFORMS=cpu python tests/test_torch_teacher_golden.py --fixtures --golden
+    JAX_PLATFORMS=cpu python tests/test_torch_teacher_golden.py --vgg16-golden
 
-The test below (marked ``slow``, outside Tier-1) recomputes the golden from
-the committed fixtures and holds it to the committed file.
+The tests below (marked ``slow``, outside Tier-1) recompute each golden
+from the committed fixtures and hold it to the committed file.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import pytest
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "torch_faces"
 GOLDEN = Path(__file__).resolve().parent / "fixtures" / "torch_teacher_golden.npz"
+VGG16_GOLDEN = GOLDEN.with_name("torch_vgg16_golden.npz")
+VGG_FACE_MEAN = (129.1863, 104.7624, 93.594)  # vgg_face's averageImage
 LOGIT_FIXTURES = ("f420_224x224", "f422_320x256", "f444_97x131",
                   "gray_131x97")  # the four frames the logits cover
 CROPS = {"crop0625": 1.0 / 1.6, "crop1": 1.0}
@@ -199,6 +208,53 @@ def golden_arrays() -> dict:
     return out
 
 
+def jax_vgg16_logits(frames: np.ndarray, use_batchnorm: bool,
+                     dtype) -> np.ndarray:
+    """The JAX package's full-width VGG-VD-16 through
+    ``FaceTeacherPipeline`` with the vgg_face mean on uint8 frames
+    [N, 224, 224, 1], fp32 convs at full precision."""
+    import jax
+    import jax.numpy as jnp
+
+    from mcncrossmodalemotions_torch.zoo.bridge import random_vggface_variables
+    from mcncrossmodalemotions_tpu.models.teacher_pipeline import (
+        FaceTeacherPipeline,
+    )
+    from mcncrossmodalemotions_tpu.models.vggface import VGGFace
+
+    v = random_vggface_variables(SEED, arch="vd", use_batchnorm=use_batchnorm)
+    variables = {k: {"teacher": tree} for k, tree in v.items()}
+    model = FaceTeacherPipeline(
+        teacher=VGGFace(arch="vd", use_batchnorm=use_batchnorm, dtype=dtype),
+        input_size=OUT_SIZE, mean_rgb=VGG_FACE_MEAN, augment=False)
+    with jax.default_matmul_precision("highest"):
+        out = jax.jit(lambda var, x: model.apply(var, x, train=False))(
+            variables, jnp.asarray(frames))
+    return np.asarray(out, np.float32)
+
+
+def vgg16_golden_arrays() -> dict:
+    """Everything the VGG-VD-16 golden holds, computed afresh on the
+    teacher golden's four frames."""
+    import jax.numpy as jnp
+
+    gold = np.load(GOLDEN)
+    frames = gold["frames_crop0625"][gold["logit_index"]][..., None]
+    out = {}
+    for arch, bn in (("vgg16", False), ("vgg16_bn", True)):
+        for tag, dtype in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
+            out[f"logits_{arch}_{tag}"] = jax_vgg16_logits(frames, bn, dtype)
+    return out
+
+
+def _hold_logits(fresh: dict, gold) -> None:
+    for key, val in fresh.items():
+        scale = float(np.abs(gold[key]).max())
+        err = float(np.abs(val - gold[key]).max())
+        print(f"{key}: max abs diff {err:.3e} (max |golden| {scale:.3f})")
+        assert err <= 1e-5 * scale, key
+
+
 @pytest.mark.slow
 def test_golden_rechecked():
     """The committed golden is what the committed fixtures, the committed
@@ -206,14 +262,20 @@ def test_golden_rechecked():
     gold = np.load(GOLDEN)
     fresh = golden_arrays()
     assert sorted(gold.files) == sorted(fresh)
+    _hold_logits({k: v for k, v in fresh.items() if k.startswith("logits_")},
+                 gold)
     for key, val in fresh.items():
-        if key.startswith("logits_"):
-            scale = float(np.abs(gold[key]).max())
-            err = float(np.abs(val - gold[key]).max())
-            print(f"{key}: max abs diff {err:.3e} (max |golden| {scale:.3f})")
-            assert err <= 1e-5 * scale, key
-        else:
+        if not key.startswith("logits_"):
             np.testing.assert_array_equal(val, gold[key], err_msg=key)
+
+
+@pytest.mark.slow
+def test_vgg16_golden_rechecked():
+    """The committed VGG-VD-16 golden is what the JAX package gives today."""
+    gold = np.load(VGG16_GOLDEN)
+    fresh = vgg16_golden_arrays()
+    assert sorted(gold.files) == sorted(fresh)
+    _hold_logits(fresh, gold)
 
 
 def main(argv) -> int:
@@ -227,6 +289,12 @@ def main(argv) -> int:
             if key.startswith("logits_"):
                 print(key, np.round(val, 4).tolist())
         print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes)")
+    if "--vgg16-golden" in argv:
+        arrays = vgg16_golden_arrays()
+        np.savez_compressed(VGG16_GOLDEN, **arrays)
+        for key, val in arrays.items():
+            print(key, np.round(val, 4).tolist())
+        print(f"wrote {VGG16_GOLDEN} ({VGG16_GOLDEN.stat().st_size} bytes)")
     return 0
 
 

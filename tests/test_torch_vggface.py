@@ -9,7 +9,10 @@ JAX package's, on the CPU.
   BatchNorm in float64 on both sides, the head fp32 as the modules fix
   it: the fast batch variance of three rows cancels in fp32), each within
   1e-5 x the reference's largest magnitude of Flax at HIGHEST precision;
-  the embedding too.
+  the embedding too. The eval fast path (``fused_forward``: bias-free
+  convs, fc6 and fc7 as GEMMs on the NHWC-flattened activations, the
+  epilogues' plain versions on a CPU tensor) is held to Flax's eval logits
+  the same way.
 - Geometry: ``fc6_extent`` is 7 (VD) and 6 (VGG-M) at 224, as Flax's
   lazily sized fc6 kernel; VGG-M's [0 1 0 1] pool is ``stem_pool``, equal
   to Flax's padded pool at the released sizes 109, 54, 26 and 13 and at
@@ -59,7 +62,7 @@ def _close(got, ref, what):
     assert err <= RTOL * float(np.abs(ref).max()), (what, err)
 
 
-def _run(arch, bn, train, pad_mask):
+def _run(arch, bn, train, pad_mask, fused=False):
     size = SIZE[arch]
     v = random_vggface_variables(seed=3, arch=arch, use_batchnorm=bn,
                                  input_size=size, **TINY)
@@ -89,8 +92,13 @@ def _run(arch, bn, train, pad_mask):
     tm = tm.to(tdt)
     tkw = {} if pad_mask is None else {"pad_mask": torch.from_numpy(pad_mask)}
     with torch.no_grad():
-        tl, temb = tm(torch.from_numpy(x), train=train, return_embedding=True,
-                      **tkw)
+        if fused:
+            tl, temb = tm.fused_forward(torch.from_numpy(x),
+                                        return_embedding=True)
+            assert tm.prepared.builds == 1
+        else:
+            tl, temb = tm(torch.from_numpy(x), train=train,
+                          return_embedding=True, **tkw)
     want = teacher_state_dict_from_flax(dict(v, **mutated))
     return (np.asarray(jl), np.asarray(jemb), tl.numpy(), temb.numpy(),
             tm.state_dict(), want, v)
@@ -98,11 +106,12 @@ def _run(arch, bn, train, pad_mask):
 
 @pytest.mark.parametrize("arch", ["vd", "m"])
 @pytest.mark.parametrize("bn", [True, False])
-@pytest.mark.parametrize("mode", ["eval", "train", "train-ragged"])
+@pytest.mark.parametrize("mode", ["eval", "train", "train-ragged", "fused"])
 def test_vggface_matches_flax(arch, bn, mode):
     mask = (np.float32([1, 0, 1, 1, 0]) if mode == "train-ragged" else None)
-    jl, jemb, tl, temb, got, want, before = _run(arch, bn, mode != "eval",
-                                                 mask)
+    train = mode.startswith("train")
+    jl, jemb, tl, temb, got, want, before = _run(arch, bn, train, mask,
+                                                 fused=mode == "fused")
     _close(tl, jl, "logits")
     _close(temb, jemb, "embedding")
     assert float(np.abs(jl).std()) > 0.1  # logits worth comparing
@@ -110,7 +119,7 @@ def test_vggface_matches_flax(arch, bn, mode):
     assert bool(stats) == bn
     for key in stats:
         _close(got[key].numpy(), want[key].numpy(), key)
-        if mode != "eval":  # the statistics moved
+        if train:  # the statistics moved
             old = teacher_state_dict_from_flax(before)[key].numpy()
             assert np.abs(got[key].numpy() - old).max() > 1e-3, key
 
