@@ -70,13 +70,17 @@ without the kernels where a comparison applies. Phases:
    0.5 relative L2 of the plain one (a mis-routed pool gradient gave 1.10
    at tiny width on the CPU); per step K1 launched once, the
    with-index K2 forward twice, the K2 backward twice and the index-free
-   K2 forward never; mean step ms and utts/s of each mode over 10 timed
-   steps after 2 warm-up steps.
+   K2 forward never; the train-mode BatchNorm kernels (``ops/train_bn``)
+   six fused forwards and backwards a step with the kernels, each of its
+   six wrappers launched once a call, and six eager calls and no launch a
+   plain step; mean step ms and utts/s of each mode over 10 timed steps
+   after 2 warm-up steps.
 9. distill: ``run_distillation`` (full width, batch 64) on the port's
    ``build_synthetic_imdb`` with 8 speakers x 20 tracks (2 full train
    batches an epoch) for 2 epochs: checkpoints 1 and 2 and
    ``metrics.jsonl`` appear, losses finite, the exact kernel launch
-   counts; a second call with ``num_epochs=3`` resumes at epoch 3;
+   counts (the train-mode BatchNorm's six fused calls a train step); a
+   second call with ``num_epochs=3`` resumes at epoch 3;
    ``feed_bound_frac`` per epoch.
 10. reader: the port's wav reader library (``csrc/dataservice_audio.cc``),
     not Python, serves extraction; its ``ds_read_crops`` and
@@ -332,6 +336,21 @@ without the kernels where a comparison applies. Phases:
     ``F.relu_`` and ``F.max_pool2d``). The teacher phase counts their
     launches: 33 / 16 / 16 / 0 a SENet50 forward, 33 / 0 / 16 / 0 a
     ResNet50 one, 10 / 0 / 0 / 5 a VGG-VD-16 one.
+26. train-bn: the student's train-mode BatchNorm and ReLU kernels
+    (``csrc/train_bn.cu``, ``ops/train_bn.py``) at the distillation
+    cell's six BatchNorm inputs, batch 64 in bf16: each layer's forward
+    and backward against the eager code (y and dx within one bf16 unit,
+    the parameter gradients and running statistics within fp32 order
+    noise); the forward (stats, finalize, apply) and the backward
+    (reduction, finalize, dx) timed against the eager code and the
+    library (``F.batch_norm(training=True)`` and ``F.relu``) in turns,
+    inputs cold in the L2, beside the bound of the least bytes (x in, y
+    out; dy and x in, dx out), summed over the six layers; at bn1 each
+    pass alone beside its own bytes; then one full-width student train
+    step at batch 64: six fused forwards, six fused backwards, no eager
+    BatchNorm (``train_bn.calls``), each wrapper launched six times.
+    Alone: ``python3 -c "import chip_smoke;
+    print(chip_smoke.train_bn_phase('H100'))"``.
 
 Prints one JSON line of kernel results (``launches``: the K1/K2 kernels'
 counted over the main runs of the slice, train, distill, reader, release,
@@ -340,8 +359,12 @@ demo, studies, workflow and graft phases (the ddp and graft phases' over
 every rank, the dense-chunked phase's one-process build, the studies'
 processes as each reports them; the bench's processes are not counted),
 the probe kernels' over the probes run, the epilogue kernels' over the
-teacher phase's golden forwards and its dense build, each
-read between a reset just before and just after it;
+teacher phase's golden forwards and its dense build, the train-mode
+BatchNorm kernels' (forward: stats, finalize, apply; backward: the
+other three) over the train phase's kernel steps, the distill phase's
+first call, the teacher-train phase's bf16 golden steps and the train-bn
+phase's student step, each read between a reset just before and just
+after it;
 ``ms``/``plain_ms``/``library_ms``: summed over the main runs' launch
 shapes, K1's at the int16 feed, which the kernel reads as it is and the
 plain version decodes, the with-index forward and the backward at the
@@ -502,6 +525,20 @@ VD16_GOLDEN_WIDTH = 1 / 16    # the CPU rehearsal's VGG-VD-16 (full width on
                               # the card)
 EPILOGUE_COLD_BYTES = 100e6   # a timed call's inputs, rotated over copies,
                               # are at least this far apart: twice the L2
+TRAIN_BN_BATCH = 64           # the distillation cell's batch
+TRAIN_BN_SHAPES = {"bn1": (96, 253, 197),   # the student's BatchNorm inputs
+                   "bn2": (256, 61, 47),    # at 4 s crops, (c, h, w): conv1
+                   "bn3": (384, 30, 23),    # to conv5, then fc6
+                   "bn4": (256, 30, 23),
+                   "bn5": (256, 30, 23),
+                   "bn6": (4096, 1, 11)}
+TRAIN_BN_PASSES_AT = "bn1"    # the layer whose six passes are timed alone
+TRAIN_BN_ATOL = {"y": 1e-5, "dx": 1e-4}  # of the largest magnitude, beside
+                              # one bf16 unit (tests/test_torch_kernels_gpu.py)
+TRAIN_BN_TARGET_MS = 3.0      # the six layers' forward and backward a step
+TRAIN_BN_NAMES = ("stats", "finalize", "apply", "backward_reduce",
+                  "backward_finalize", "backward_apply")
+STUDENT_BNS, SENET50_BNS = 6, 53  # train-mode BatchNorms a forward
 GRAFT_GLOO_RANKS = 2          # the graft phase's gloo dry run: both ranks on
                               # the one card
 GRAFT_STEPS = 11              # train steps a dry-run rank takes: the SGD step,
@@ -764,9 +801,11 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
         torch.cuda.empty_cache()
 
 
-def train_phase(card: str, wrappers: dict) -> dict:
+def train_phase(card: str, wrappers: dict,
+                bn_launches: dict | None = None) -> dict:
     """The full-width train step with and without the kernels (phase 8);
-    returns the kernel steps' launch counts."""
+    returns the kernel steps' launch counts and adds their train-mode
+    BatchNorm launches to ``bn_launches``."""
     import numpy as np
     import torch
 
@@ -803,11 +842,15 @@ def train_phase(card: str, wrappers: dict) -> dict:
                                use_kernels=mode == "kernels")
         w0 = state.model.net.conv1.weight.detach().clone()
         reset_counts(wrappers)
+        reset_train_bn_counts()
         losses = []
         for _ in range(3):
             state, m = step(state, batch, TRAIN_LR)
             losses.append(m["loss"].item())
         counts = read_counts(wrappers)
+        fused = 3 * STUDENT_BNS if mode == "kernels" else 0
+        count_train_bn(f"train {mode}", fused, 3 * STUDENT_BNS - fused,
+                       bn_launches if fused else None)
         update = state.model.net.conv1.weight.detach() - w0
         torch.cuda.reset_peak_memory_stats()
         for _ in range(WARMUP_STEPS):
@@ -847,9 +890,11 @@ def train_phase(card: str, wrappers: dict) -> dict:
     return k["counts"]
 
 
-def distill_phase(root: Path, wrappers: dict) -> tuple:
+def distill_phase(root: Path, wrappers: dict,
+                  bn_launches: dict | None = None) -> tuple:
     """``run_distillation`` end to end, then its resume (phase 9); returns
-    the first call's launch counts and the synthetic imdb."""
+    the first call's launch counts and the synthetic imdb, and adds its
+    train-mode BatchNorm launches to ``bn_launches``."""
     import numpy as np
 
     from mcncrossmodalemotions_torch.data.emovox import build_synthetic_imdb
@@ -864,11 +909,14 @@ def distill_phase(root: Path, wrappers: dict) -> tuple:
     kw = dict(batch_size=64, mini_epoch_ratio=1.0, out_root=str(root / "exps"),
               seed=SEED)
     reset_counts(wrappers)
+    reset_train_bn_counts()
     t0 = time.perf_counter()
     _, history, exp_dir = run_distillation(DistillationConfig(num_epochs=2, **kw),
                                            imdb, device="cuda")
     wall = time.perf_counter() - t0
     counts = read_counts(wrappers)
+    steps = sum(h["train"]["num_samples"] for h in history) // 64
+    count_train_bn("distill", STUDENT_BNS * steps, 0, bn_launches)
     for h in history:
         tr = h["train"]
         print(f"  distill epoch {h['epoch']}: train loss {tr['loss']:.4f}, "
@@ -1801,7 +1849,7 @@ def train_golden_errors(got: dict, gold, tag: str) -> dict:
 
 
 def teacher_train_phase(card: str, root: Path, wrappers: dict,
-                        dev="cuda") -> dict:
+                        dev="cuda", bn_launches: dict | None = None) -> dict:
     """The teacher's training path (phase 14): the full-width SENet50 train
     golden in float64, fp32 (TF32 off) and bf16; ``ferplus_baselines``
     with the senet50-ferplus defaults on the synthetic FER+ set, 2 epochs,
@@ -1812,8 +1860,11 @@ def teacher_train_phase(card: str, root: Path, wrappers: dict,
     peak memory of four teachers at batch 128 in bf16, and one profiled
     epoch's feed share, device busy share and device time by op. Returns
     the launch counts of the ferplus_baselines runs (the path launches no
-    kernel of the kernel line). With ``dev="cpu"`` (a rehearsal on a
-    machine without a card) the golden is left to
+    kernel of the kernel line). On the card the golden's bf16 steps run
+    SENet50's 53 BatchNorms through the train-mode BatchNorm kernels
+    without the ReLU (fp32 and float64 through the eager code): counted,
+    and the bf16 launches added to ``bn_launches``. With ``dev="cpu"`` (a
+    rehearsal on a machine without a card) the golden is left to
     ``tests/test_torch_teacher_train.py`` and the rest runs tiny."""
     import dataclasses
 
@@ -1859,7 +1910,11 @@ def teacher_train_phase(card: str, root: Path, wrappers: dict,
         gold = np.load(TRAIN_GOLDEN)
         for tag, dtype in (("fp64", torch.float64), ("fp32", torch.float32),
                            ("bf16", torch.bfloat16)):
+            reset_train_bn_counts()
             got = golden_train_run(dtype, dev)
+            fused = GOLDEN_STEPS * SENET50_BNS * (dtype == torch.bfloat16)
+            count_train_bn(f"train golden {tag}", fused,
+                           GOLDEN_STEPS * SENET50_BNS - fused, bn_launches)
             errs = train_golden_errors(got, gold, tag)
             print(f"  {card}: train golden {tag} against JAX's float64: "
                   f"losses {got['losses'].tolist()} (JAX "
@@ -4414,6 +4469,40 @@ def teacher_epilogue_launches(kind: str, forwards: int) -> dict:
     return {k: n * forwards for k, n in zip(EPILOGUE_NAMES, per)}
 
 
+def reset_train_bn_counts() -> None:
+    """Zero the train-mode BatchNorm wrappers' launches and the engagement
+    counts (``ops/train_bn.calls``)."""
+    from mcncrossmodalemotions_torch.ops import train_bn as tb
+
+    for k in TRAIN_BN_NAMES:
+        getattr(tb, k).launches = 0
+    for k in tb.calls:
+        tb.calls[k] = 0
+
+
+def count_train_bn(label: str, fused: int, plain: int,
+                   total: dict | None = None) -> dict:
+    """Hold the train-mode BatchNorm since the last reset to ``fused``
+    fused forwards and as many backwards, each wrapper launched once a
+    call, and ``plain`` eager calls on the card; add the launches to
+    ``total`` and return them."""
+    from mcncrossmodalemotions_torch.ops import train_bn as tb
+
+    got = {k: getattr(tb, k).launches for k in TRAIN_BN_NAMES}
+    calls = dict(tb.calls)
+    want = dict.fromkeys(TRAIN_BN_NAMES, fused)
+    want_calls = {"fused": fused, "fused_backward": fused, "plain": plain}
+    print(f"  {label}: train-mode BatchNorm launches {got}, calls {calls}",
+          flush=True)
+    check(got == want and calls == want_calls,
+          f"{label}: train-mode BatchNorm launches {got} and calls {calls}, "
+          f"expected {fused} a wrapper and {want_calls}")
+    if total is not None:
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return got
+
+
 def kernel_wrappers() -> dict:
     """The kernel line's wrappers by name, each counting its launches."""
     from mcncrossmodalemotions_torch.ops import pool, probes
@@ -4428,6 +4517,303 @@ def kernel_wrappers() -> dict:
             "probe_gather": probes.probe_gather,
             "probe_select_matmul": probes.probe_select_matmul,
             "probe_col_candidates": probes.probe_col_candidates}
+
+
+def train_bn_inputs(batch: int, c: int, h: int, w: int, dev, seed: int,
+                    masked: bool = True) -> dict:
+    """One BatchNorm call's inputs: x and dy bf16 ``channels_last`` [batch,
+    c, h, w] (x with per-channel means and spreads), a BatchNorm with drawn
+    parameters and running statistics, and the pad mask (all rows real,
+    as the cell's full batches are; None with ``masked`` False)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spread = torch.rand(1, c, 1, 1, device=dev, generator=gen) * 2 + 0.25
+    mean = torch.randn(1, c, 1, 1, device=dev, generator=gen)
+    cl = torch.channels_last
+    x = torch.randn(batch, c, h, w, device=dev, generator=gen) * spread + mean
+    dy = torch.randn(batch, c, h, w, device=dev, generator=gen)
+    bn = torch.nn.BatchNorm2d(c).to(dev)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.3, 0.3, generator=gen)
+        bn.running_mean.uniform_(-1.0, 1.0, generator=gen)
+        bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    return {"x": x.to(torch.bfloat16).contiguous(memory_format=cl),
+            "dy": dy.to(torch.bfloat16).contiguous(memory_format=cl),
+            "bn": bn,
+            "mask": torch.ones(batch, device=dev) if masked else None}
+
+
+def train_bn_calls(d: dict) -> dict:
+    """The timed calls on the inputs ``d``, by name: the kernels' forward
+    and backward (three wrappers each, the backward from one forward's
+    saved statistics) and each pass alone; the eager code (``vggm.
+    _batch_norm_train`` and ``F.relu``, what the card ran before) and the
+    library (``F.batch_norm(training=True)`` and ``F.relu``, unmasked,
+    which the port never calls), each forward and, through autograd on a
+    kept graph, backward."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from mcncrossmodalemotions_torch.models import vggm
+    from mcncrossmodalemotions_torch.ops import train_bn as tb
+
+    x, dy, bn, mask = d["x"], d["dy"], d["bn"], d["mask"]
+    b, c, h, w = x.shape
+    xn, dyn = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+    affine = (bn.weight.detach(), bn.bias.detach(), bn.running_mean,
+              bn.running_var, bn.eps, vggm.BN_MOMENTUM, True)
+
+    def stats():
+        return tb.stats(xn, mask)
+
+    part = stats()
+
+    def finalize():
+        return tb.finalize(part, mask, b, h * w, *affine)
+
+    sc, sh, saved = finalize()
+
+    def apply():
+        return tb.apply(xn, sc, sh, True)
+
+    def reduce():
+        return tb.backward_reduce(dyn, xn, sc, sh, saved, True)
+
+    grad_part = reduce()
+
+    def grad_finalize():
+        return tb.backward_finalize(grad_part, saved, affine[0], sc, bn.eps)
+
+    coef = grad_finalize()
+
+    def dx():
+        return tb.backward_apply(dyn, xn, sc, sh, coef, mask, True)
+
+    def kernel_forward():
+        p = tb.stats(xn, mask)
+        s, t, _ = tb.finalize(p, mask, b, h * w, *affine)
+        return tb.apply(xn, s, t, True)
+
+    def kernel_backward():
+        p = tb.backward_reduce(dyn, xn, sc, sh, saved, True)
+        k = tb.backward_finalize(p, saved, affine[0], sc, bn.eps)
+        return tb.backward_apply(dyn, xn, sc, sh, k, mask, True)
+
+    eager_bn, library_bn = copy.deepcopy(bn), copy.deepcopy(bn)
+
+    def eager(xr):
+        return F.relu(vggm._batch_norm_train(xr, eager_bn, mask, True, None))
+
+    def library(xr):
+        return F.relu(F.batch_norm(xr, library_bn.running_mean,
+                                   library_bn.running_var, library_bn.weight,
+                                   library_bn.bias, True, 0.1, bn.eps))
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                return fn(x)
+        return call
+
+    def backward(fn, module):
+        xr = x.detach().requires_grad_()
+        y = fn(xr)
+        leaves = (xr, module.weight, module.bias)
+        return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    return {"stats": stats, "finalize": finalize, "apply": apply,
+            "reduce": reduce, "grad_finalize": grad_finalize, "dx": dx,
+            "forward": (kernel_forward, forward(eager), forward(library)),
+            "backward": (kernel_backward, backward(eager, eager_bn),
+                         backward(library, library_bn))}
+
+
+def train_bn_units_off(got, want, atol_share: float) -> tuple:
+    """(elements off by more than one bf16 unit in the last place of the
+    larger magnitude plus ``atol_share`` of want's largest, the largest
+    difference in such units)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    unit = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    diff = (g - w).abs()
+    off = (diff > unit + atol_share * w.abs().max()).sum().item()
+    return int(off), (diff / unit).max().item()
+
+
+def train_bn_case(label: str, d: dict, dev) -> float:
+    """One layer's forward and backward through the program's dispatch
+    (``vggm.batch_norm_train(..., relu=True)``: the kernels on the card,
+    counted, and the eager code itself on the CPU, a rehearsal) against
+    the eager code on the same bf16 inputs: y and dx within one bf16 unit
+    (and ``TRAIN_BN_ATOL`` near zero), the parameter gradients and running
+    statistics within fp32 order noise; returns the largest difference in
+    bf16 units."""
+    import copy
+
+    import torch
+
+    from mcncrossmodalemotions_torch.models import vggm
+
+    runs = []
+    for fused in (True, False):
+        bn = copy.deepcopy(d["bn"])
+        xr = d["x"].detach().clone().requires_grad_()
+        if fused:
+            reset_train_bn_counts()
+            y = vggm.batch_norm_train(xr, bn, d["mask"], relu=True)
+        else:
+            y = torch.relu(vggm._batch_norm_train(xr, bn, d["mask"], True,
+                                                  None))
+        grads = torch.autograd.grad(y, (xr, bn.weight, bn.bias), d["dy"])
+        if fused:
+            count_train_bn(f"train-bn {label}",
+                           int(torch.device(dev).type == "cuda"), 0)
+        runs.append((y.detach(),) + grads + (bn.running_mean,
+                                             bn.running_var))
+    sync(dev)
+    worst = 0.0
+    notes = []
+    for name, got, want in zip(("y", "dx"), runs[0][:2], runs[1][:2]):
+        off, units = train_bn_units_off(got, want, TRAIN_BN_ATOL[name])
+        worst = max(worst, units)
+        notes.append(f"{name} {units:.2f} units")
+        check(off == 0, f"train-bn {label}: {name} {off} elements off the "
+                        f"eager code")
+    for name, got, want, rtol in zip(
+            ("dweight", "dbias", "running_mean", "running_var"),
+            runs[0][2:], runs[1][2:], (1e-3, 1e-3, 1e-4, 1e-4)):
+        gap = ((got - want).abs().max() / want.abs().max()).item()
+        notes.append(f"{name} {gap:.2e}")
+        check(gap <= rtol, f"train-bn {label}: {name} {gap:.3e} off")
+    b, c, h, w = d["x"].shape
+    print(f"  train-bn {label} [{b}, {c}, {h}, {w}] bf16 against the eager "
+          f"code: " + ", ".join(notes), flush=True)
+    return worst
+
+
+def train_bn_step(dev, batch: int) -> None:
+    """One student train step at ``batch`` (4 s int16 crops, a pad mask;
+    full width on the card, the tiny student on the CPU)."""
+    import torch
+
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.train.state import (
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = DEFAULT_SPEC.crop_samples(400)
+    data = torch.randn(batch, n, device=dev, generator=gen) * 3000
+    step_batch = {"data": data.to(torch.int16),
+                  "logit_target": torch.randn(batch, 8, device=dev,
+                                              generator=gen),
+                  "max_label": torch.randint(0, 8, (batch,), device=dev,
+                                             generator=gen, dtype=torch.int32),
+                  "pad_mask": torch.ones(batch, device=dev)}
+    model = build_student(tiny=torch.device(dev).type != "cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model.to(dev),
+                              torch.Generator(device=dev).manual_seed(SEED))
+    step = make_train_step(student_loss_fn("hot-cross-ent", temperature=2.0),
+                           pass_pad_mask=True)
+    step(state, step_batch, TRAIN_LR)
+    sync(dev)
+
+
+def train_bn_phase(card: str, dev="cuda", batch: int = TRAIN_BN_BATCH,
+                   shapes: dict = TRAIN_BN_SHAPES,
+                   passes_at: str = TRAIN_BN_PASSES_AT,
+                   bn_launches: dict | None = None) -> dict:
+    """The student's train-mode BatchNorm and ReLU kernels
+    (``csrc/train_bn.cu``, ``ops/train_bn.py``; phase 26) at the
+    distillation cell's six BatchNorm inputs (``shapes``, batch 64 in
+    bf16): each layer's fused forward and backward against the eager code
+    (``train_bn_case``); on the card the forward (stats, finalize, apply)
+    and the backward (reduction, finalize, dx) timed against the eager
+    code and the library (``train_bn_calls``) in turns, each timed call's
+    inputs rotated over copies so that none is in the L2, beside the bound
+    of the least bytes (x in and y out; dy and x in and dx out); at
+    ``passes_at`` each pass alone beside its own bytes; then one student
+    train step (full width at ``batch``) counted: six fused forwards, six
+    fused backwards, each wrapper launched six times (added to
+    ``bn_launches``), no eager BatchNorm (all zero on the CPU, whose
+    tensors take the eager code, uncounted). Returns, for the forward and the
+    backward, [kernel ms, eager ms, library ms, least bytes, largest
+    difference in bf16 units] summed over the layers (times 0 on the
+    CPU, a rehearsal)."""
+    import torch
+
+    rows = {"train_bn_forward": [0.0, 0.0, 0.0, 0, 0.0],
+            "train_bn_backward": [0.0, 0.0, 0.0, 0, 0.0]}
+    on_card = torch.device(dev).type == "cuda"
+    for label, (c, h, w) in shapes.items():
+        elems = batch * c * h * w
+        d = train_bn_inputs(batch, c, h, w, dev, SEED + c + h + w)
+        units = train_bn_case(label, d, dev)
+        for key, per in (("train_bn_forward", 4), ("train_bn_backward", 6)):
+            rows[key][3] += per * elems
+            rows[key][4] = max(rows[key][4], units)
+        if not on_card:
+            continue
+        copies = max(1, math.ceil(EPILOGUE_COLD_BYTES / (2 * elems)))
+        sets = [d] + [train_bn_inputs(batch, c, h, w, dev, SEED + c + i)
+                      for i in range(1, copies)]
+        calls = [train_bn_calls(s) for s in sets]
+        turn = [0]
+
+        def rotate(name, which=None):
+            def call():
+                turn[0] = (turn[0] + 1) % copies
+                fn = calls[turn[0]][name]
+                return fn() if which is None else fn[which]()
+            return call
+
+        for key, name, per in (("train_bn_forward", "forward", 4),
+                               ("train_bn_backward", "backward", 6)):
+            k, p, lib = turns_ms(*(rotate(name, i) for i in range(3)))
+            for i, v in enumerate((k, p, lib)):
+                rows[key][i] += v
+            bound, _ = bound_ms(per * elems, 0)
+            print(f"  {card}: train-bn {name} {label} [{batch}, {c}, {h}, "
+                  f"{w}]: kernels {k:.4f} ms, eager {p:.4f} ms, library "
+                  f"{lib:.4f} ms; bound {bound:.4f} ms (bytes, "
+                  f"{per * elems / 1e6:.1f} MB), {bound / k:.1%} of it; "
+                  f"{copies} input set(s)", flush=True)
+        if label == passes_at:
+            for name, per in (("stats", 2), ("finalize", 0), ("apply", 4),
+                              ("reduce", 4), ("grad_finalize", 0),
+                              ("dx", 6)):
+                ms = cuda_ms(rotate(name))
+                if per:
+                    bound, _ = bound_ms(per * elems, 0)
+                    share = f"bound {bound:.4f} ms, {bound / ms:.1%} of it"
+                else:
+                    share = "per-channel work"
+                print(f"  {card}: train-bn {label} pass {name}: {ms:.4f} ms; "
+                      f"{share}", flush=True)
+        del sets, calls
+        torch.cuda.empty_cache()
+    fwd, bwd = rows["train_bn_forward"][0], rows["train_bn_backward"][0]
+    print(f"  {card}: train-bn the six layers a step: forward {fwd:.4f} ms + "
+          f"backward {bwd:.4f} ms = {fwd + bwd:.4f} ms (target "
+          f"{TRAIN_BN_TARGET_MS} ms); eager "
+          f"{rows['train_bn_forward'][1] + rows['train_bn_backward'][1]:.4f} "
+          f"ms; least bytes' bound "
+          f"{bound_ms(rows['train_bn_forward'][3] + rows['train_bn_backward'][3], 0)[0]:.4f} ms",
+          flush=True)
+    reset_train_bn_counts()
+    train_bn_step(dev, batch)
+    count_train_bn(f"train-bn one student step at batch {batch}",
+                   STUDENT_BNS * on_card, 0, bn_launches)
+    return rows
 
 
 def main() -> int:
@@ -4485,8 +4871,8 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build", walls):
-        libs = ("spectrogram", "max_pool_3x3s2", "probes", "dataservice_audio",
-                "dataservice_faces")
+        libs = ("spectrogram", "max_pool_3x3s2", "probes", "train_bn",
+                "dataservice_audio", "dataservice_faces")
         _build.load(*libs)  # one compiler each, all started together
         for lib in libs:
             log = _build.library_path(lib).with_suffix(".log").read_text()
@@ -4736,10 +5122,12 @@ def main() -> int:
             k2_backward_phase(card, timings, errs, work, dry_rows)
 
         with phase("train", walls):
-            train_counts = train_phase(card, wrappers)
+            bn_launches = {}  # the train-mode BatchNorm wrappers' launches
+            train_counts = train_phase(card, wrappers, bn_launches)
 
         with phase("distill", walls):
-            distill_counts, distill_imdb = distill_phase(Path(tmp), wrappers)
+            distill_counts, distill_imdb = distill_phase(Path(tmp), wrappers,
+                                                         bn_launches)
 
         with phase("reader", walls):
             reader_counts = reader_phase(card, imdb, wrappers)
@@ -4761,8 +5149,8 @@ def main() -> int:
                 epilogue_launches=epilogue_launches)
 
         with phase("teacher-train", walls):
-            teacher_train_counts = teacher_train_phase(card, Path(tmp),
-                                                       wrappers)
+            teacher_train_counts = teacher_train_phase(
+                card, Path(tmp), wrappers, bn_launches=bn_launches)
 
         with phase("online", walls):
             online_counts = online_phase(card, Path(tmp), dense_imdb,
@@ -4810,6 +5198,9 @@ def main() -> int:
 
         with phase("teacher-epilogue", walls):
             epilogue_rows = epilogue_phase(card)
+
+        with phase("train-bn", walls):
+            train_bn_rows = train_bn_phase(card, bn_launches=bn_launches)
 
     print("  phase walls (s): " + ", ".join(f"{k} {v:.2f}"
                                             for k, v in walls.items()))
@@ -4870,6 +5261,19 @@ def main() -> int:
         print(f"  {card}: {name}: {k:.5f} ms against a bound of {bound:.5f} "
               f"ms ({bound_by}; {bound / k:.1%} of it), library call: "
               f"F.batch_norm and what follows it, eagerly")
+    for (name, (k, p, lib, nbytes, err)), names in zip(
+            train_bn_rows.items(), (TRAIN_BN_NAMES[:3], TRAIN_BN_NAMES[3:])):
+        bound, bound_by = bound_ms(nbytes, 0)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": source + "train_bn.cu", "replaces": None,
+            "launches": sum(bn_launches.get(n, 0) for n in names),
+            "max_abs_err": err,
+            "ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib})
+        print(f"  {card}: {name}: {k:.5f} ms against a bound of {bound:.5f} "
+              f"ms ({bound_by}; {bound / k:.1%} of it), library call: "
+              f"F.batch_norm(training=True) and F.relu")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

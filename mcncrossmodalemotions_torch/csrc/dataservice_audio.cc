@@ -4,7 +4,8 @@
 // A copy of the audio half of native/dataservice.cc (the JAX package's C++
 // data service): the thread pool and ParallelFor, the RIFF/WAVE parser,
 // ReadWavSegment and PackRow, and the C entry points ds_wav_info,
-// ds_read_wav, ds_read_crops and ds_read_crops_packed, unchanged. The JPEG
+// ds_read_wav, ds_read_crops and ds_read_crops_packed, unchanged, and one
+// of its own: ds_wav_infos, a batch's headers in one threaded call. The JPEG
 // face decode (and so libjpeg) is left out: this library needs only the C++
 // standard library and pthreads, so it builds on hosts without libjpeg.
 //
@@ -295,6 +296,23 @@ int ds_wav_info(const char* path, int64_t* out4) {
   out4[2] = h.channels;
   out4[3] = h.bits;
   return 0;
+}
+
+// Batched headers into out[count][4], each row ds_wav_info's, on the
+// thread pool: one call (and so one release of the caller's interpreter
+// lock) for a batch's files. A file that fails gets a row of -1. Returns
+// 0 if every header parsed, else the number of failures.
+int ds_wav_infos(const char** paths, int count, int num_threads,
+                 int64_t* out) {
+  std::atomic<int> failures(0);
+  failures.fetch_add(ParallelFor(count, num_threads, [&](int i) {
+    int64_t* row = out + size_t(i) * 4;
+    if (ds_wav_info(paths[i], row) != 0) {
+      std::fill(row, row + 4, int64_t(-1));
+      failures.fetch_add(1);
+    }
+  }));
+  return failures.load();
 }
 
 // Single segment read; returns samples read (zero-padded to n), < 0 on error.

@@ -356,11 +356,12 @@ class EmoVoxBatcher:
                               targets, t0s)
 
     def _library_batch(self, chunk, rng, wav_root: Path) -> Dict[str, np.ndarray]:
-        """One threaded library read for the batch's on-rate files, packed
-        on the library's threads when every file is on-rate; an off-rate
-        file goes through ``load_crop`` (host resample) on its own. Both
-        draw one value a sample (the crop start), so the train stream is
-        the Python path's."""
+        """One threaded library read of the batch's headers, then one of
+        its on-rate files, packed on the library's threads when every file
+        is on-rate: two releases of the interpreter lock a batch, whatever
+        its size. An off-rate file goes through ``load_crop`` (host
+        resample) on its own. Both draw one value a sample (the crop
+        start), so the train stream is the Python path's."""
         from mcncrossmodalemotions_torch.data import native_audio
 
         cfg = self.cfg
@@ -369,9 +370,10 @@ class EmoVoxBatcher:
         rows: list = [None] * len(chunk)
         t0s = [0.0] * len(chunk)
         fast_paths, fast_starts, fast_positions, targets = [], [], [], []
-        for pos, j in enumerate(chunk):
-            path = str(wav_root / self.imdb.wav_paths[j])
-            num_samples, native_fs, _, _ = native_audio.wav_info(path)
+        paths = [str(wav_root / self.imdb.wav_paths[j]) for j in chunk]
+        infos = native_audio.wav_infos(paths).tolist()
+        for pos, (j, path) in enumerate(zip(chunk, paths)):
+            num_samples, native_fs, _, _ = infos[pos]
             offset = self._offset(j)
             if native_fs == fs:
                 if offset is not None:

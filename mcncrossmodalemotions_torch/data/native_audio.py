@@ -37,6 +37,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib = _build.load(LIBRARY)
     lib.ds_wav_info.restype = ctypes.c_int
     lib.ds_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.ds_wav_infos.restype = ctypes.c_int
+    lib.ds_wav_infos.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
     lib.ds_read_wav.restype = ctypes.c_int64
     lib.ds_read_wav.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
@@ -75,6 +78,25 @@ def wav_info(path: str) -> Tuple[int, int, int, int]:
     if rc != 0:
         raise IOError(f"ds_wav_info({path}) failed: {rc}")
     return tuple(int(v) for v in out)  # type: ignore[return-value]
+
+
+def wav_infos(paths: Sequence[str], num_threads: int = 8) -> np.ndarray:
+    """[count, 4] int64, each row ``wav_info`` of its file, the headers read
+    in one threaded library call: a batch's reads release the interpreter
+    lock once, not once a file, so a producer thread does not wait for the
+    lock at every file while another thread issues work."""
+    lib = _need()
+    count = len(paths)
+    c_paths = (ctypes.c_char_p * count)(*[str(p).encode() for p in paths])
+    out = np.zeros((count, 4), np.int64)
+    failures = lib.ds_wav_infos(
+        c_paths, count, num_threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if failures:
+        bad = [str(p) for p, row in zip(paths, out) if row[0] < 0]
+        raise IOError(f"ds_wav_infos: {failures}/{count} headers failed, "
+                      f"first {bad[0]}")
+    return out
 
 
 def read_wav(path: str, start: int = 0, num_samples: int = -1):

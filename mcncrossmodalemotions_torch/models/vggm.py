@@ -63,6 +63,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from mcncrossmodalemotions_torch.ops import train_bn
 from mcncrossmodalemotions_torch.ops.pool import (
     max_pool_3x3s2,
     max_pool_3x3s2_cuda,
@@ -193,12 +194,21 @@ def lecun_normal_(weight: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
                      pad_mask: Optional[torch.Tensor] = None,
                      update: bool = True,
-                     mesh: Optional[DataMesh] = None) -> torch.Tensor:
+                     mesh: Optional[DataMesh] = None,
+                     relu: bool = False,
+                     use_kernels: bool = True) -> torch.Tensor:
     """Flax train-mode BatchNorm over NCHW ``x``: normalise with the batch
     statistics of the rows where ``pad_mask > 0`` (all rows without a
     mask) and, with ``update``, update ``bn``'s running statistics in
     place. The result is in ``x``'s dtype; statistics and affine run in
     fp32 (fp64 for an fp64 ``x``: Flax promotes to at least fp32).
+    ``relu`` applies the ReLU that follows (the student's layers).
+
+    With ``use_kernels``, a 4-D CUDA bf16 ``x`` in ``channels_last``
+    memory with C a multiple of 8 and no ``mesh`` takes the hand-written
+    kernels of ``ops/train_bn.py`` for both, forward and backward (they
+    launch or raise); every other input, and every input without
+    ``use_kernels``, runs ``_batch_norm_train`` below, then ``F.relu``.
 
     Under ``mesh`` ``x`` is this rank's shard of the batch: the masked
     sums of x and x^2 and the count are summed over the ranks (one
@@ -213,9 +223,10 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
     a hook on ``x``'s closes it (tensor hooks, so the graph and the
     gradients are those of a run that does not record)."""
     if not trace.recording():
-        return _batch_norm_train(x, bn, pad_mask, update, mesh)
+        return _batch_norm_relu(x, bn, pad_mask, update, mesh, relu,
+                                use_kernels)
     with trace.span("vggm.bn"):
-        y = _batch_norm_train(x, bn, pad_mask, update, mesh)
+        y = _batch_norm_relu(x, bn, pad_mask, update, mesh, relu, use_kernels)
     if torch.is_grad_enabled() and x.requires_grad:
         opened: list = []
         y.register_hook(
@@ -223,6 +234,18 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
         x.register_hook(
             lambda g: trace.close_span(opened.pop() if opened else None))
     return y
+
+
+def _batch_norm_relu(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     pad_mask: Optional[torch.Tensor], update: bool,
+                     mesh: Optional[DataMesh], relu: bool,
+                     use_kernels: bool) -> torch.Tensor:
+    if use_kernels and train_bn.takes(x, mesh):
+        return train_bn.batch_norm(x, bn, pad_mask, update, BN_MOMENTUM, relu)
+    if x.is_cuda:
+        train_bn.calls["plain"] += 1
+    y = _batch_norm_train(x, bn, pad_mask, update, mesh)
+    return F.relu(y, inplace=True) if relu else y
 
 
 def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
@@ -405,25 +428,27 @@ class VGGMStudent(nn.Module):
     def _bn_relu(self, x: torch.Tensor, i: int, train: bool,
                  bn_mask: Optional[torch.Tensor],
                  update: bool = True,
-                 mesh: Optional[DataMesh] = None) -> torch.Tensor:
+                 mesh: Optional[DataMesh] = None,
+                 use_kernels: bool = True) -> torch.Tensor:
         if self.use_batchnorm:
             bn = getattr(self, f"bn{i}")
             if train:
-                x = batch_norm_train(x, bn, bn_mask, update, mesh)
-            else:
-                # mixed-precision eval BN: statistics and affine in fp32,
-                # result in the compute dtype (flax BatchNorm(dtype=bf16)
-                # does the same)
-                x = F.batch_norm(x, bn.running_mean, bn.running_var,
-                                 bn.weight, bn.bias, False, 0.0, bn.eps)
+                return batch_norm_train(x, bn, bn_mask, update, mesh,
+                                        relu=True, use_kernels=use_kernels)
+            # mixed-precision eval BN: statistics and affine in fp32,
+            # result in the compute dtype (flax BatchNorm(dtype=bf16) does
+            # the same)
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, False, 0.0, bn.eps)
         return F.relu(x, inplace=True)
 
     def _conv_bn_relu(self, x: torch.Tensor, i: int, name: str, train: bool,
                       bn_mask: Optional[torch.Tensor],
                       update: bool = True,
-                      mesh: Optional[DataMesh] = None) -> torch.Tensor:
+                      mesh: Optional[DataMesh] = None,
+                      use_kernels: bool = True) -> torch.Tensor:
         return self._bn_relu(self._conv(x, name), i, train, bn_mask, update,
-                             mesh)
+                             mesh, use_kernels)
 
     @staticmethod
     def _pool_3x3s2(x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
@@ -467,15 +492,17 @@ class VGGMStudent(nn.Module):
         """``train`` uses batch statistics (over the rows where
         ``pad_mask > 0``) and updates the running ones, and applies
         dropout drawn from ``generator``. ``use_kernels`` sends pool1/pool2
-        through the K2 wrappers (kernels on the card, plain on the CPU);
-        False runs the plain pool. ``remat_policy`` (one of
-        ``REMAT_RUNS``, under grad) recomputes its runs of stages in the
-        backward. Under ``mesh`` ``x`` is this rank's shard: the train-mode
+        through the K2 wrappers (kernels on the card, plain on the CPU) and
+        lets the train-mode BatchNorms take their kernels on the card
+        (``batch_norm_train``); False runs the plain pool and BatchNorm.
+        ``remat_policy`` (one of ``REMAT_RUNS``, under grad) recomputes its
+        runs of stages in the backward. Under ``mesh`` ``x`` is this rank's shard: the train-mode
         statistics and the dropout draws are the global batch's."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # [B, 1, F, T]
         x = x.contiguous(memory_format=torch.channels_last)
         drop = train and self.dropout_rate > 0
-        bn = dict(train=train, bn_mask=pad_mask, mesh=mesh)
+        bn = dict(train=train, bn_mask=pad_mask, mesh=mesh,
+                  use_kernels=use_kernels)
         embedding: List[torch.Tensor] = []
 
         def pool(h, first):

@@ -453,7 +453,7 @@ def test_phases_in_order_and_the_last_line():
     """teacher-train runs after teacher, online after it, verify after
     online, ddp after verify, dense-chunked after ddp, bench and demo after
     it, studies, workflow and graft after demo and before probes, the
-    teacher epilogues after probes,
+    teacher epilogues after probes, the student's train BatchNorm last,
     their counts join the kernel line's launches, no phase runs inside an
     exception handler, and the device line is printed last."""
     import ast
@@ -468,7 +468,7 @@ def test_phases_in_order_and_the_last_line():
                       "analysis", "teacher", "teacher-train", "online",
                       "verify", "ddp", "dense-chunked", "bench", "demo",
                       "studies", "workflow", "graft", "probes",
-                      "teacher-epilogue"]
+                      "teacher-epilogue", "train-bn"]
     for counts in ("teacher_train_counts", "online_counts", "verify_counts",
                    "ddp_counts", "dense_chunked_counts", "demo_counts",
                    "studies_counts", "workflow_counts", "graft_counts"):
@@ -509,6 +509,75 @@ def test_epilogue_phase_rehearses_on_the_cpu(capsys):
                     f"[2, {hw}, {hw}, {c}]") in out
     for label, hw, c in (("block a", 6, 16), ("block b", 5, 32)):
         assert f"affine_relu_pool2x2 {label} [2, {hw}, {hw}, {c}]" in out
+
+
+def test_train_bn_phase_rehearses_on_the_cpu(capsys):
+    """The train-bn phase at small shapes on the CPU (the dispatch, which
+    runs the eager code on the CPU, against the eager code; no times):
+    every layer checked, the least bytes summed over the layers (4 an
+    element forward, 6 backward), and the tiny student's step counting no
+    fused call and no launch on the CPU."""
+    shapes = {"a": (16, 7, 5), "b": (32, 3, 2)}
+    rows = chip_smoke.train_bn_phase("cpu", dev="cpu", batch=3, shapes=shapes)
+    elems = 3 * (16 * 7 * 5 + 32 * 3 * 2)
+    assert rows["train_bn_forward"][3] == 4 * elems
+    assert rows["train_bn_backward"][3] == 6 * elems
+    for row in rows.values():
+        assert row[:3] == [0.0, 0.0, 0.0]
+        assert 0.0 <= row[4] <= 1.0
+    out = capsys.readouterr().out
+    for label, (c, h, w) in shapes.items():
+        assert f"train-bn {label} [3, {c}, {h}, {w}] bf16 against" in out
+    assert ("one student step at batch 3: train-mode BatchNorm launches "
+            "{'stats': 0, 'finalize': 0, 'apply': 0, 'backward_reduce': 0, "
+            "'backward_finalize': 0, 'backward_apply': 0}, calls {'fused': 0, "
+            "'fused_backward': 0, 'plain': 0}") in out
+
+
+def test_count_train_bn_holds_the_counts_since_the_reset():
+    """``count_train_bn`` reads the six wrappers' launches and the
+    engagement counts since ``reset_train_bn_counts``, adds the launches
+    to the total, and fails the phase on any other count: the kernels
+    line's train-mode BatchNorm launches are those the runs made."""
+    from mcncrossmodalemotions_torch.ops import train_bn
+
+    chip_smoke.reset_train_bn_counts()
+    for name in chip_smoke.TRAIN_BN_NAMES:
+        getattr(train_bn, name).launches += 12
+    train_bn.calls.update(fused=12, fused_backward=12)
+    total = {"stats": 6}
+    got = chip_smoke.count_train_bn("two steps", 12, 0, total)
+    assert got == dict.fromkeys(chip_smoke.TRAIN_BN_NAMES, 12)
+    assert total == {"stats": 18} | dict.fromkeys(
+        chip_smoke.TRAIN_BN_NAMES[1:], 12)
+    for fused, plain in ((6, 0), (12, 6)):
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.count_train_bn("two steps", fused, plain)
+    train_bn.backward_apply.launches -= 1  # a backward without its dx
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.count_train_bn("two steps", 12, 0)
+    chip_smoke.reset_train_bn_counts()
+    assert chip_smoke.count_train_bn("nothing", 0, 0) == dict.fromkeys(
+        chip_smoke.TRAIN_BN_NAMES, 0)
+
+
+def test_train_bn_shapes_are_the_students(monkeypatch):
+    """chip_smoke's six BatchNorm shapes are the full-width student's at 4 s
+    crops (a [1, 512, 400, 1] spectrogram): the inputs of bn1 to bn6 in a
+    train forward."""
+    from mcncrossmodalemotions_torch.models import vggm
+
+    seen = []
+
+    def spy(x, bn, *args, **kwargs):
+        seen.append(tuple(x.shape[1:]))
+        return x
+
+    monkeypatch.setattr(vggm, "batch_norm_train", spy)
+    with torch.no_grad():
+        vggm.VGGMStudent(dtype=torch.float32)(torch.zeros(1, 512, 400, 1),
+                                              train=True)
+    assert seen == list(chip_smoke.TRAIN_BN_SHAPES.values())
 
 
 def test_teacher_epilogue_launches_are_counted_a_forward():

@@ -20,6 +20,7 @@ from mcncrossmodalemotions_torch.ops import (
     pool,
     probes,
     spectrogram_kernel,
+    train_bn,
 )
 from mcncrossmodalemotions_torch.ops.spectrogram import (
     DEFAULT_SPEC,
@@ -1107,3 +1108,303 @@ def test_vgg16_eval_forward_launches_the_epilogues(cuda):
     before = [w.launches for w in wrappers]
     model(frames[:2]).sum().backward()
     assert [w.launches for w in wrappers] == before
+
+
+# The student's train-mode BatchNorm and ReLU (ops/train_bn.py): the
+# distillation cell's BatchNorm inputs at batch 64 as (c, h, w), bn1 to
+# bn6 (bn4 and bn5 share a shape), and two of SE-ResNet-50's stage outputs
+# at the FER+ fine-tuning batch of 128, whose BatchNorms take no ReLU.
+TRAIN_BN_SHAPES = {"bn1": (96, 253, 197), "bn2": (256, 61, 47),
+                   "bn3": (384, 30, 23), "bn4_bn5": (256, 30, 23),
+                   "bn6": (4096, 1, 11)}
+SENET_BN_SHAPES = {"stage1": (256, 56, 56), "stage4": (2048, 7, 7)}
+# y and dx against the eager code on the same bf16 inputs: one bf16 unit in
+# the last place of the larger of the two, plus this share of the largest
+# magnitude for values near zero (the affine's fp32 roundings and the
+# statistics' sum order differ by about 1e-7 of the terms, which moves a
+# value near zero by many of its own units)
+TRAIN_BN_ATOL = {"y": 1e-5, "dx": 1e-4}
+TRAIN_BN_STATS_RTOL = 1e-4   # running statistics: fp32 sums, another order
+TRAIN_BN_GRAD_RTOL = 1e-3    # dweight, dbias: fp32 sums of millions of terms
+
+
+def _train_bn_case(c, h, w, batch, masked, cuda, seed):
+    """(x, dy, bn, mask): x bf16 channels_last with per-channel means and
+    spreads, dy bf16, a BatchNorm with drawn parameters and running
+    statistics, and a mask that zeroes every fifth row (or None)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    spread = torch.rand(1, c, 1, 1, device=cuda, generator=gen) * 2 + 0.25
+    mean = torch.randn(1, c, 1, 1, device=cuda, generator=gen)
+    x = torch.randn(batch, c, h, w, device=cuda, generator=gen) * spread + mean
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(batch, c, h, w, device=cuda, generator=gen)
+    dy = dy.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bn = torch.nn.BatchNorm2d(c).to(cuda)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.3, 0.3, generator=gen)
+        bn.running_mean.uniform_(-1.0, 1.0, generator=gen)
+        bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    mask = None
+    if masked:
+        mask = torch.ones(batch, device=cuda)
+        mask[::5] = 0.0
+    return x, dy, bn, mask
+
+
+def _train_bn_run(x, dy, bn, mask, relu, fused):
+    """One forward and backward from a copy of ``bn``: y, dx, dweight,
+    dbias, running mean and running variance; the kernels or the eager
+    code (``_batch_norm_train`` and ``F.relu``)."""
+    import copy
+
+    from mcncrossmodalemotions_torch.models import vggm
+
+    b = copy.deepcopy(bn)
+    xr = x.detach().clone().requires_grad_()
+    if fused:
+        y = train_bn.batch_norm(xr, b, mask, True, vggm.BN_MOMENTUM, relu)
+    else:
+        y = vggm._batch_norm_train(xr, b, mask, True, None)
+        y = torch.relu(y) if relu else y
+    grads = torch.autograd.grad(y, (xr, b.weight, b.bias), dy)
+    torch.cuda.synchronize()
+    return (y.detach(),) + grads + (b.running_mean, b.running_var)
+
+
+def _bf16_units_off(got, want, atol_share):
+    """Elements where got and want differ by more than one bf16 unit in the
+    last place of the larger magnitude plus ``atol_share`` of want's
+    largest magnitude, and the largest such difference in units."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    unit = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    diff = (g - w).abs()
+    over = diff > unit + atol_share * w.abs().max()
+    return int(over.sum().item()), (diff / unit).max().item()
+
+
+def _train_bn_matches(fused, plain):
+    for name, got, want in zip(("y", "dx"), fused[:2], plain[:2]):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert got.shape == want.shape
+        assert got.is_contiguous(memory_format=torch.channels_last), name
+        off, units = _bf16_units_off(got, want, TRAIN_BN_ATOL[name])
+        assert off == 0, f"{name}: {off} elements off, {units:.2f} units"
+    for name, got, want, rtol in zip(
+            ("dweight", "dbias", "running_mean", "running_var"), fused[2:],
+            plain[2:], (TRAIN_BN_GRAD_RTOL, TRAIN_BN_GRAD_RTOL,
+                        TRAIN_BN_STATS_RTOL, TRAIN_BN_STATS_RTOL)):
+        assert got.dtype == want.dtype == torch.float32
+        gap = ((got - want).abs().max() / want.abs().max()).item()
+        assert gap <= rtol, f"{name}: {gap:.3e}"
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("layer", list(TRAIN_BN_SHAPES))
+def test_train_bn_kernels_match_the_eager_code_at_the_students_shapes(
+        cuda, layer, masked):
+    """Forward and backward at batch 64 in bf16 with the ReLU, against the
+    eager code on the same inputs; each wrapper launched once."""
+    x, dy, bn, mask = _train_bn_case(*TRAIN_BN_SHAPES[layer], 64, masked,
+                                     cuda, seed=len(layer) + masked)
+    wrappers = (train_bn.stats, train_bn.finalize, train_bn.apply,
+                train_bn.backward_reduce, train_bn.backward_finalize,
+                train_bn.backward_apply)
+    before = [w.launches for w in wrappers]
+    fused = _train_bn_run(x, dy, bn, mask, True, fused=True)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 6
+    _train_bn_matches(fused, _train_bn_run(x, dy, bn, mask, True, fused=False))
+
+
+@pytest.mark.parametrize("stage", list(SENET_BN_SHAPES))
+def test_train_bn_kernels_without_relu_at_senet50_stage_shapes(cuda, stage):
+    """ResNet's call (no ReLU) at two SE-ResNet-50 stage outputs, batch 128,
+    masked."""
+    x, dy, bn, mask = _train_bn_case(*SENET_BN_SHAPES[stage], 128, True, cuda,
+                                     seed=11)
+    _train_bn_matches(_train_bn_run(x, dy, bn, mask, False, fused=True),
+                      _train_bn_run(x, dy, bn, mask, False, fused=False))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_train_bn_kernels_repeat_bit_for_bit(cuda, masked):
+    """No atomics: two runs at bn1's shape give the same bits."""
+    x, dy, bn, mask = _train_bn_case(*TRAIN_BN_SHAPES["bn1"], 64, masked, cuda,
+                                     seed=5)
+    first = _train_bn_run(x, dy, bn, mask, True, fused=True)
+    second = _train_bn_run(x, dy, bn, mask, True, fused=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("clamped", [False, True])
+def test_train_bn_finalize_kernels_are_autograds_through_the_clamp(cuda,
+                                                                   clamped):
+    """The two finalize kernels on given fp32 sums against autograd of the
+    eager code's formula in float64: scale and shift from mean = s1 /
+    count, mean2 = s2 / count and clamp(mean2 - mean^2, 0); dgamma, dbeta
+    and a, b (the gradients of s1 and of s2, twice) for a loss ``scale *
+    Sgx + shift * Sg``, what the backward reduction sums. The variance's
+    gradient flows where the clamp let it through and is zero where it
+    held. Within 1e-5 of each vector's largest magnitude: a few fp32
+    roundings a value."""
+    c, batch = 16, 12
+    gen = torch.Generator().manual_seed(1)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    s1 = torch.randn(c, **f64) * batch
+    mean = s1 / batch
+    s2 = (mean * mean + (-0.3 if clamped else 0.8)) * batch
+    weight = torch.rand(c, **f64) + 0.5
+    bias = torch.randn(c, **f64)
+    sg, sgx = torch.randn(c, **f64), torch.randn(c, **f64)
+    eps = 1e-5
+
+    leaves = [t.clone().requires_grad_() for t in (s1, s2, weight, bias)]
+    m = leaves[0] / batch
+    var = torch.clamp(leaves[1] / batch - m * m, min=0.0)
+    scale = torch.rsqrt(var + eps) * leaves[2]
+    shift = leaves[3] - m * scale
+    ds1, ds2, dweight, dbias = torch.autograd.grad(
+        (scale * sgx + shift * sg).sum(), leaves)
+
+    def dev(t):
+        return t.to(cuda, torch.float32).contiguous()
+
+    sc, sh, saved = train_bn.finalize(
+        dev(torch.cat([s1, s2])[None]), None, batch, 1, dev(weight),
+        dev(bias), dev(torch.zeros(c)), dev(torch.ones(c)), eps,
+        0.9, False)
+    sgc = dev(sgx) - saved[0] * dev(sg)
+    coef = train_bn.backward_finalize(torch.cat([dev(sg), sgc])[None].
+                                      contiguous(), saved, dev(weight), sc,
+                                      eps)
+    torch.cuda.synchronize()
+    live = torch.full((c,), 0.0 if clamped else 1.0)
+    assert torch.equal(saved[2].cpu(), live)
+    assert torch.equal(saved[3].cpu(), torch.full((c,), float(batch)))
+    for name, got, want in (("scale", sc, scale), ("shift", sh, shift),
+                            ("mean", saved[0], m), ("var", saved[1], var),
+                            ("dgamma", coef[0], dweight),
+                            ("dbeta", coef[1], dbias), ("a", coef[2], ds1),
+                            ("b", coef[3], 2 * ds2)):
+        want = want.detach()
+        gap = ((got.double().cpu() - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        assert gap <= 1e-5, f"{name}: {gap:.3e}"
+    if clamped:
+        assert torch.equal(coef[3].cpu(), torch.zeros(c))
+
+
+def test_train_bn_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 3, 3, 16, dtype=torch.bfloat16, device=cuda)
+    s = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError):
+        train_bn.stats(x.float(), None)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        train_bn.stats(torch.zeros(2, 3, 3, 12, dtype=torch.bfloat16,
+                                   device=cuda), None)
+    with pytest.raises(ValueError):  # not contiguous NHWC
+        train_bn.apply(x.permute(0, 2, 1, 3), s, s, True)
+    with pytest.raises(ValueError):  # misaligned
+        train_bn.stats(torch.zeros(2 * 3 * 3 * 16 + 1, dtype=torch.bfloat16,
+                                   device=cuda)[1:].view(2, 3, 3, 16), None)
+    with pytest.raises(ValueError):  # the mask: another length
+        train_bn.stats(x, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):  # per-channel vectors of another width
+        train_bn.apply(x, s[:8], s[:8], True)
+    with pytest.raises(ValueError):  # dy of another shape
+        train_bn.backward_reduce(x[:1], x, s, s, torch.zeros(4, 16, device=cuda),
+                                 True)
+
+
+def test_student_train_step_runs_every_batchnorm_fused(cuda):
+    """One full-width student step at the distillation cell's shape (batch
+    64 int16 4 s crops, a pad mask): six fused forwards, six fused
+    backwards, no BatchNorm on the eager path, each wrapper launched six
+    times; two steps from the same state give the same bits."""
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.train.state import (
+        SGDConfig,
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = DEFAULT_SPEC.crop_samples(400)
+    batch = {
+        "data": (torch.randn(64, n, device=cuda, generator=gen) * 3000).to(
+            torch.int16),
+        "logit_target": torch.randn(64, 8, device=cuda, generator=gen),
+        "max_label": torch.randint(0, 8, (64,), device=cuda, generator=gen,
+                                   dtype=torch.int32),
+        "pad_mask": torch.ones(64, device=cuda),
+    }
+    batch["pad_mask"][-3:] = 0.0
+    wrappers = (train_bn.stats, train_bn.finalize, train_bn.apply,
+                train_bn.backward_reduce, train_bn.backward_finalize,
+                train_bn.backward_apply)
+    step = make_train_step(student_loss_fn("hot-cross-ent", temperature=2.0),
+                           SGDConfig(weight_decay=5e-4), pass_pad_mask=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states = []
+    try:
+        for _ in range(2):
+            model = build_student(generator=torch.Generator().manual_seed(1))
+            state = TrainState.create(
+                model.to(cuda), torch.Generator(device=cuda).manual_seed(2))
+            calls = dict(train_bn.calls)
+            before = [w.launches for w in wrappers]
+            state, metrics = step(state, batch, 1e-3)
+            torch.cuda.synchronize()
+            assert {k: train_bn.calls[k] - v for k, v in calls.items()} == {
+                "fused": 6, "fused_backward": 6, "plain": 0}
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [6] * 6
+            assert torch.isfinite(metrics["loss"]).item()
+            states.append(state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    first, second = (s.model.state_dict() for s in states)
+    for k, v in first.items():
+        assert torch.equal(second[k], v), k
+
+
+def test_student_train_step_without_kernels_keeps_the_eager_batchnorm(cuda):
+    """``make_train_step(use_kernels=False)``, the plain step, runs the six
+    BatchNorms through the eager code on the card: six plain calls, no
+    fused one, no launch of the BatchNorm kernels."""
+    from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC
+    from mcncrossmodalemotions_torch.train.state import (
+        TrainState,
+        make_train_step,
+    )
+    from mcncrossmodalemotions_torch.zoo import build_student, student_loss_fn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = DEFAULT_SPEC.crop_samples(400)
+    batch = {
+        "data": (torch.randn(8, n, device=cuda, generator=gen) * 3000).to(
+            torch.int16),
+        "logit_target": torch.randn(8, 8, device=cuda, generator=gen),
+        "max_label": torch.randint(0, 8, (8,), device=cuda, generator=gen,
+                                   dtype=torch.int32),
+        "pad_mask": torch.ones(8, device=cuda),
+    }
+    wrappers = (train_bn.stats, train_bn.finalize, train_bn.apply,
+                train_bn.backward_reduce, train_bn.backward_finalize,
+                train_bn.backward_apply)
+    step = make_train_step(student_loss_fn("hot-cross-ent", temperature=2.0),
+                           pass_pad_mask=True, use_kernels=False)
+    model = build_student(generator=torch.Generator().manual_seed(1))
+    state = TrainState.create(model.to(cuda),
+                              torch.Generator(device=cuda).manual_seed(2))
+    calls = dict(train_bn.calls)
+    before = [w.launches for w in wrappers]
+    state, metrics = step(state, batch, 1e-3)
+    torch.cuda.synchronize()
+    assert {k: train_bn.calls[k] - v for k, v in calls.items()} == {
+        "fused": 0, "fused_backward": 0, "plain": 6}
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0] * 6
+    assert torch.isfinite(metrics["loss"]).item()

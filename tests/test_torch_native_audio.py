@@ -109,6 +109,19 @@ def test_read_crops_and_packed_bitwise(wavs, threads):
     assert packed.dtype == np.int16
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+def test_wav_infos_is_wav_info_of_each_file(tmp_path, wavs, threads):
+    """The batched header read gives each file's ``wav_info`` row, in
+    order; a missing file fails the call, naming it."""
+    got = native_audio.wav_infos(wavs + wavs[:2], threads)
+    assert got.dtype == np.int64 and got.shape == (len(wavs) + 2, 4)
+    assert [tuple(r) for r in got.tolist()] == [
+        native_audio.wav_info(p) for p in wavs + wavs[:2]]
+    missing = str(tmp_path / "missing.wav")
+    with pytest.raises(IOError, match="missing.wav"):
+        native_audio.wav_infos([wavs[0], missing], threads)
+
+
 def test_a_format_both_refuse_fails_in_both(tmp_path, wavs):
     bad = tmp_path / "pcm24.wav"
     fmt = struct.pack("<HHIIHH", 1, 1, 16000, 48000, 3, 24)

@@ -140,9 +140,11 @@ def test_running_statistics_updated_once_and_recomputes_counted(
     bn_train, with_index = vggm.batch_norm_train, pool.max_pool_3x3s2_with_index
     conv2d = vggm.F.conv2d
 
-    def counted_bn(x, bn, pad_mask=None, update=True, mesh=None):
+    def counted_bn(x, bn, pad_mask=None, update=True, mesh=None, relu=False,
+                   use_kernels=True):
         calls["update" if update else "recompute"] += 1
-        return bn_train(x, bn, pad_mask, update, mesh)
+        return bn_train(x, bn, pad_mask, update, mesh, relu=relu,
+                        use_kernels=use_kernels)
 
     def counted_pool(x):
         calls["pool"] += 1
