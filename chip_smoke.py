@@ -536,6 +536,11 @@ TRAIN_BN_PASSES_AT = "bn1"    # the layer whose six passes are timed alone
 TRAIN_BN_ATOL = {"y": 1e-5, "dx": 1e-4}  # of the largest magnitude, beside
                               # one bf16 unit (tests/test_torch_kernels_gpu.py)
 TRAIN_BN_TARGET_MS = 3.0      # the six layers' forward and backward a step
+KERNEL_NAMES = ("spectrogram", "max_pool_3x3s2", "max_pool_3x3s2_idx",
+                "max_pool_3x3s2_bwd", "probe_gather", "probe_select_matmul",
+                "probe_col_candidates")  # the kernel line's own wrappers
+EPILOGUE_NAMES = ("affine_relu", "affine_squeeze", "affine_gate_add_relu",
+                  "affine_relu_pool2x2")
 TRAIN_BN_NAMES = ("stats", "finalize", "apply", "backward_reduce",
                   "backward_finalize", "backward_apply")
 STUDENT_BNS, SENET50_BNS = 6, 53  # train-mode BatchNorms a forward
@@ -678,13 +683,22 @@ def bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
-def reset_counts(wrappers) -> None:
-    for w in wrappers.values():
-        w.launches = 0
+def reset_counts(names) -> None:
+    """Zero the launches of the wrappers ``names`` in the record of
+    launches (``ops/_ffi``); with the train-mode BatchNorm's, its
+    engagement counts (``ops/train_bn.calls``) too."""
+    from mcncrossmodalemotions_torch.ops import _ffi, train_bn
+
+    _ffi.reset(names)
+    if set(names) & set(TRAIN_BN_NAMES):
+        train_bn.calls.update(dict.fromkeys(train_bn.calls, 0))
 
 
-def read_counts(wrappers) -> dict:
-    return {k: w.launches for k, w in wrappers.items()}
+def read_counts(names) -> dict:
+    """The launches of the wrappers ``names`` since their last reset."""
+    from mcncrossmodalemotions_torch.ops import _ffi
+
+    return _ffi.launches(names)
 
 
 def add_timing(timings: dict, work: dict, name: str, ms: list,
@@ -801,7 +815,7 @@ def k2_backward_phase(card: str, timings: dict, errs: dict,
         torch.cuda.empty_cache()
 
 
-def train_phase(card: str, wrappers: dict,
+def train_phase(card: str, wrappers: tuple,
                 bn_launches: dict | None = None) -> dict:
     """The full-width train step with and without the kernels (phase 8);
     returns the kernel steps' launch counts and adds their train-mode
@@ -841,8 +855,7 @@ def train_phase(card: str, wrappers: dict,
                                pass_pad_mask=True,
                                use_kernels=mode == "kernels")
         w0 = state.model.net.conv1.weight.detach().clone()
-        reset_counts(wrappers)
-        reset_train_bn_counts()
+        reset_counts(wrappers + TRAIN_BN_NAMES)
         losses = []
         for _ in range(3):
             state, m = step(state, batch, TRAIN_LR)
@@ -890,7 +903,7 @@ def train_phase(card: str, wrappers: dict,
     return k["counts"]
 
 
-def distill_phase(root: Path, wrappers: dict,
+def distill_phase(root: Path, wrappers: tuple,
                   bn_launches: dict | None = None) -> tuple:
     """``run_distillation`` end to end, then its resume (phase 9); returns
     the first call's launch counts and the synthetic imdb, and adds its
@@ -908,8 +921,7 @@ def distill_phase(root: Path, wrappers: dict,
                                 tracks_per_speaker=20, seed=SEED)
     kw = dict(batch_size=64, mini_epoch_ratio=1.0, out_root=str(root / "exps"),
               seed=SEED)
-    reset_counts(wrappers)
-    reset_train_bn_counts()
+    reset_counts(wrappers + TRAIN_BN_NAMES)
     t0 = time.perf_counter()
     _, history, exp_dir = run_distillation(DistillationConfig(num_epochs=2, **kw),
                                            imdb, device="cuda")
@@ -998,7 +1010,7 @@ def probe_path_cases(dev) -> list:
     return cases
 
 
-def probes_phase(card: str, wrappers: dict, timings: dict, errs: dict,
+def probes_phase(card: str, wrappers: tuple, timings: dict, errs: dict,
                  work: dict) -> dict:
     """Both probe tools on the card, then each probe kernel against its
     plain version, on its path, and timed, then the paths the probes do
@@ -1154,7 +1166,7 @@ def imdb_paths(imdb) -> list:
     return [str(Path(wav_dir) / p) for p in imdb.wav_paths]
 
 
-def extraction_launches(wrappers: dict, imdb) -> dict:
+def extraction_launches(wrappers: tuple, imdb) -> dict:
     """The launches an extraction with kernels makes over ``imdb``: K1
     once and the index-free K2 twice per chunk."""
     n = len(extraction_chunks(imdb_paths(imdb)))
@@ -1214,7 +1226,7 @@ def student_release(path: Path, seed: int = SEED, fc6: int = 4096,
     return v
 
 
-def reader_phase(card: str, imdb, wrappers: dict, dev="cuda",
+def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
                  widths: tuple = (4096, 1024)) -> dict:
     """The port's own wav reader library (built in the build phase with the
     host's g++): it, not Python, serves extraction; its crops are bitwise
@@ -1316,7 +1328,7 @@ def reader_phase(card: str, imdb, wrappers: dict, dev="cuda",
     return counts
 
 
-def release_phase(card: str, root: Path, imdb, distill_imdb, wrappers: dict,
+def release_phase(card: str, root: Path, imdb, distill_imdb, wrappers: tuple,
                   dev="cuda", widths: tuple = (4096, 1024),
                   batch: int = 64) -> tuple:
     """A released student at full width: a classic ``.mat`` written from
@@ -1474,7 +1486,7 @@ def compare_stats(a: tuple, b: tuple, imdb) -> dict:
 
 
 def analysis_phase(card: str, root: Path, model, state, distill_imdb,
-                   wrappers: dict, dev="cuda",
+                   wrappers: tuple, dev="cuda",
                    widths: tuple = (4096, 1024)) -> dict:
     """The student's analysis on the card: ``student_stats`` over the
     distill phase's imdb with the released student, extraction with the
@@ -1848,7 +1860,7 @@ def train_golden_errors(got: dict, gold, tag: str) -> dict:
     return {k: (err[k], gate[k]) for k in err}
 
 
-def teacher_train_phase(card: str, root: Path, wrappers: dict,
+def teacher_train_phase(card: str, root: Path, wrappers: tuple,
                         dev="cuda", bn_launches: dict | None = None) -> dict:
     """The teacher's training path (phase 14): the full-width SENet50 train
     golden in float64, fp32 (TF32 off) and bf16; ``ferplus_baselines``
@@ -1910,7 +1922,7 @@ def teacher_train_phase(card: str, root: Path, wrappers: dict,
         gold = np.load(TRAIN_GOLDEN)
         for tag, dtype in (("fp64", torch.float64), ("fp32", torch.float32),
                            ("bf16", torch.bfloat16)):
-            reset_train_bn_counts()
+            reset_counts(TRAIN_BN_NAMES)
             got = golden_train_run(dtype, dev)
             fused = GOLDEN_STEPS * SENET50_BNS * (dtype == torch.bfloat16)
             count_train_bn(f"train golden {tag}", fused,
@@ -2267,7 +2279,7 @@ def vgg16_golden(card: str, frames, dev, epilogue_launches: dict | None
         model.teacher.dtype = dtype
         with torch.enable_grad():
             got[f"unfused {tag}"] = model(x).detach().float().cpu().numpy()
-        reset_epilogue_counts()
+        reset_counts(EPILOGUE_NAMES)
         with torch.inference_mode():
             got[tag] = model(x).float().cpu().numpy()
         count_epilogues(f"vgg16 {tag} fused forward", "vgg16", full,
@@ -2309,7 +2321,7 @@ def vgg16_golden(card: str, frames, dev, epilogue_launches: dict | None
               "vgg16 fused bf16 logits off the JAX golden")
 
 
-def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
+def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: tuple,
                   dev="cuda", epilogue_launches: dict | None = None
                   ) -> tuple:
     """The teacher's serving path (phase 13): the port's JPEG decoder on
@@ -2399,7 +2411,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
         errs = {}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             model.teacher.dtype = dtype
-            reset_epilogue_counts()
+            reset_counts(EPILOGUE_NAMES)
             with torch.inference_mode():
                 got = model(x.to(dev)).float().cpu().numpy()
             count_epilogues(f"{arch} {tag} forward", arch, full,
@@ -2442,7 +2454,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     before = thread_cpu()
-    reset_epilogue_counts()
+    reset_counts(EPILOGUE_NAMES)
     t0 = time.perf_counter()
     imdb = build_imdb(tree, model, state, **kw)
     sync(dev)
@@ -2598,7 +2610,7 @@ def teacher_phase(card: str, root: Path, wav_paths: list, wrappers: dict,
     return counts, imdb
 
 
-def epoch_launches(wrappers: dict, train_batches: int, val_batches: int,
+def epoch_launches(wrappers: tuple, train_batches: int, val_batches: int,
                    epochs: int = 1) -> dict:
     """The kernel launches of ``epochs`` epochs of the student: a train
     step launches K1 once, K2's with-index forward and its backward twice;
@@ -2628,7 +2640,7 @@ def student_init(full: bool) -> tuple:
 
 
 def online_phase(card: str, root: Path, dense_imdb, distill_imdb,
-                 wrappers: dict, dev="cuda") -> dict:
+                 wrappers: tuple, dev="cuda") -> dict:
     """The whole distillation driver (phase 15): the fused online step,
     ``run_distillation(online_teacher=True)``, the feed options and the
     remat policies. Returns the launch counts of its main runs (the fused
@@ -3153,7 +3165,7 @@ def fer_csvs(root: Path, rows: int, seed: int = SEED) -> tuple:
     return str(fer), str(plus)
 
 
-def verify_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+def verify_phase(card: str, root: Path, dense_imdb, wrappers: tuple,
                  student_mat: Path, teacher_mats: dict, dev="cuda") -> dict:
     """The release surface (phase 16): a release tree in the registry's
     layout, linked to the release phase's student (``student_mat``) and the
@@ -3485,7 +3497,7 @@ def ddp_steps(trainer, state, batches, dev, wrappers) -> dict:
                 peak_gib=peak)
 
 
-def ddp_student_run(dev, wrappers: dict, mesh=None, steps=None) -> dict:
+def ddp_student_run(dev, wrappers: tuple, mesh=None, steps=None) -> dict:
     """The full-width student (the tiny one on the CPU) from the seeded
     init, hot-cross-ent at T=2, weight decay 0, ``TRAIN_LR``, through
     ``Trainer`` over ``ddp_batches`` (the first ``steps``): one process
@@ -3507,7 +3519,7 @@ def ddp_student_run(dev, wrappers: dict, mesh=None, steps=None) -> dict:
                      ddp_batches(full)[:steps], dev, wrappers)
 
 
-def ddp_online_run(root: Path, dev, wrappers: dict, mesh) -> dict:
+def ddp_online_run(root: Path, dev, wrappers: tuple, mesh) -> dict:
     """The fused online step (the teacher phase's SENet50 ``dense.mat`` in
     bf16, frozen, scoring this rank's frames) through ``Trainer`` over
     ``ddp_online_batches``."""
@@ -3580,7 +3592,7 @@ def ddp_worker(argv: list) -> int:
     else:
         initialize_multihost(address, world, rank, backend=backend)
     mesh = make_mesh(world, device=dev)
-    wrappers = kernel_wrappers()
+    wrappers = KERNEL_NAMES
     result = {"rank": rank, "backend": dist.get_backend(),
               "student": ddp_student_run(dev, wrappers, mesh,
                                          steps=1 if world == 1 else None)}
@@ -3629,7 +3641,7 @@ def spawn_ranks(root: Path, world: int, dev: str, backend: str) -> list:
     return [json.loads(o.read_text()) for o in outs]
 
 
-def ddp_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+def ddp_phase(card: str, root: Path, dense_imdb, wrappers: tuple,
               dev="cuda") -> dict:
     """Data parallelism through ``torch.distributed`` (phase 17): the same
     work in one process and in two ranks on the one card over gloo (NCCL
@@ -3746,7 +3758,7 @@ def ddp_phase(card: str, root: Path, dense_imdb, wrappers: dict,
     return total
 
 
-def dense_chunked_phase(card: str, root: Path, dense_imdb, wrappers: dict,
+def dense_chunked_phase(card: str, root: Path, dense_imdb, wrappers: tuple,
                         dev="cuda") -> dict:
     """The bounded-worker dense build and the dense-genesis soak (phase
     18). (a) ``build_imdb`` over the teacher phase's tree and teacher
@@ -3903,7 +3915,7 @@ def bench_phase(card: str, root: Path) -> float:
     return details["train_step_ms"]
 
 
-def demo_phase(card: str, root: Path, wrappers: dict, dev="cuda",
+def demo_phase(card: str, root: Path, wrappers: tuple, dev="cuda",
                speakers: int = 8, tracks: int = 25, tiny: bool = False,
                checked_chunks=None) -> dict:
     """The convergence demo (``tools/run_demo.main``, phase 20) at full
@@ -3970,7 +3982,7 @@ def run_study(module: str, args: list, dev="cuda") -> dict:
     return json.loads(lines[-1])
 
 
-def step_study_launches(wrappers: dict, policy=None) -> dict:
+def step_study_launches(wrappers: tuple, policy=None) -> dict:
     """The launches of a step study's process: ``bench.bench_train_step``
     and ``probe_remat`` each run 2 + 3 x ``STUDY_ITERS`` steps (a first
     step, ``_best_of``'s warm-up and three windows), each launching K1
@@ -3987,7 +3999,7 @@ def step_study_launches(wrappers: dict, policy=None) -> dict:
     return want
 
 
-def studies_phase(card: str, wrappers: dict, headline_ms: float, dev="cuda",
+def studies_phase(card: str, wrappers: tuple, headline_ms: float, dev="cuda",
                   small: bool = False) -> dict:
     """The step, pool and FER+ studies of ``mcncrossmodalemotions_torch.
     tools`` (phase 21) at their JAX sizes: the one-form-a-process ones
@@ -4083,7 +4095,7 @@ def workflow_shapes(root: Path) -> list:
             + extraction_chunks(imdb_paths(rml)))
 
 
-def workflow_phase(card: str, root: Path, wrappers: dict, dev="cuda",
+def workflow_phase(card: str, root: Path, wrappers: tuple, dev="cuda",
                    checked_chunks=None) -> dict:
     """The worked example (``examples/full_workflow.main``, phase 22) at
     its own tiny sizes (without figures where matplotlib is missing, as on
@@ -4157,7 +4169,7 @@ def graft_rows(cards: int) -> list:
     return sorted(rows)
 
 
-def graft_phase(card: str, wrappers: dict, dev="cuda") -> dict:
+def graft_phase(card: str, wrappers: tuple, dev="cuda") -> dict:
     """The driver's integration entry (``graft_entry.py``, phase 23). (a)
     ``entry()``: the full-width flagship forward with zero weights on batch
     8 of 4 s crops, output [8, 8] and finite, launching K1 once and K2's
@@ -4425,30 +4437,12 @@ def epilogue_phase(card: str, dev="cuda", batch: int = EPILOGUE_BATCH,
     return rows
 
 
-EPILOGUE_NAMES = ("affine_relu", "affine_squeeze", "affine_gate_add_relu",
-                  "affine_relu_pool2x2")
-
-
-def epilogue_counts() -> dict:
-    """The epilogue kernels' launches since they were last reset."""
-    from mcncrossmodalemotions_torch.ops import epilogue
-
-    return {k: getattr(epilogue, k).launches for k in EPILOGUE_NAMES}
-
-
-def reset_epilogue_counts() -> None:
-    from mcncrossmodalemotions_torch.ops import epilogue
-
-    for k in EPILOGUE_NAMES:
-        getattr(epilogue, k).launches = 0
-
-
 def count_epilogues(label: str, kind: str, on_card: bool,
                     total: dict | None, forwards: int = 1) -> None:
     """Hold the epilogue launches since the last reset to ``forwards``
     full-width ``kind`` forwards' (none off the card) and add them to
     ``total``."""
-    got = epilogue_counts()
+    got = read_counts(EPILOGUE_NAMES)
     want = teacher_epilogue_launches(kind, forwards * on_card)
     print(f"  {label}: epilogue launches {got}", flush=True)
     check(got == want, f"{label}: epilogue launches {got}, expected {want}")
@@ -4469,17 +4463,6 @@ def teacher_epilogue_launches(kind: str, forwards: int) -> dict:
     return {k: n * forwards for k, n in zip(EPILOGUE_NAMES, per)}
 
 
-def reset_train_bn_counts() -> None:
-    """Zero the train-mode BatchNorm wrappers' launches and the engagement
-    counts (``ops/train_bn.calls``)."""
-    from mcncrossmodalemotions_torch.ops import train_bn as tb
-
-    for k in TRAIN_BN_NAMES:
-        getattr(tb, k).launches = 0
-    for k in tb.calls:
-        tb.calls[k] = 0
-
-
 def count_train_bn(label: str, fused: int, plain: int,
                    total: dict | None = None) -> dict:
     """Hold the train-mode BatchNorm since the last reset to ``fused``
@@ -4488,7 +4471,7 @@ def count_train_bn(label: str, fused: int, plain: int,
     ``total`` and return them."""
     from mcncrossmodalemotions_torch.ops import train_bn as tb
 
-    got = {k: getattr(tb, k).launches for k in TRAIN_BN_NAMES}
+    got = read_counts(TRAIN_BN_NAMES)
     calls = dict(tb.calls)
     want = dict.fromkeys(TRAIN_BN_NAMES, fused)
     want_calls = {"fused": fused, "fused_backward": fused, "plain": plain}
@@ -4501,22 +4484,6 @@ def count_train_bn(label: str, fused: int, plain: int,
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
     return got
-
-
-def kernel_wrappers() -> dict:
-    """The kernel line's wrappers by name, each counting its launches."""
-    from mcncrossmodalemotions_torch.ops import pool, probes
-    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
-        spectrogram_cuda,
-    )
-
-    return {"spectrogram": spectrogram_cuda,
-            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
-            "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
-            "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda,
-            "probe_gather": probes.probe_gather,
-            "probe_select_matmul": probes.probe_select_matmul,
-            "probe_col_candidates": probes.probe_col_candidates}
 
 
 def train_bn_inputs(batch: int, c: int, h: int, w: int, dev, seed: int,
@@ -4665,7 +4632,7 @@ def train_bn_case(label: str, d: dict, dev) -> float:
         bn = copy.deepcopy(d["bn"])
         xr = d["x"].detach().clone().requires_grad_()
         if fused:
-            reset_train_bn_counts()
+            reset_counts(TRAIN_BN_NAMES)
             y = vggm.batch_norm_train(xr, bn, d["mask"], relu=True)
         else:
             y = torch.relu(vggm._batch_norm_train(xr, bn, d["mask"], True,
@@ -4809,7 +4776,7 @@ def train_bn_phase(card: str, dev="cuda", batch: int = TRAIN_BN_BATCH,
           f"ms; least bytes' bound "
           f"{bound_ms(rows['train_bn_forward'][3] + rows['train_bn_backward'][3], 0)[0]:.4f} ms",
           flush=True)
-    reset_train_bn_counts()
+    reset_counts(TRAIN_BN_NAMES)
     train_bn_step(dev, batch)
     count_train_bn(f"train-bn one student step at batch {batch}",
                    STUDENT_BNS * on_card, 0, bn_launches)
@@ -4854,7 +4821,7 @@ def main() -> int:
     cfg = DEFAULT_SPEC
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    wrappers = kernel_wrappers()
+    wrappers = KERNEL_NAMES
 
     with phase("device", walls):
         smi = subprocess.run(

@@ -20,42 +20,32 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from mcncrossmodalemotions_torch.data.native import _c_args
+from mcncrossmodalemotions_torch.ops import _ffi
 
 LIBRARY = "dataservice_audio"
-_lib: Optional[ctypes.CDLL] = None
+_PATHS = ctypes.POINTER(ctypes.c_char_p)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+LIB = _ffi.Library(LIBRARY, {
+    "ds_wav_info": (ctypes.c_int, [ctypes.c_char_p, _I64P]),
+    "ds_wav_infos": (ctypes.c_int, [_PATHS, ctypes.c_int, ctypes.c_int,
+                                    _I64P]),
+    "ds_read_wav": (ctypes.c_int64, [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.c_int64,
+                                     ctypes.POINTER(ctypes.c_float),
+                                     ctypes.POINTER(ctypes.c_int32)]),
+    "ds_read_crops": (ctypes.c_int, [_PATHS, _I64P, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_float)]),
+    "ds_read_crops_packed": (ctypes.c_int, [
+        _PATHS, _I64P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])})
 
 
 def _load() -> Optional[ctypes.CDLL]:
     """The library, built here at first use; None while switched off."""
-    global _lib
     if os.environ.get("MCNCME_DISABLE_NATIVE"):
         return None
-    if _lib is not None:
-        return _lib
-    from mcncrossmodalemotions_torch.ops import _build
-
-    lib = _build.load(LIBRARY)
-    lib.ds_wav_info.restype = ctypes.c_int
-    lib.ds_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
-    lib.ds_wav_infos.restype = ctypes.c_int
-    lib.ds_wav_infos.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
-    lib.ds_read_wav.restype = ctypes.c_int64
-    lib.ds_read_wav.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
-                                ctypes.POINTER(ctypes.c_int32)]
-    lib.ds_read_crops.restype = ctypes.c_int
-    lib.ds_read_crops.argtypes = [ctypes.POINTER(ctypes.c_char_p),
-                                  ctypes.POINTER(ctypes.c_int64),
-                                  ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                  ctypes.POINTER(ctypes.c_float)]
-    lib.ds_read_crops_packed.restype = ctypes.c_int
-    lib.ds_read_crops_packed.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    _lib = lib
-    return lib
+    return LIB.load()
 
 
 def _need() -> ctypes.CDLL:

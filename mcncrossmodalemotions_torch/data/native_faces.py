@@ -21,8 +21,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from mcncrossmodalemotions_torch.ops import _ffi
+
 LIBRARY = "dataservice_faces"
-_lib: Optional[ctypes.CDLL] = None
+_BYTES = ctypes.POINTER(ctypes.c_ubyte)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+LIB = _ffi.Library(LIBRARY, {
+    "ds_decode_face": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int,
+                                      ctypes.c_double, _BYTES]),
+    "ds_decode_faces": (ctypes.c_int, [ctypes.POINTER(ctypes.c_char_p),
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_double, ctypes.c_int, _BYTES]),
+    "ds_decode_jpeg_rgb": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int64,
+                                          ctypes.c_void_p, _I32P, _I32P])})
 
 DECODE_ERRORS = {-1: "cannot be read", -2: "malformed header",
                  -3: "unsupported coding (progressive, arithmetic, 12-bit, "
@@ -33,30 +44,9 @@ DECODE_ERRORS = {-1: "cannot be read", -2: "malformed header",
 
 def _load() -> Optional[ctypes.CDLL]:
     """The library, built here at first use; None while switched off."""
-    global _lib
     if os.environ.get("MCNCME_DISABLE_NATIVE"):
         return None
-    if _lib is not None:
-        return _lib
-    from mcncrossmodalemotions_torch.ops import _build
-
-    lib = _build.load(LIBRARY)
-    lib.ds_decode_face.restype = ctypes.c_int
-    lib.ds_decode_face.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                                   ctypes.c_double,
-                                   ctypes.POINTER(ctypes.c_ubyte)]
-    lib.ds_decode_faces.restype = ctypes.c_int
-    lib.ds_decode_faces.argtypes = [ctypes.POINTER(ctypes.c_char_p),
-                                    ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_double, ctypes.c_int,
-                                    ctypes.POINTER(ctypes.c_ubyte)]
-    lib.ds_decode_jpeg_rgb.restype = ctypes.c_int
-    lib.ds_decode_jpeg_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                       ctypes.c_void_p,
-                                       ctypes.POINTER(ctypes.c_int32),
-                                       ctypes.POINTER(ctypes.c_int32)]
-    _lib = lib
-    return lib
+    return LIB.load()
 
 
 def _need() -> ctypes.CDLL:

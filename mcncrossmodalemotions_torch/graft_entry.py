@@ -58,20 +58,6 @@ WORKER_TIMEOUT = 600          # seconds a rank may take
 CPU_THREADS = 2               # torch threads of a rank on the CPU
 
 
-def kernel_wrappers() -> dict:
-    """The wrappers of the kernels on this path, by the kernel line's
-    names, each counting its launches."""
-    from mcncrossmodalemotions_torch.ops import pool
-    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
-        spectrogram_cuda,
-    )
-
-    return {"spectrogram": spectrogram_cuda,
-            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda,
-            "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda,
-            "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda}
-
-
 def entry(device: torch.device | str = "cuda"):
     """(forward, example_args): the flagship forward on one device."""
     from torch.func import functional_call
@@ -143,12 +129,14 @@ def _agree(state, mesh, stage: str) -> str:
 
 def _dryrun_impl(mesh, exp_dir: str, say: Callable[[str], None]) -> dict:
     """The four checks on this rank of ``mesh``; returns what it saw."""
+    from mcncrossmodalemotions_torch.ops import _ffi
     from mcncrossmodalemotions_torch.parallel.mesh import shard_batch
     from mcncrossmodalemotions_torch.train import checkpoints as ckpt_lib
     from mcncrossmodalemotions_torch.train.distill import (
         make_online_distill_step,
     )
     from mcncrossmodalemotions_torch.train.engine import TrainConfig, Trainer
+    from mcncrossmodalemotions_torch.tools import K1_K2, kernel_launches
     from mcncrossmodalemotions_torch.train.state import (
         SGDConfig,
         TrainState,
@@ -161,9 +149,7 @@ def _dryrun_impl(mesh, exp_dir: str, say: Callable[[str], None]) -> dict:
     )
 
     n_devices, dev = mesh.world_size, mesh.device
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    _ffi.reset(K1_K2)
     digests, seconds = [], {}
 
     def on_device(batch):
@@ -263,7 +249,7 @@ def _dryrun_impl(mesh, exp_dir: str, say: Callable[[str], None]) -> dict:
             "losses": {"step": loss, "fused": loss2, "fit": losses,
                        "resume": resume_loss},
             "digests": digests, "seconds": seconds,
-            "launches": {k: w.launches for k, w in wrappers.items()}}
+            "launches": kernel_launches()}
 
 
 def _worker(argv: List[str]) -> int:

@@ -29,44 +29,30 @@ bf16/fp32, mismatched shapes or dtypes, C not a whole number of 16-byte
 vectors, data not 16-byte aligned; for the pool, H or W under 2): there
 is no narrower path. Each launch adds one to the wrapper's ``.launches``.
 
-The host's path a launch is short, since a forward makes 65 of them: the
-library's functions and argument types are bound once, and a caller that
-passes ``stream`` (``torch.cuda.current_stream().cuda_stream``, read once
-a forward) with the tensors' device current skips the device guard and
-the stream lookup.
+The host's path a launch is short, since a forward makes 65 of them: a
+caller that passes ``stream`` (``torch.cuda.current_stream().cuda_stream``,
+read once a forward) with the tensors' device current skips the device
+guard and the stream lookup of ``_ffi.Library.launch``.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from mcncrossmodalemotions_torch.ops import _build
+from mcncrossmodalemotions_torch.ops import _ffi
+from mcncrossmodalemotions_torch.ops._ffi import INT, VOIDP
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_fns: Dict[str, object] = {}  # name -> the library's function
-
-
-def _fn(name: str):
-    """The library's function ``name``, its argument types set once."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("teacher_epilogue")
-        ptr, cint = ctypes.c_void_p, ctypes.c_int
-        for sfx in _SUFFIX.values():
-            for base, argtypes in (
-                    ("affine_relu", [ptr] * 4 + [cint] * 3 + [ptr]),
-                    ("affine_squeeze", [ptr] * 4 + [cint] * 3 + [ptr]),
-                    ("affine_gate_add_relu", [ptr] * 8 + [cint] * 3 + [ptr]),
-                    ("affine_relu_pool2x2", [ptr] * 4 + [cint] * 4 + [ptr])):
-                f = getattr(lib, f"{base}_{sfx}")
-                f.restype, f.argtypes = cint, argtypes
-                _fns[f"{base}_{sfx}"] = f
-        fn = _fns[name]
-    return fn
+LIB = _ffi.Library("teacher_epilogue", {
+    f"{base}_{sfx}": (INT, args) for sfx in _SUFFIX.values()
+    for base, args in (
+        ("affine_relu", [VOIDP] * 4 + [INT] * 3 + [VOIDP]),
+        ("affine_squeeze", [VOIDP] * 4 + [INT] * 3 + [VOIDP]),
+        ("affine_gate_add_relu", [VOIDP] * 8 + [INT] * 3 + [VOIDP]),
+        ("affine_relu_pool2x2", [VOIDP] * 4 + [INT] * 4 + [VOIDP]))})
 
 
 def bn_affine(weight: torch.Tensor, bias: torch.Tensor,
@@ -114,15 +100,10 @@ def affine_relu_pool2x2_plain(y: torch.Tensor, s: torch.Tensor,
 def _check(who: str, y: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
            *others: Optional[torch.Tensor]) -> None:
     """Raise on what the kernels do not take: each lane reads and writes
-    16 bytes, so C must be a whole number of 16-byte vectors and each
-    tensor's data 16-byte aligned. ``others`` are tensors of y's dtype and
+    16 bytes (``_ffi.check_lanes``). ``others`` are tensors of y's dtype and
     device (the shapes are the caller's to check)."""
-    if y.dtype not in _SUFFIX:
-        raise TypeError(f"{who}: unsupported dtype {y.dtype}")
-    if y.dim() != 4 or not y.is_contiguous():
-        raise ValueError(f"{who} expects a contiguous NHWC [B, H, W, C] "
-                         f"tensor, got {tuple(y.shape)} with strides "
-                         f"{y.stride()}")
+    _ffi.check_dtype(who, y, _SUFFIX)
+    _ffi.check_nhwc(who, y)
     c = y.shape[3]
     for v in (s, t):
         if (v.dtype != torch.float32 or v.shape != (c,) or not v.is_contiguous()
@@ -135,26 +116,10 @@ def _check(who: str, y: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
                               or not v.is_contiguous()):
             raise ValueError(f"{who}: every tensor must be contiguous "
                              f"{y.dtype} on {y.device}")
-    if c * y.element_size() % 16:
-        raise ValueError(f"{who}: C = {c} in {y.dtype} is not a whole number "
-                         f"of 16-byte vectors")
-    for v in (y, *others):
-        if v is not None and v.data_ptr() % 16:
-            raise ValueError(f"{who}: a tensor's data is not 16-byte aligned")
+    _ffi.check_lanes(who, y, *others)
 
 
-def _launch(name: str, y: torch.Tensor, args, stream: Optional[int]) -> None:
-    fn = _fn(f"{name}_{_SUFFIX[y.dtype]}")
-    if stream is None:
-        with torch.cuda.device(y.device):
-            err = fn(*args, torch.cuda.current_stream(y.device).cuda_stream)
-    else:
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(shape {tuple(y.shape)}, {y.dtype})")
-
-
+@_ffi.counted("affine_relu")
 def affine_relu(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
                 out: Optional[torch.Tensor] = None,
                 stream: Optional[int] = None) -> torch.Tensor:
@@ -171,12 +136,13 @@ def affine_relu(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
                          f"{tuple(y.shape)}")
     if y.numel():
         b, h, w, c = y.shape
-        _launch("affine_relu", y, (y.data_ptr(), out.data_ptr(), s.data_ptr(),
-                                   t.data_ptr(), b, h * w, c), stream)
-        affine_relu.launches += 1
+        LIB.launch(f"affine_relu_{_SUFFIX[y.dtype]}", affine_relu, y,
+                   (y.data_ptr(), out.data_ptr(), s.data_ptr(), t.data_ptr(),
+                    b, h * w, c), stream)
     return out
 
 
+@_ffi.counted("affine_squeeze")
 def affine_squeeze(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
                    stream: Optional[int] = None) -> torch.Tensor:
     """[B, C] in y's dtype: the mean over H and W of ``s y + t``, summed
@@ -187,13 +153,13 @@ def affine_squeeze(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
     b, h, w, c = y.shape
     out = torch.empty((b, c), dtype=y.dtype, device=y.device)
     if y.numel():
-        _launch("affine_squeeze", y, (y.data_ptr(), out.data_ptr(),
-                                      s.data_ptr(), t.data_ptr(), b, h * w, c),
-                stream)
-        affine_squeeze.launches += 1
+        LIB.launch(f"affine_squeeze_{_SUFFIX[y.dtype]}", affine_squeeze, y,
+                   (y.data_ptr(), out.data_ptr(), s.data_ptr(), t.data_ptr(),
+                    b, h * w, c), stream)
     return out
 
 
+@_ffi.counted("affine_gate_add_relu")
 def affine_gate_add_relu(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
                          residual: torch.Tensor, *,
                          gate: Optional[torch.Tensor] = None,
@@ -221,16 +187,18 @@ def affine_gate_add_relu(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     if out is None:
         out = torch.empty_like(y)
     if y.numel():
-        _launch("affine_gate_add_relu", y, (
-            y.data_ptr(), s.data_ptr(), t.data_ptr(),
-            None if gate is None else gate.data_ptr(), residual.data_ptr(),
-            None if rs is None else rs.data_ptr(),
-            None if rt is None else rt.data_ptr(), out.data_ptr(), b, h * w,
-            c), stream)
-        affine_gate_add_relu.launches += 1
+        LIB.launch(f"affine_gate_add_relu_{_SUFFIX[y.dtype]}",
+                   affine_gate_add_relu, y, (
+                       y.data_ptr(), s.data_ptr(), t.data_ptr(),
+                       None if gate is None else gate.data_ptr(),
+                       residual.data_ptr(),
+                       None if rs is None else rs.data_ptr(),
+                       None if rt is None else rt.data_ptr(), out.data_ptr(),
+                       b, h * w, c), stream)
     return out
 
 
+@_ffi.counted("affine_relu_pool2x2")
 def affine_relu_pool2x2(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
                         stream: Optional[int] = None) -> torch.Tensor:
     """[B, H // 2, W // 2, C] in y's dtype: the 2x2/2 max pool of
@@ -244,14 +212,8 @@ def affine_relu_pool2x2(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
     b, h, w, c = y.shape
     out = torch.empty((b, h // 2, w // 2, c), dtype=y.dtype, device=y.device)
     if y.numel():
-        _launch("affine_relu_pool2x2", y, (y.data_ptr(), out.data_ptr(),
-                                           s.data_ptr(), t.data_ptr(), b, h, w,
-                                           c), stream)
-        affine_relu_pool2x2.launches += 1
+        LIB.launch(f"affine_relu_pool2x2_{_SUFFIX[y.dtype]}",
+                   affine_relu_pool2x2, y,
+                   (y.data_ptr(), out.data_ptr(), s.data_ptr(), t.data_ptr(),
+                    b, h, w, c), stream)
     return out
-
-
-affine_relu.launches = 0
-affine_squeeze.launches = 0
-affine_gate_add_relu.launches = 0
-affine_relu_pool2x2.launches = 0

@@ -29,17 +29,20 @@ is autograd of ``F.max_pool2d`` (``max_pool_3x3s2_backward``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from mcncrossmodalemotions_torch.ops import _build
+from mcncrossmodalemotions_torch.ops import _ffi
+from mcncrossmodalemotions_torch.ops._ffi import INT, VOIDP
 
 WINDOW = 3
 STRIDE = 2
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+LIB = _ffi.Library("max_pool_3x3s2", {
+    f"max_pool_3x3s2{kind}_{sfx}": (INT, [VOIDP] * n + [INT] * 4 + [VOIDP])
+    for sfx in _SUFFIX.values()
+    for kind, n in (("", 2), ("_idx", 3), ("_bwd", 3))})
 
 
 def _out_hw(h: int, w: int):
@@ -92,47 +95,16 @@ def max_pool_3x3s2_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("max_pool_3x3s2")
-    ptr, cint = ctypes.c_void_p, ctypes.c_int
-    for sfx in _SUFFIX.values():
-        for name, argtypes in (
-                (f"max_pool_3x3s2_{sfx}", [ptr] * 2 + [cint] * 4 + [ptr]),
-                (f"max_pool_3x3s2_idx_{sfx}", [ptr] * 3 + [cint] * 4 + [ptr]),
-                (f"max_pool_3x3s2_bwd_{sfx}", [ptr] * 3 + [cint] * 4 + [ptr])):
-            fn = getattr(lib, name)
-            if fn.argtypes is None:
-                fn.restype = cint
-                fn.argtypes = argtypes
-    return lib
-
-
 def _check(x: torch.Tensor, who: str) -> None:
     """Raise on what the kernels do not take (x is a CUDA NHWC input)."""
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"{who}: unsupported dtype {x.dtype}")
-    if x.dim() != 4 or x.shape[1] < WINDOW or x.shape[2] < WINDOW:
+    _ffi.check_dtype(who, x, _SUFFIX)
+    _ffi.check_nhwc(who, x)
+    if x.shape[1] < WINDOW or x.shape[2] < WINDOW:
         raise ValueError(f"{who} expects [B, H>=3, W>=3, C], "
                          f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{who} expects a contiguous NHWC tensor")
 
 
-def _device_kind(x: torch.Tensor, who: str) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{who}: unsupported device {x.device}")
-    return x.device.type
-
-
-def _run(name: str, x: torch.Tensor, args) -> None:
-    with torch.cuda.device(x.device):
-        err = getattr(_lib(), name)(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(shape {tuple(x.shape)}, {x.dtype})")
-
-
+@_ffi.counted("max_pool_3x3s2")
 def max_pool_3x3s2_cuda(x: torch.Tensor) -> torch.Tensor:
     """3x3/stride-2 VALID max pool over NHWC, bf16 or fp32.
 
@@ -140,17 +112,17 @@ def max_pool_3x3s2_cuda(x: torch.Tensor) -> torch.Tensor:
     contiguous NHWC bf16/fp32 tensor with H, W >= 3 and goes through the
     kernel; each launch adds one to ``max_pool_3x3s2_cuda.launches``.
     """
-    if _device_kind(x, "max_pool_3x3s2_cuda") == "cpu":
+    if _ffi.on_cpu("max_pool_3x3s2_cuda", x):
         return max_pool_3x3s2(x)
     _check(x, "max_pool_3x3s2_cuda")
     bsz, h, w, c = x.shape
     out = torch.empty((bsz, *_out_hw(h, w), c), dtype=x.dtype, device=x.device)
-    _run(f"max_pool_3x3s2_{_SUFFIX[x.dtype]}", x,
-         (x.data_ptr(), out.data_ptr(), bsz, h, w, c))
-    max_pool_3x3s2_cuda.launches += 1
+    LIB.launch(f"max_pool_3x3s2_{_SUFFIX[x.dtype]}", max_pool_3x3s2_cuda, x,
+               (x.data_ptr(), out.data_ptr(), bsz, h, w, c))
     return out
 
 
+@_ffi.counted("max_pool_3x3s2_idx")
 def max_pool_3x3s2_idx_cuda(x: torch.Tensor):
     """The forward that also returns each window's winner: (y, idx uint8).
 
@@ -159,18 +131,19 @@ def max_pool_3x3s2_idx_cuda(x: torch.Tensor):
     ``max_pool_3x3s2_idx_cuda.launches``. ``y`` is bitwise equal to the
     index-free forward's.
     """
-    if _device_kind(x, "max_pool_3x3s2_idx_cuda") == "cpu":
+    if _ffi.on_cpu("max_pool_3x3s2_idx_cuda", x):
         return max_pool_3x3s2_with_index(x)
     _check(x, "max_pool_3x3s2_idx_cuda")
     bsz, h, w, c = x.shape
     out = torch.empty((bsz, *_out_hw(h, w), c), dtype=x.dtype, device=x.device)
     idx = torch.empty(out.shape, dtype=torch.uint8, device=x.device)
-    _run(f"max_pool_3x3s2_idx_{_SUFFIX[x.dtype]}", x,
-         (x.data_ptr(), out.data_ptr(), idx.data_ptr(), bsz, h, w, c))
-    max_pool_3x3s2_idx_cuda.launches += 1
+    LIB.launch(f"max_pool_3x3s2_idx_{_SUFFIX[x.dtype]}",
+               max_pool_3x3s2_idx_cuda, x,
+               (x.data_ptr(), out.data_ptr(), idx.data_ptr(), bsz, h, w, c))
     return out, idx
 
 
+@_ffi.counted("max_pool_3x3s2_bwd")
 def max_pool_3x3s2_bwd_cuda(dy: torch.Tensor, idx: torch.Tensor,
                             h: int, w: int) -> torch.Tensor:
     """dx [B, h, w, C] of the pool of an [B, h, w, C] input, from the
@@ -180,10 +153,9 @@ def max_pool_3x3s2_bwd_cuda(dy: torch.Tensor, idx: torch.Tensor,
     contiguous uint8 of dy's shape on the same device; each launch adds one
     to ``max_pool_3x3s2_bwd_cuda.launches``.
     """
-    if _device_kind(dy, "max_pool_3x3s2_bwd_cuda") == "cpu":
+    if _ffi.on_cpu("max_pool_3x3s2_bwd_cuda", dy):
         return max_pool_3x3s2_backward_from_index(dy, idx, h, w)
-    if dy.dtype not in _SUFFIX:
-        raise TypeError(f"max_pool_3x3s2_bwd_cuda: unsupported dtype {dy.dtype}")
+    _ffi.check_dtype("max_pool_3x3s2_bwd_cuda", dy, _SUFFIX)
     if h < WINDOW or w < WINDOW or dy.dim() != 4 or tuple(dy.shape[1:3]) != \
             _out_hw(h, w):
         raise ValueError(f"max_pool_3x3s2_bwd_cuda: dy {tuple(dy.shape)} is "
@@ -192,20 +164,13 @@ def max_pool_3x3s2_bwd_cuda(dy: torch.Tensor, idx: torch.Tensor,
             or idx.device != dy.device):
         raise ValueError("max_pool_3x3s2_bwd_cuda: idx must be uint8 of dy's "
                          "shape on dy's device")
-    if not (dy.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("max_pool_3x3s2_bwd_cuda expects contiguous NHWC "
-                         "dy and idx")
+    _ffi.check_nhwc("max_pool_3x3s2_bwd_cuda", dy, idx)
     bsz, c = dy.shape[0], dy.shape[3]
     dx = torch.empty((bsz, h, w, c), dtype=dy.dtype, device=dy.device)
-    _run(f"max_pool_3x3s2_bwd_{_SUFFIX[dy.dtype]}", dy,
-         (dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), bsz, h, w, c))
-    max_pool_3x3s2_bwd_cuda.launches += 1
+    LIB.launch(f"max_pool_3x3s2_bwd_{_SUFFIX[dy.dtype]}",
+               max_pool_3x3s2_bwd_cuda, dy,
+               (dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), bsz, h, w, c))
     return dx
-
-
-max_pool_3x3s2_cuda.launches = 0
-max_pool_3x3s2_idx_cuda.launches = 0
-max_pool_3x3s2_bwd_cuda.launches = 0
 
 
 class _MaxPool3x3s2(torch.autograd.Function):

@@ -27,15 +27,24 @@ built library which path it took, for the tests on the card).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mcncrossmodalemotions_torch.ops import _build
+from mcncrossmodalemotions_torch.ops import _ffi
+from mcncrossmodalemotions_torch.ops._ffi import INT, LONGLONG, VOIDP
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+LIB = _ffi.Library("probes", {
+    **dict.fromkeys(("probe_gather_f32", "probe_gather_bf16"), (
+        INT, [VOIDP] * 3 + [LONGLONG, INT, INT, LONGLONG, VOIDP])),
+    "probe_select_matmul_f32": (INT, [VOIDP, LONGLONG, VOIDP, VOIDP]
+                                + [INT] * 3 + [VOIDP]),
+    "probe_col_candidates_f32": (INT, [VOIDP] * 4 + [INT] * 4 + [VOIDP]),
+    "probe_gather_route": (INT, [VOIDP, VOIDP, INT, LONGLONG, INT, INT,
+                                 LONGLONG]),
+    "probe_col_candidates_route": (INT, [VOIDP] * 4 + [INT] * 4)})
 _NARROW = 2 ** 31  # 32-bit offsets below this many elements
 
 
@@ -96,49 +105,11 @@ def index_map(idx, n_in: int, device: torch.device | str) -> IndexMap:
     return IndexMap(torch.from_numpy(idx.astype(np.int32)).to(device), n_in)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("probes")
-    ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, argtypes in (
-            ("probe_gather_f32", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
-            ("probe_gather_bf16", [ptr] * 3 + [cll, cint, cint, cll, ptr]),
-            ("probe_select_matmul_f32", [ptr, cll, ptr, ptr] + [cint] * 3 + [ptr]),
-            ("probe_col_candidates_f32", [ptr] * 4 + [cint] * 4 + [ptr]),
-            ("probe_gather_route", [ptr, ptr, cint, cll, cint, cint, cll]),
-            ("probe_col_candidates_route", [ptr] * 4 + [cint] * 4)):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.restype = cint
-            fn.argtypes = argtypes
-    return lib
-
-
 def library_route(wrapper) -> Route:
     """The path the built library's launcher took at ``wrapper``'s last
     launch on the card (asked again with the same arguments, no launch)."""
-    code = getattr(_lib(), f"{wrapper.__name__}_route")(*wrapper.route_args)
+    code = LIB.fn(f"{wrapper.__name__}_route")(*wrapper.route_args)
     return Route(code // 2, bool(code % 2))
-
-
-def _on_cpu(x: torch.Tensor, who: str) -> bool:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{who}: unsupported device {x.device}")
-    return x.device.type == "cpu"
-
-
-def _same_device(who: str, *tensors: torch.Tensor) -> None:
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{who}: operands on different devices "
-                         f"{[str(t.device) for t in tensors]}")
-
-
-def _run(name: str, x: torch.Tensor, args) -> None:
-    with torch.cuda.device(x.device):
-        err = getattr(_lib(), name)(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(shape {tuple(x.shape)}, {x.dtype})")
 
 
 # -- P1-P8, P10, P11, P4r, P4s, P4b, P1r -----------------------------------
@@ -147,6 +118,7 @@ def gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
     return torch.index_select(x, axis, index.values).float()
 
 
+@_ffi.counted("probe_gather")
 def probe_gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
     """``x`` (f32 or bf16) gathered along ``axis`` by ``index``, as f32:
     ``out[..., j, ...] = x[..., index[j], ...]``.
@@ -158,21 +130,19 @@ def probe_gather(x: torch.Tensor, index: IndexMap, axis: int) -> torch.Tensor:
     if x.shape[axis] != index.n_in:
         raise ValueError(f"probe_gather: axis {axis} of {tuple(x.shape)} is "
                          f"not the index map's {index.n_in}")
-    _same_device("probe_gather", x, index.values)
-    if _on_cpu(x, "probe_gather"):
+    _ffi.check_device("probe_gather", x, index.values)
+    if _ffi.on_cpu("probe_gather", x):
         return gather(x, index, axis)
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"probe_gather: unsupported dtype {x.dtype}")
+    _ffi.check_dtype("probe_gather", x, _SUFFIX)
     if not x.is_contiguous():
         raise ValueError("probe_gather expects a contiguous tensor")
     outer, inner = gather_dims(x.shape, axis)
     n_out = index.values.numel()
     out = torch.empty((*x.shape[:axis], n_out, *x.shape[axis + 1:]),
                       dtype=torch.float32, device=x.device)
-    _run(f"probe_gather_{_SUFFIX[x.dtype]}", x,
-         (x.data_ptr(), index.values.data_ptr(), out.data_ptr(), outer,
-          index.n_in, n_out, inner))
-    probe_gather.launches += 1
+    LIB.launch(f"probe_gather_{_SUFFIX[x.dtype]}", probe_gather, x,
+               (x.data_ptr(), index.values.data_ptr(), out.data_ptr(), outer,
+                index.n_in, n_out, inner))
     probe_gather.route_args = (x.data_ptr(), out.data_ptr(), x.element_size(),
                                outer, index.n_in, n_out, inner)
     probe_gather.route = gather_route(*probe_gather.route_args)
@@ -186,6 +156,7 @@ def select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mk,kn->mn", a.float(), b.float())
 
 
+@_ffi.counted("probe_select_matmul")
 def probe_select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[m, k] @ [k, n] in fp32, by fp32 FFMA on the CUDA cores.
 
@@ -196,8 +167,8 @@ def probe_select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"probe_select_matmul: cannot multiply "
                          f"{tuple(a.shape)} by {tuple(b.shape)}")
-    _same_device("probe_select_matmul", a, b)
-    if _on_cpu(a, "probe_select_matmul"):
+    _ffi.check_device("probe_select_matmul", a, b)
+    if _ffi.on_cpu("probe_select_matmul", a):
         return select_matmul(a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"probe_select_matmul: f32 only, got {a.dtype}, "
@@ -207,9 +178,8 @@ def probe_select_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          "stride and a contiguous b")
     (m, k), n = a.shape, b.shape[1]
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _run("probe_select_matmul_f32", a,
-         (a.data_ptr(), a.stride(0), b.data_ptr(), c.data_ptr(), m, k, n))
-    probe_select_matmul.launches += 1
+    LIB.launch("probe_select_matmul_f32", probe_select_matmul, a,
+               (a.data_ptr(), a.stride(0), b.data_ptr(), c.data_ptr(), m, k, n))
     return c
 
 
@@ -231,6 +201,7 @@ def col_candidates(x: torch.Tensor, y: torch.Tensor,
     return grad
 
 
+@_ffi.counted("probe_col_candidates")
 def probe_col_candidates(x: torch.Tensor, y: torch.Tensor,
                          dy: torch.Tensor) -> torch.Tensor:
     """P12's expansion: ``x`` [T, W, C], ``y`` and ``dy`` [T, Wh, C] with
@@ -246,8 +217,8 @@ def probe_col_candidates(x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"probe_col_candidates: x {tuple(x.shape)}, y "
                          f"{tuple(y.shape)}, dy {tuple(dy.shape)} are not "
                          "[T, W, C] and [T, Wh, C] with 2 (Wh - 1) >= W")
-    _same_device("probe_col_candidates", x, y, dy)
-    if _on_cpu(x, "probe_col_candidates"):
+    _ffi.check_device("probe_col_candidates", x, y, dy)
+    if _ffi.on_cpu("probe_col_candidates", x):
         return col_candidates(x, y, dy)
     if {x.dtype, y.dtype, dy.dtype} != {torch.float32}:
         raise TypeError("probe_col_candidates: f32 only")
@@ -257,15 +228,11 @@ def probe_col_candidates(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty_like(x)
     args = (x.data_ptr(), y.data_ptr(), dy.data_ptr(), out.data_ptr(), t, w,
             y.shape[1], c)
-    _run("probe_col_candidates_f32", x, args)
-    probe_col_candidates.launches += 1
+    LIB.launch("probe_col_candidates_f32", probe_col_candidates, x, args)
     probe_col_candidates.route_args = args
     probe_col_candidates.route = col_candidates_route(*args)
     return out
 
 
-probe_gather.launches = 0
-probe_select_matmul.launches = 0
-probe_col_candidates.launches = 0
 probe_gather.route = probe_gather.route_args = None  # set at each launch
 probe_col_candidates.route = probe_col_candidates.route_args = None

@@ -16,14 +16,14 @@ the kernel for a CUDA tensor; it never falls back from the card.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from mcncrossmodalemotions_torch.ops import _build
+from mcncrossmodalemotions_torch.ops import _ffi
+from mcncrossmodalemotions_torch.ops._ffi import FLOAT, INT, VOIDP
 from mcncrossmodalemotions_torch.ops.spectrogram import (
     DEFAULT_SPEC,
     SpecConfig,
@@ -34,6 +34,8 @@ from mcncrossmodalemotions_torch.ops.spectrogram import (
 
 KERNEL_NFFT = 512  # the kernel's FFT: 256 = 16 x 16 complex points
 _ENTRY = {torch.float32: "spectrogram_f32", torch.int16: "spectrogram_i16"}
+LIB = _ffi.Library("spectrogram", dict.fromkeys(
+    _ENTRY.values(), (INT, [VOIDP] * 5 + [INT] * 6 + [FLOAT, VOIDP])))
 
 
 @functools.lru_cache(maxsize=8)
@@ -72,17 +74,7 @@ def fft_tables(cfg: SpecConfig, device: torch.device) -> Tuple[torch.Tensor, ...
     return _device_tables[key]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("spectrogram")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + [ctypes.c_float, ctypes.c_void_p])
-    return lib
-
-
+@_ffi.counted("spectrogram")
 def spectrogram_cuda(x: torch.Tensor, cfg: SpecConfig = DEFAULT_SPEC) -> torch.Tensor:
     """[B, N] waveform (float32, int16 PCM or uint8 mu-law) -> [B, nfft, T]
     float32 magnitude spectrogram.
@@ -93,16 +85,13 @@ def spectrogram_cuda(x: torch.Tensor, cfg: SpecConfig = DEFAULT_SPEC) -> torch.T
     bitwise ``decode_pcm``); mu-law rows are decoded (``decode_pcm``)
     first. Each launch adds one to ``spectrogram_cuda.launches``.
     """
-    if x.device.type == "cpu":
+    if _ffi.on_cpu("spectrogram_cuda", x):
         return spectrogram(x, cfg)
-    if x.device.type != "cuda":
-        raise ValueError(f"spectrogram_cuda: unsupported device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"spectrogram_cuda expects [B, N], got {tuple(x.shape)}")
     if x.dtype == torch.uint8:
         x = decode_pcm(x)
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"spectrogram_cuda: unsupported dtype {x.dtype}")
+    _ffi.check_dtype("spectrogram_cuda", x, _ENTRY)
     if cfg.nfft != KERNEL_NFFT:
         raise ValueError(f"spectrogram_cuda: the kernel's FFT has "
                          f"{KERNEL_NFFT} points, not {cfg.nfft}")
@@ -113,17 +102,8 @@ def spectrogram_cuda(x: torch.Tensor, cfg: SpecConfig = DEFAULT_SPEC) -> torch.T
         raise ValueError(f"input too short: {n} samples -> 0 frames")
     window, twiddles, post = fft_tables(cfg, x.device)
     out = torch.empty((bsz, cfg.nfft, t), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = getattr(_lib(), _ENTRY[x.dtype])(
-            x.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
-            post.data_ptr(), out.data_ptr(), bsz, n, t, cfg.win_length,
-            cfg.hop_length, cfg.nfft, cfg.preemph,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"spectrogram kernel launch failed: CUDA error {err} "
-                           f"(B={bsz}, N={n}, T={t}, {x.dtype})")
-    spectrogram_cuda.launches += 1
+    LIB.launch(_ENTRY[x.dtype], spectrogram_cuda, x, (
+        x.data_ptr(), window.data_ptr(), twiddles.data_ptr(), post.data_ptr(),
+        out.data_ptr(), bsz, n, t, cfg.win_length, cfg.hop_length, cfg.nfft,
+        cfg.preemph))
     return out
-
-
-spectrogram_cuda.launches = 0

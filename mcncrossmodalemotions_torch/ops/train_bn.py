@@ -36,39 +36,26 @@ eager code (``models/vggm.py`` adds those).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from mcncrossmodalemotions_torch.ops import _build
+from mcncrossmodalemotions_torch.ops import _ffi
+from mcncrossmodalemotions_torch.ops._ffi import FLOAT, INT, VOIDP
 
 calls = {"fused": 0, "fused_backward": 0, "plain": 0}
-_fns: Dict[str, object] = {}  # name -> the library's function
 _chunks: Dict[Tuple[int, int, int], int] = {}  # (batch, hw, c) -> chunks
-
-
-def _fn(name: str):
-    """The library's function ``name``, its argument types set once."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("train_bn")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for base, argtypes in (
-                ("train_bn_chunks", [i] * 3),
-                ("train_bn_stats_bf16", [p] * 3 + [i] * 4 + [p]),
-                ("train_bn_finalize", [p, i, p, i, i, i] + [p] * 4
-                 + [f] * 3 + [i] + [p] * 4),
-                ("train_bn_apply_bf16", [p] * 4 + [i] * 4 + [p]),
-                ("train_bn_reduce_bf16", [p] * 6 + [i] * 5 + [p]),
-                ("train_bn_grad_finalize", [p, i, i, p, p, p, f, p, p]),
-                ("train_bn_dx_bf16", [p] * 7 + [i] * 4 + [p])):
-            g = getattr(lib, base)
-            g.restype, g.argtypes = i, argtypes
-            _fns[base] = g
-        fn = _fns[name]
-    return fn
+LIB = _ffi.Library("train_bn", {
+    "train_bn_chunks": (INT, [INT] * 3),
+    "train_bn_stats_bf16": (INT, [VOIDP] * 3 + [INT] * 4 + [VOIDP]),
+    "train_bn_finalize": (INT, [VOIDP, INT, VOIDP, INT, INT, INT]
+                          + [VOIDP] * 4 + [FLOAT] * 3 + [INT] + [VOIDP] * 4),
+    "train_bn_apply_bf16": (INT, [VOIDP] * 4 + [INT] * 4 + [VOIDP]),
+    "train_bn_reduce_bf16": (INT, [VOIDP] * 6 + [INT] * 5 + [VOIDP]),
+    "train_bn_grad_finalize": (INT, [VOIDP, INT, INT] + [VOIDP] * 3
+                               + [FLOAT, VOIDP, VOIDP]),
+    "train_bn_dx_bf16": (INT, [VOIDP] * 7 + [INT] * 4 + [VOIDP])})
 
 
 def takes(x: torch.Tensor, mesh=None) -> bool:
@@ -84,26 +71,22 @@ def takes(x: torch.Tensor, mesh=None) -> bool:
 # -- the kernels ------------------------------------------------------------
 
 def _check(who: str, *tensors: torch.Tensor) -> None:
-    """Raise on an activation the kernels do not take: contiguous NHWC
-    bf16 with C a multiple of 8, on one card, 16-byte aligned."""
+    """Raise on activations the kernels do not take: contiguous NHWC bf16
+    of one shape with C a multiple of 8 (``_ffi.check_lanes``), not empty,
+    on one card, 16-byte aligned."""
     ref = tensors[0]
     if not ref.is_cuda:
         raise ValueError(f"{who}: the kernels take CUDA tensors, got one on "
                          f"{ref.device}")
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{who}: the kernels take bf16, got {t.dtype}")
-        if (t.dim() != 4 or not t.is_contiguous() or t.shape != ref.shape
-                or t.device != ref.device):
-            raise ValueError(f"{who} expects contiguous NHWC [B, H, W, C] "
-                             f"tensors of one shape on one device, got "
-                             f"{tuple(t.shape)} with strides {t.stride()} "
-                             f"on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{who}: a tensor's data is not 16-byte aligned")
-    if ref.shape[3] % 8 or not ref.numel():
-        raise ValueError(f"{who}: C = {ref.shape[3]} is not a multiple of 8 "
-                         "or the tensor is empty")
+        _ffi.check_dtype(who, t, (torch.bfloat16,))
+    _ffi.check_nhwc(who, *tensors)
+    _ffi.check_device(who, *tensors)
+    if any(t.shape != ref.shape for t in tensors) or not ref.numel():
+        raise ValueError(f"{who}: tensors of shapes "
+                         f"{[tuple(t.shape) for t in tensors]}, not one "
+                         "shape, or empty")
+    _ffi.check_lanes(who, *tensors)
 
 
 def _check_vectors(who: str, device, c: int, *vectors: torch.Tensor) -> None:
@@ -133,24 +116,13 @@ def _mask_arg(who: str, mask: Optional[torch.Tensor], batch: int, device):
     return mask.data_ptr()
 
 
-def _launch(name: str, err: int, x: torch.Tensor) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(shape {tuple(x.shape)}, {x.dtype})")
-
-
-def _stream(x: torch.Tensor, stream: Optional[int]) -> int:
-    return (torch.cuda.current_stream(x.device).cuda_stream if stream is None
-            else stream)
-
-
 def chunks(batch: int, hw: int, c: int) -> int:
     """The chunks of an image's rows the two reductions walk on the card:
     their partials have batch x chunks rows."""
     key = (batch, hw, c)
     n = _chunks.get(key)
     if n is None:
-        n = _fn("train_bn_chunks")(batch, hw, c)
+        n = LIB.fn("train_bn_chunks")(batch, hw, c)
         if n <= 0:
             raise ValueError(f"train_bn: no launch for batch {batch}, "
                              f"{hw} positions, {c} channels")
@@ -158,6 +130,7 @@ def chunks(batch: int, hw: int, c: int) -> int:
     return n
 
 
+@_ffi.counted("stats")
 def stats(x: torch.Tensor, mask: Optional[torch.Tensor], *,
           stream: Optional[int] = None) -> torch.Tensor:
     """Rows of partial sums [P, 2C], fp32, of x and x^2 over the rows
@@ -167,13 +140,13 @@ def stats(x: torch.Tensor, mask: Optional[torch.Tensor], *,
     b, h, w, c = x.shape
     part = torch.empty((b * chunks(b, h * w, c), 2 * c), dtype=torch.float32,
                        device=x.device)
-    _launch("stats", _fn("train_bn_stats_bf16")(
-        x.data_ptr(), m, part.data_ptr(), b, h * w, c, part.shape[0] // b,
-        _stream(x, stream)), x)
-    stats.launches += 1
+    LIB.launch("train_bn_stats_bf16", stats, x, (
+        x.data_ptr(), m, part.data_ptr(), b, h * w, c, part.shape[0] // b),
+        stream)
     return part
 
 
+@_ffi.counted("finalize")
 def finalize(part: torch.Tensor, mask: Optional[torch.Tensor], batch: int,
              hw: int, weight: torch.Tensor, bias: torch.Tensor,
              running_mean: torch.Tensor, running_var: torch.Tensor,
@@ -190,15 +163,15 @@ def finalize(part: torch.Tensor, mask: Optional[torch.Tensor], batch: int,
     m = _mask_arg("finalize", mask, batch, part.device)
     out = torch.empty((6, c), dtype=torch.float32, device=part.device)
     scale, shift, saved = out[0], out[1], out[2:]
-    _launch("finalize", _fn("train_bn_finalize")(
+    LIB.launch("train_bn_finalize", finalize, part, (
         part.data_ptr(), part.shape[0], m, batch, hw, c, weight.data_ptr(),
         bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
         eps, momentum, 1.0 - momentum, int(update), scale.data_ptr(),
-        shift.data_ptr(), saved.data_ptr(), _stream(part, stream)), part)
-    finalize.launches += 1
+        shift.data_ptr(), saved.data_ptr()), stream)
     return scale, shift, saved
 
 
+@_ffi.counted("apply")
 def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
           relu: bool, *, stream: Optional[int] = None) -> torch.Tensor:
     """``relu(x * scale + shift)`` (or the affine alone) in x's dtype, a new
@@ -207,13 +180,13 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     _check_vectors("apply", x.device, x.shape[3], scale, shift)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     b, h, w, c = x.shape
-    _launch("apply", _fn("train_bn_apply_bf16")(
+    LIB.launch("train_bn_apply_bf16", apply, x, (
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), shift.data_ptr(), b,
-        h * w, c, int(relu), _stream(x, stream)), x)
-    apply.launches += 1
+        h * w, c, int(relu)), stream)
     return y
 
 
+@_ffi.counted("backward_reduce")
 def backward_reduce(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                     shift: torch.Tensor, saved: torch.Tensor, relu: bool, *,
                     stream: Optional[int] = None) -> torch.Tensor:
@@ -225,14 +198,14 @@ def backward_reduce(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     _check_vectors("backward_reduce", x.device, c, scale, shift, mean)
     part = torch.empty((b * chunks(b, h * w, c), 2 * c), dtype=torch.float32,
                        device=x.device)
-    _launch("backward_reduce", _fn("train_bn_reduce_bf16")(
+    LIB.launch("train_bn_reduce_bf16", backward_reduce, x, (
         dy.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         mean.data_ptr(), part.data_ptr(), b, h * w, c, part.shape[0] // b,
-        int(relu), _stream(x, stream)), x)
-    backward_reduce.launches += 1
+        int(relu)), stream)
     return part
 
 
+@_ffi.counted("backward_finalize")
 def backward_finalize(part: torch.Tensor, saved: torch.Tensor,
                       weight: torch.Tensor, scale: torch.Tensor, eps: float,
                       *, stream: Optional[int] = None) -> torch.Tensor:
@@ -242,13 +215,13 @@ def backward_finalize(part: torch.Tensor, saved: torch.Tensor,
     _check_vectors("backward_finalize", part.device, 2 * c, part)
     _check_vectors("backward_finalize", part.device, c, saved, weight, scale)
     coef = torch.empty((4, c), dtype=torch.float32, device=part.device)
-    _launch("backward_finalize", _fn("train_bn_grad_finalize")(
+    LIB.launch("train_bn_grad_finalize", backward_finalize, part, (
         part.data_ptr(), part.shape[0], c, saved.data_ptr(), weight.data_ptr(),
-        scale.data_ptr(), eps, coef.data_ptr(), _stream(part, stream)), part)
-    backward_finalize.launches += 1
+        scale.data_ptr(), eps, coef.data_ptr()), stream)
     return coef
 
 
+@_ffi.counted("backward_apply")
 def backward_apply(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, coef: torch.Tensor,
                    mask: Optional[torch.Tensor], relu: bool, *,
@@ -260,20 +233,10 @@ def backward_apply(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     _check_vectors("backward_apply", x.device, c, scale, shift, coef)
     m = _mask_arg("backward_apply", mask, x.shape[0], x.device)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    _launch("backward_apply", _fn("train_bn_dx_bf16")(
+    LIB.launch("train_bn_dx_bf16", backward_apply, x, (
         dy.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        coef.data_ptr(), m, dx.data_ptr(), b, h * w, c, int(relu),
-        _stream(x, stream)), x)
-    backward_apply.launches += 1
+        coef.data_ptr(), m, dx.data_ptr(), b, h * w, c, int(relu)), stream)
     return dx
-
-
-stats.launches = 0
-finalize.launches = 0
-apply.launches = 0
-backward_reduce.launches = 0
-backward_finalize.launches = 0
-backward_apply.launches = 0
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -291,7 +254,7 @@ class BatchNormReLU(torch.autograd.Function):
         b, _, h, w = x.shape
         xn = _nhwc(x)
         with torch.cuda.device(x.device):
-            stream = _stream(x, None)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
             part = stats(xn, mask, stream=stream)
             scale, shift, saved = finalize(
                 part, mask, b, h * w, weight, bias, running_mean, running_var,
@@ -310,7 +273,7 @@ class BatchNormReLU(torch.autograd.Function):
         dyn = _nhwc(dy.contiguous(memory_format=torch.channels_last))
         dx = None
         with torch.cuda.device(x.device):
-            stream = _stream(x, None)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
             part = backward_reduce(dyn, xn, scale, shift, saved, ctx.relu,
                                    stream=stream)
             coef = backward_finalize(part, saved, weight, scale, ctx.eps,

@@ -35,7 +35,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from mcncrossmodalemotions_torch.ops import probes
+from mcncrossmodalemotions_torch.ops import _ffi, probes
 from mcncrossmodalemotions_torch.utils.device import resolve_device
 
 
@@ -96,15 +96,12 @@ def exit_code(results: Dict[str, Tuple[bool, bool]]) -> int:
     return 0 if all(ran and ok for ran, ok in results.values()) else 1
 
 
+K1_K2 = ("spectrogram", "max_pool_3x3s2", "max_pool_3x3s2_idx",
+         "max_pool_3x3s2_bwd")
+"""The K1 and K2 wrappers' names in the record of launches (``ops/_ffi``)."""
+
+
 def kernel_launches() -> Dict[str, int]:
     """The K1 and K2 wrappers' launch counts in this process (each wrapper
     adds one where it launches its kernel), for a study's record."""
-    from mcncrossmodalemotions_torch.ops import pool
-    from mcncrossmodalemotions_torch.ops.spectrogram_kernel import (
-        spectrogram_cuda,
-    )
-
-    return {"spectrogram": spectrogram_cuda.launches,
-            "max_pool_3x3s2": pool.max_pool_3x3s2_cuda.launches,
-            "max_pool_3x3s2_idx": pool.max_pool_3x3s2_idx_cuda.launches,
-            "max_pool_3x3s2_bwd": pool.max_pool_3x3s2_bwd_cuda.launches}
+    return _ffi.launches(K1_K2)

@@ -410,7 +410,7 @@ def test_ddp_phase_rehearses_on_the_cpu(tmp_path):
     chip_smoke.dense_tree(tmp_path / "vox", chip_smoke.imdb_paths(tracks), 3)
     dense = build_imdb(tmp_path / "vox", model, state, batch_size=8,
                        verbose=False, device="cpu")
-    wrappers = chip_smoke.kernel_wrappers()
+    wrappers = chip_smoke.KERNEL_NAMES
     counts = chip_smoke.ddp_phase("cpu", tmp_path, dense, wrappers, dev="cpu")
     assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
     assert len(list(tmp_path.glob("ddp-gloo-2-*.json"))) == 2
@@ -441,7 +441,7 @@ def test_dense_chunked_phase_rehearses_on_the_cpu(tmp_path):
                        set_assignment={speakers[-1]: SET_UNHEARD_VAL},
                        verbose=False, device="cpu")
     assert sum(len(f) for f in dense.dense_frames) == 18  # 2 workers: 16, 2
-    wrappers = chip_smoke.kernel_wrappers()
+    wrappers = chip_smoke.KERNEL_NAMES
     counts = chip_smoke.dense_chunked_phase("cpu", tmp_path, dense, wrappers,
                                             dev="cpu")
     assert counts == {k: 0 for k in wrappers}  # CPU tensors: plain versions
@@ -536,12 +536,12 @@ def test_train_bn_phase_rehearses_on_the_cpu(capsys):
 
 def test_count_train_bn_holds_the_counts_since_the_reset():
     """``count_train_bn`` reads the six wrappers' launches and the
-    engagement counts since ``reset_train_bn_counts``, adds the launches
+    engagement counts since ``reset_counts`` of the six, adds the launches
     to the total, and fails the phase on any other count: the kernels
     line's train-mode BatchNorm launches are those the runs made."""
     from mcncrossmodalemotions_torch.ops import train_bn
 
-    chip_smoke.reset_train_bn_counts()
+    chip_smoke.reset_counts(chip_smoke.TRAIN_BN_NAMES)
     for name in chip_smoke.TRAIN_BN_NAMES:
         getattr(train_bn, name).launches += 12
     train_bn.calls.update(fused=12, fused_backward=12)
@@ -556,7 +556,7 @@ def test_count_train_bn_holds_the_counts_since_the_reset():
     train_bn.backward_apply.launches -= 1  # a backward without its dx
     with pytest.raises(chip_smoke.SmokeFailure):
         chip_smoke.count_train_bn("two steps", 12, 0)
-    chip_smoke.reset_train_bn_counts()
+    chip_smoke.reset_counts(chip_smoke.TRAIN_BN_NAMES)
     assert chip_smoke.count_train_bn("nothing", 0, 0) == dict.fromkeys(
         chip_smoke.TRAIN_BN_NAMES, 0)
 
@@ -594,7 +594,7 @@ def test_teacher_epilogue_launches_are_counted_a_forward():
         "affine_relu": 30, "affine_squeeze": 0, "affine_gate_add_relu": 0,
         "affine_relu_pool2x2": 15}
     total = {}
-    chip_smoke.reset_epilogue_counts()
+    chip_smoke.reset_counts(chip_smoke.EPILOGUE_NAMES)
     chip_smoke.count_epilogues("cpu", "senet50", False, total)  # nothing launched
     assert total == dict.fromkeys(chip_smoke.EPILOGUE_NAMES, 0)
     for kind in ("senet50", "vgg16"):
@@ -674,7 +674,7 @@ def test_demo_phase_rehearses_on_the_cpu(tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        wrappers = chip_smoke.kernel_wrappers()
+        wrappers = chip_smoke.KERNEL_NAMES
         counts = chip_smoke.demo_phase("cpu", tmp_path, wrappers, dev="cpu",
                                        speakers=4, tracks=8, tiny=True)
     finally:
@@ -688,7 +688,7 @@ def test_graft_phase_rehearses_on_the_cpu(capsys):
     width, then the dry run over one and over two gloo ranks, every check
     of the phase passing with no launch (CPU tensors); the dry runs' shards
     are of 1 and 2 rows whatever the card count."""
-    wrappers = chip_smoke.kernel_wrappers()
+    wrappers = chip_smoke.KERNEL_NAMES
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -730,7 +730,7 @@ def test_studies_phase_rehearses_on_the_cpu(monkeypatch):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        wrappers = chip_smoke.kernel_wrappers()
+        wrappers = chip_smoke.KERNEL_NAMES
         _study_in_process(monkeypatch)
         counts = chip_smoke.studies_phase("cpu", wrappers, 80.0, dev="cpu",
                                           small=True)
@@ -747,7 +747,7 @@ def test_step_study_launches_are_their_steps():
     """2 + 3 x STUDY_ITERS steps a process: K1 once a step, the with-index
     K2 twice plus the pools a remat policy recomputes, the backward twice;
     probe_remat's memory forward adds K1 once and the with-index K2 twice."""
-    wrappers = chip_smoke.kernel_wrappers()
+    wrappers = chip_smoke.KERNEL_NAMES
     steps = 2 + 3 * chip_smoke.STUDY_ITERS
     base = chip_smoke.step_study_launches(wrappers)
     assert base == {k: 0 for k in wrappers} | {

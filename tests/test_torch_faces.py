@@ -331,7 +331,7 @@ def test_a_failed_build_does_not_fall_back_to_pil(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", src)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(native_faces, "_lib", None)
+    monkeypatch.setattr(native_faces.LIB, "cdll", None)
     with pytest.raises(RuntimeError, match="no decoder here"):
         images.load_frame_batch([_path(NAMES[0])], 32)
 

@@ -299,7 +299,7 @@ def test_chip_smoke_workflow_phase_holds_the_run(workflow, tmp_path,
     import chip_smoke
 
     monkeypatch.setattr(full_workflow, "main", lambda *a, **k: workflow)
-    wrappers = chip_smoke.kernel_wrappers()
+    wrappers = chip_smoke.KERNEL_NAMES
     chunks = chip_smoke.workflow_shapes(tmp_path)
     counts = chip_smoke.workflow_phase("cpu", tmp_path, wrappers, dev="cpu",
                                        checked_chunks=chunks)

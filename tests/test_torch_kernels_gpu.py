@@ -189,11 +189,13 @@ def _backward_matches_autograd(x, dy, offsets=(0, 0, 0)):
     dx = _placed(torch.full(x.shape, 7.0, dtype=x.dtype), offsets[2], x.device)
     before = pool.max_pool_3x3s2_bwd_cuda.launches
     if offsets[2]:  # the wrapper allocates an aligned dx: call the library
-        pool._run(f"max_pool_3x3s2_bwd_{pool._SUFFIX[x.dtype]}", dy,
-                  (dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), bsz, h, w, c))
+        pool.LIB.launch(f"max_pool_3x3s2_bwd_{pool._SUFFIX[x.dtype]}",
+                        pool.max_pool_3x3s2_bwd_cuda, dy,
+                        (dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), bsz, h,
+                         w, c))
     else:
         dx = pool.max_pool_3x3s2_bwd_cuda(dy, idx, h, w)
-        assert pool.max_pool_3x3s2_bwd_cuda.launches == before + 1
+    assert pool.max_pool_3x3s2_bwd_cuda.launches == before + 1
     ref = pool.max_pool_3x3s2_backward(x, dy).contiguous()
     torch.cuda.synchronize()
     assert torch.equal(_bits(dx), _bits(ref))

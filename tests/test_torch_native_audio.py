@@ -180,7 +180,7 @@ def test_extraction_reads_through_the_port_library(tmp_path, monkeypatch):
     port, readers = extract()
     assert readers == {"native-packed"}
     monkeypatch.setenv("MCNCME_DISABLE_NATIVE", "1")
-    monkeypatch.setattr(native_audio, "_lib", None)
+    monkeypatch.setattr(native_audio.LIB, "cdll", None)
     assert tfeats.wav_reader() is None
     python, readers = extract()
     assert readers == {"python"}
@@ -196,7 +196,7 @@ def test_a_failed_build_does_not_fall_back_to_python(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", src)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(native_audio, "_lib", None)
+    monkeypatch.setattr(native_audio.LIB, "cdll", None)
     ex = tfeats.AudioFeatureExtractor(model, state, batch_size=2, device="cpu")
     with pytest.raises(RuntimeError, match="no reader here"):
         ex.track_logits(paths, verbose=False)

@@ -18,7 +18,7 @@
   running statistics bitwise equal to that code written out here, and
   nothing prepared.
 - The kernels' wrappers refuse a C that is not a whole number of 16-byte
-  vectors and data off 16-byte alignment (``epilogue._check``, which a
+  vectors and data off 16-byte alignment (``_ffi.check_lanes``, which a
   CUDA tensor meets before any launch; held here on CPU tensors).
 
 The kernels themselves are held to the plain versions on the card
@@ -39,7 +39,7 @@ from mcncrossmodalemotions_torch.models.resnet import (
     _conv,
     stem_pool,
 )
-from mcncrossmodalemotions_torch.ops import epilogue
+from mcncrossmodalemotions_torch.ops import _ffi, epilogue
 from mcncrossmodalemotions_torch.zoo.bridge import (
     random_teacher_variables,
     teacher_state_dict_from_flax,
@@ -274,9 +274,8 @@ def test_kernel_checks_refuse_narrow_or_misaligned(dtype, c, offset, where):
     shape = (2, 3, 5, c)
     y, r, out = (_nhwc_at(shape, dtype, offset if where == k else 0)
                  for k in ("y", "residual", "out"))
-    s, t = torch.ones(c), torch.zeros(c)
     if where is None:
-        epilogue._check("affine_gate_add_relu", y, s, t, r, None, out)
+        _ffi.check_lanes("affine_gate_add_relu", y, r, None, out)
         return
     with pytest.raises(ValueError, match="16-byte"):
-        epilogue._check("affine_gate_add_relu", y, s, t, r, None, out)
+        _ffi.check_lanes("affine_gate_add_relu", y, r, None, out)
