@@ -88,7 +88,9 @@ without the kernels where a comparison applies. Phases:
     ``pack_pcm16``) over the smoke's tracks, from 0 and from random
     starts; extraction's tracks/s with library reads and with Python reads
     (``MCNCME_DISABLE_NATIVE``), in turns, over windows of the smoke's
-    tracks read 16 times (the window's seconds printed beside each rate),
+    tracks read 16 times (the window's seconds printed beside each rate,
+    and the rows ``ds_read_crops_packed`` copied and decoded: a decoded
+    row of the smoke's 16-bit PCM tracks fails the phase),
     each run launching K1 once and K2 twice per chunk, their logits within
     the slice gate.
 11. release: a classic (v5) MatConvNet ``.mat`` written from seeded
@@ -1233,7 +1235,9 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
     the Python reads' over the smoke's tracks, through both
     ``ds_read_crops`` and ``ds_read_crops_packed``; extraction's tracks/s
     with it and with Python reads, in turns, over windows of the tracks
-    read ``READER_REPEATS`` times. Returns the launches of the extractions
+    read ``READER_REPEATS`` times, beside the rows ``ds_read_crops_packed``
+    copied (16-bit PCM) and decoded: every smoke track is 16-bit PCM, so a
+    decoded row fails the phase. Returns the launches of the extractions
     that read through it."""
     import os
 
@@ -1256,6 +1260,7 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
     by_t_pad: dict = {}
     for p in paths:
         by_t_pad.setdefault(meta._meta(p)[2], []).append(p)
+    native_audio.reset_rows()
     for t_pad, group in sorted(by_t_pad.items()):
         need = DEFAULT_SPEC.crop_samples(t_pad)
         for starts in ([0] * len(group),
@@ -1277,6 +1282,10 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
                   f"their pack_pcm16", flush=True)
             check(same and same_packed,
                   f"the port's reader differs from Python at t_pad {t_pad}")
+    packed_rows = native_audio.read_crops_packed
+    check(packed_rows.decoded_rows == 0 and packed_rows.raw_rows > 0,
+          f"16-bit tracks decoded: {packed_rows.decoded_rows} rows decoded, "
+          f"{packed_rows.raw_rows} copied")
 
     fc6, fc7 = widths
     model = VGGMStudent(fc6_features=fc6, fc7_features=fc7)
@@ -1289,6 +1298,7 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
                                         "max_pool_3x3s2": 2 * chunks}
     counts = {k: 0 for k in wrappers}
     runs = {"library": [], "python": []}
+    rows = {"library": [], "python": []}  # (copied, decoded) a run
     logits = {}
     order = ("library", "python", "python", "library")
     for mode in order:
@@ -1298,12 +1308,16 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
             ex = feats.AudioFeatureExtractor(model, state, batch_size=BATCH,
                                              device=dev)
             reset_counts(wrappers)
+            native_audio.reset_rows()
             t0 = time.perf_counter()
             out = ex.track_logits(window, verbose=False)
             sync(dev)
             runs[mode].append(time.perf_counter() - t0)
+            rows[mode].append((packed_rows.raw_rows, packed_rows.decoded_rows))
         finally:
             os.environ.pop("MCNCME_DISABLE_NATIVE", None)
+        check(rows[mode][-1][1] == 0,
+              f"reader {mode}: {rows[mode][-1][1]} rows of 16-bit tracks decoded")
         got = read_counts(wrappers)
         check(got == want, f"reader {mode}: launches {got}, expected {want}")
         if mode == "library":
@@ -1319,8 +1333,10 @@ def reader_phase(card: str, imdb, wrappers: tuple, dev="cuda",
           f"({'bitwise equal' if np.array_equal(a, b) else 'not bitwise equal'})")
     check(diff <= SLICE_REL_TOL * float(np.abs(b).max()),
           "library-read logits disagree with Python-read ones")
-    rates = {mode: ", ".join(f"{len(window) / w:.2f} in {w:.3f} s"
-                             for w in walls) for mode, walls in runs.items()}
+    rates = {mode: ", ".join(f"{len(window) / w:.2f} in {w:.3f} s (raw_rows "
+                             f"{r[0]}, decoded_rows {r[1]})"
+                             for w, r in zip(walls, rows[mode]))
+             for mode, walls in runs.items()}
     print(f"  {card}: extraction tracks/s, library reads {rates['library']}; "
           f"Python reads {rates['python']} (in turns: {', '.join(order)}; "
           f"{len(paths)} tracks x {READER_REPEATS} a window, batch {BATCH})",

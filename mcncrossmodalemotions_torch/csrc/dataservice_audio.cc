@@ -4,10 +4,12 @@
 // A copy of the audio half of native/dataservice.cc (the JAX package's C++
 // data service): the thread pool and ParallelFor, the RIFF/WAVE parser,
 // ReadWavSegment and PackRow, and the C entry points ds_wav_info,
-// ds_read_wav, ds_read_crops and ds_read_crops_packed, unchanged, and one
-// of its own: ds_wav_infos, a batch's headers in one threaded call. The JPEG
-// face decode (and so libjpeg) is left out: this library needs only the C++
-// standard library and pthreads, so it builds on hosts without libjpeg.
+// ds_read_wav and ds_read_crops, unchanged, ds_read_crops_packed, which
+// copies 16-bit PCM rows where the original decodes them (the same bytes)
+// and counts the rows of each path, and one of its own: ds_wav_infos, a
+// batch's headers in one threaded call. The JPEG face decode (and so
+// libjpeg) is left out: this library needs only the C++ standard library
+// and pthreads, so it builds on hosts without libjpeg.
 //
 // Built at first use by mcncrossmodalemotions_torch/ops/_build.py with the
 // host compiler (g++ -O3 -std=c++17 -fPIC -shared -lpthread) and bound with
@@ -168,27 +170,27 @@ bool ParseWavHeader(FILE* f, WavHeader* h) {
   return false;
 }
 
-// Decode `n` mono float32 samples starting at frame `start`; zero-pads
-// past EOF. Returns samples actually read (before padding).
-int64_t ReadWavSegment(const char* path, int64_t start, int64_t n,
-                       float* out, int32_t* sample_rate) {
+// Open `path` and parse its header; nullptr if either fails.
+FILE* OpenWav(const char* path, WavHeader* h) {
   FILE* f = fopen(path, "rb");
-  if (!f) return -1;
-  WavHeader h;
-  if (!ParseWavHeader(f, &h)) {
+  if (f && !ParseWavHeader(f, h)) {
     fclose(f);
-    return -1;
+    return nullptr;
   }
-  if (sample_rate) *sample_rate = h.sample_rate;
+  return f;
+}
+
+// Decode `n` mono float32 samples starting at frame `start` of the open
+// file `f`; zero-pads past EOF. Returns samples actually read (before
+// padding), < 0 for a format the reader does not decode.
+int64_t DecodeSegment(FILE* f, const WavHeader& h, int64_t start, int64_t n,
+                      float* out) {
   // Mirror data/audio.py read_wav's decode support EXACTLY: float32
   // (format 3), else int16/int32/uint8 by bit depth. Anything else
   // (e.g. 24-bit PCM) must ERROR like the Python twin's ValueError —
   // silently returning silence would corrupt training undetectably.
   const bool is_float32 = (h.format == 3 && h.bits == 32);
-  if (!is_float32 && h.bits != 16 && h.bits != 32 && h.bits != 8) {
-    fclose(f);
-    return -1;
-  }
+  if (!is_float32 && h.bits != 16 && h.bits != 32 && h.bits != 8) return -1;
   const int frame_bytes = h.channels * h.bits / 8;
   start = std::max<int64_t>(0, start);
   int64_t avail = std::max<int64_t>(0, h.num_samples - start);
@@ -222,8 +224,18 @@ int64_t ReadWavSegment(const char* path, int64_t start, int64_t n,
     }
     to_read = got;
   }
-  fclose(f);
   return to_read;
+}
+
+int64_t ReadWavSegment(const char* path, int64_t start, int64_t n,
+                       float* out, int32_t* sample_rate) {
+  WavHeader h;
+  FILE* f = OpenWav(path, &h);
+  if (!f) return -1;
+  if (sample_rate) *sample_rate = h.sample_rate;
+  const int64_t got = DecodeSegment(f, h, start, n, out);
+  fclose(f);
+  return got;
 }
 
 // ---------------------------------------------------------------------------
@@ -273,6 +285,43 @@ void PackRow(const float* row, int64_t n, int mode, void* out) {
     unsigned char* o = static_cast<unsigned char*>(out);
     for (int64_t i = 0; i < n; ++i)
       o[i] = lut[static_cast<uint16_t>(QuantizePcm16(row[i] / peak))];
+  }
+}
+
+// 16-bit PCM, the fast path of ds_read_crops_packed. The decode path's
+// s / 32768 has |v| <= 1, so PackRow's peak is 1 and its quantisation gives
+// s back: a packed row is the file's own left-channel samples, zero-padded
+// (mode 1: the mu-law table of each, and of the padding's 0). So the
+// samples are copied, with no float row, no decode and no peak.
+bool IsPcm16(const WavHeader& h) { return h.format == 1 && h.bits == 16; }
+
+void CopyPcm16Row(FILE* f, const WavHeader& h, int64_t start, int64_t n,
+                  int mode, void* out) {
+  const int c = h.channels;
+  start = std::max<int64_t>(0, start);
+  const int64_t to_read =
+      std::min(n, std::max<int64_t>(0, h.num_samples - start));
+  // a mono int16 row is read in place; other rows through a frame buffer
+  thread_local std::vector<int16_t> frames;
+  int16_t* dst = static_cast<int16_t*>(out);
+  if (mode != 0 || c != 1) {
+    frames.resize(std::max<int64_t>(to_read, 1) * c);
+    dst = frames.data();
+  }
+  int64_t got = 0;
+  if (to_read > 0 &&
+      fseek(f, h.data_offset + start * 2 * c, SEEK_SET) == 0)
+    got = fread(dst, size_t(2) * c, to_read, f);
+  if (mode == 0) {
+    int16_t* o = static_cast<int16_t*>(out);
+    if (c != 1)
+      for (int64_t i = 0; i < got; ++i) o[i] = dst[i * c];
+    std::fill(o + got, o + n, int16_t(0));
+  } else {
+    const unsigned char* lut = MulawLut();
+    unsigned char* o = static_cast<unsigned char*>(out);
+    for (int64_t i = 0; i < got; ++i) o[i] = lut[uint16_t(dst[i * c])];
+    std::fill(o + got, o + n, lut[0]);
   }
 }
 
@@ -338,23 +387,43 @@ int ds_read_crops(const char** paths, const int64_t* starts, int64_t n,
 // mode 0 writes int16 PCM (pack_pcm16 twin), mode 1 writes uint8 mu-law
 // (pack_mulaw8 twin). Fuses the read and the pack so the Python
 // producer thread ships device-ready bytes without touching the
-// samples (and without holding the GIL for the pack).
-// Returns 0 if every file decoded, else the number of failures.
+// samples (and without holding the GIL for the pack). A 16-bit PCM file
+// (its header says so) has its samples copied (CopyPcm16Row); any other
+// is decoded to float and packed (PackRow), with the same result.
+// rows[0] and rows[1] (rows may be null) get the rows that were copied
+// and decoded. Returns 0 if every file decoded, else the number of
+// failures.
 int ds_read_crops_packed(const char** paths, const int64_t* starts, int64_t n,
-                         int count, int num_threads, int mode, void* out) {
-  std::atomic<int> failures(0);
+                         int count, int num_threads, int mode, void* out,
+                         int64_t* rows) {
+  std::atomic<int> failures(0), copied(0), decoded(0);
   const size_t row_bytes = (mode == 0) ? n * 2 : n;
   failures.fetch_add(ParallelFor(count, num_threads, [&](int i) {
-    std::vector<float> scratch(n);
-    int32_t rate = 0;
-    if (ReadWavSegment(paths[i], starts[i], n, scratch.data(), &rate) < 0) {
-      failures.fetch_add(1);
-      memset(static_cast<char*>(out) + size_t(i) * row_bytes, 0, row_bytes);
+    char* row = static_cast<char*>(out) + size_t(i) * row_bytes;
+    WavHeader h;
+    FILE* f = OpenWav(paths[i], &h);
+    if (f && IsPcm16(h)) {
+      CopyPcm16Row(f, h, starts[i], n, mode, row);
+      fclose(f);
+      copied.fetch_add(1);
       return;
     }
-    PackRow(scratch.data(), n, mode,
-            static_cast<char*>(out) + size_t(i) * row_bytes);
+    std::vector<float> scratch(n);
+    const int64_t got = f ? DecodeSegment(f, h, starts[i], n, scratch.data())
+                          : -1;
+    if (f) fclose(f);
+    if (got < 0) {
+      failures.fetch_add(1);
+      memset(row, 0, row_bytes);
+      return;
+    }
+    PackRow(scratch.data(), n, mode, row);
+    decoded.fetch_add(1);
   }));
+  if (rows) {
+    rows[0] = copied.load();
+    rows[1] = decoded.load();
+  }
   return failures.load();
 }
 

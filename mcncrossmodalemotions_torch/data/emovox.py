@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+import time
 from pathlib import Path
 from typing import Dict, Iterator, Optional
 
@@ -56,6 +58,7 @@ from mcncrossmodalemotions_torch.data.imdb import (
     EmoVoxImdb,
 )
 from mcncrossmodalemotions_torch.ops.spectrogram import DEFAULT_SPEC, SpecConfig
+from mcncrossmodalemotions_torch.utils import trace
 
 # Restated from the JAX package's data/emovox.py; a CPU test holds them
 # equal.
@@ -270,6 +273,24 @@ def make_targets(logit_window: np.ndarray,
     return out
 
 
+def logit_indices(t_seconds: np.ndarray, num_logits: np.ndarray) -> np.ndarray:
+    """``time_to_logit_idx`` of each time and track length, as int64."""
+    idx = np.floor(np.maximum(t_seconds * LOGIT_FPS - 1.0, 0.0) / LOGIT_STRIDE)
+    return np.clip(idx.astype(np.int64), 0, np.maximum(num_logits - 1, 0))
+
+
+def batch_targets(windows: np.ndarray, cfg: BatchConfig) -> Dict[str, np.ndarray]:
+    """``make_targets`` of each row of ``windows`` ([B, E] aggregated
+    logits), stacked."""
+    logits = windows[:, : cfg.num_pred_emotions].astype(np.float32)
+    out = {"max_label": np.argmax(logits, axis=1).astype(np.int32)}
+    if cfg.loss_type in ("hot-cross-ent", "euclidean", "huber"):
+        out["logit_target"] = logits
+    if cfg.loss_type in ("euclidean", "huber"):
+        out["instance_weights"] = np.ones_like(logits)
+    return out
+
+
 class EmoVoxBatcher:
     """Batched iterator over an EmoVoxImdb subset: shuffled random crops
     from per-epoch seeded RNGs in train, in-order start-anchored crops in
@@ -352,67 +373,114 @@ class EmoVoxBatcher:
             waves.append(samples)
             t0s.append(t0)
             targets.append(make_targets(window, cfg))
+        stacked = {key: np.stack([t[key] for t in targets])
+                   for key in targets[0]}
         return self._assemble(chunk, self._pack_waves(np.stack(waves)),
-                              targets, t0s)
+                              stacked, t0s)
 
     def _library_batch(self, chunk, rng, wav_root: Path) -> Dict[str, np.ndarray]:
+        """``_read_batch`` inside a ``feed.batch`` span of the producer's
+        thread, with its ``rows`` and the ``raw_rows`` the library copied
+        (16-bit PCM) while it read them."""
+        if not trace.recording():
+            return self._read_batch(chunk, rng, wav_root)
+        from mcncrossmodalemotions_torch.data import native_audio
+
+        t0, raw0 = time.time_ns(), native_audio.read_crops_packed.raw_rows
+        batch = self._read_batch(chunk, rng, wav_root)
+        trace.add("feed.batch", t0, time.time_ns(), rows=len(chunk),
+                  raw_rows=native_audio.read_crops_packed.raw_rows - raw0)
+        return batch
+
+    def _read_batch(self, chunk, rng, wav_root: Path) -> Dict[str, np.ndarray]:
         """One threaded library read of the batch's headers, then one of
         its on-rate files, packed on the library's threads when every file
         is on-rate: two releases of the interpreter lock a batch, whatever
-        its size. An off-rate file goes through ``load_crop`` (host
-        resample) on its own. Both draw one value a sample (the crop
-        start), so the train stream is the Python path's."""
+        its size. The starts, windows and targets are array code over the
+        batch. An off-rate file goes through ``load_crop`` (host resample)
+        on its own, in its place in the batch. Both draw one value a sample
+        with a crop start to draw, in the batch's order, so the train stream
+        is the Python path's."""
         from mcncrossmodalemotions_torch.data import native_audio
 
         cfg = self.cfg
         fs = cfg.spec.sample_rate
         need = cfg.crop_samples
-        rows: list = [None] * len(chunk)
-        t0s = [0.0] * len(chunk)
-        fast_paths, fast_starts, fast_positions, targets = [], [], [], []
-        paths = [str(wav_root / self.imdb.wav_paths[j]) for j in chunk]
-        infos = native_audio.wav_infos(paths).tolist()
-        for pos, (j, path) in enumerate(zip(chunk, paths)):
-            num_samples, native_fs, _, _ = infos[pos]
-            offset = self._offset(j)
-            if native_fs == fs:
-                if offset is not None:
-                    start = pinned_start(offset, fs, num_samples)
-                else:
-                    total = min(num_samples, int(MAX_CLIP_SECONDS * fs))
-                    max_start = max(total - need, 0)
-                    start = (int(rng.randint(0, max_start + 1))
-                             if (rng is not None and max_start > 0) else 0)
-                fast_paths.append(path)
-                fast_starts.append(start)
-                fast_positions.append(pos)
-                t0 = start / fs
-            else:
-                rows[pos], t0, _ = load_crop(path, cfg, rng=rng,
-                                             start_seconds=offset)
-            t0s[pos] = t0
-            window = target_logit_window(self.imdb.wav_logits[j],
-                                         None if offset is not None else t0,
-                                         cfg)
-            targets.append(make_targets(window, cfg))
+        count = len(chunk)
+        root = str(wav_root)
+        paths = [os.path.join(root, self.imdb.wav_paths[j]) for j in chunk]
+        infos = native_audio.wav_infos(paths)
+        num_samples = infos[:, 0]
+        on_rate = infos[:, 1] == fs
+        max_start = np.maximum(
+            np.minimum(num_samples, int(MAX_CLIP_SECONDS * fs)) - need, 0)
+        starts = np.zeros(count, np.int64)
+        if self.time_offsets is None and rng is not None:
+            draws = on_rate & (max_start > 0)
+        else:  # pinned or start-anchored crops
+            draws = np.zeros(count, bool)
+        if self.time_offsets is not None:
+            for k in np.flatnonzero(on_rate):
+                starts[k] = pinned_start(self._offset(chunk[k]), fs,
+                                         int(num_samples[k]))
+        t0 = starts / fs
+        off_rows = {}
+        prev = 0
+        for pos in [*np.flatnonzero(~on_rate).tolist(), count]:
+            drawn = prev + np.flatnonzero(draws[prev:pos])
+            if drawn.size:
+                starts[drawn] = rng.randint(0, max_start[drawn] + 1)
+                t0[drawn] = starts[drawn] / fs
+            if pos < count:
+                off_rows[pos], t0[pos], _ = load_crop(
+                    paths[pos], cfg, rng=rng,
+                    start_seconds=self._offset(chunk[pos]))
+            prev = pos + 1
+        targets = batch_targets(self._windows(chunk, t0), cfg)
         fmt = ("mulaw8" if cfg.emit_mulaw
                else "int16" if cfg.emit_int16 else None)
-        if len(fast_paths) == len(chunk) and fmt is not None:
-            data = native_audio.read_crops_packed(fast_paths, fast_starts,
-                                                  need, fmt=fmt)
+        if not off_rows and fmt is not None:
+            data = native_audio.read_crops_packed(paths, starts, need, fmt=fmt)
         else:
-            if fast_paths:
-                fast = native_audio.read_crops(fast_paths, fast_starts, need)
-                for k, pos in enumerate(fast_positions):
-                    rows[pos] = fast[k]
-            data = self._pack_waves(np.stack(rows))
-        return self._assemble(chunk, data, targets, t0s)
+            waves = np.zeros((count, need), np.float32)
+            if on_rate.any():
+                waves[on_rate] = native_audio.read_crops(
+                    [p for p, on in zip(paths, on_rate) if on],
+                    starts[on_rate], need)
+            for pos, row in off_rows.items():
+                waves[pos] = row
+            data = self._pack_waves(waves)
+        return self._assemble(chunk, data, targets, t0.tolist())
 
-    def _assemble(self, chunk, data: np.ndarray, targets: list,
+    def _windows(self, chunk, t0: np.ndarray) -> np.ndarray:
+        """[B, E] teacher logits aggregated over each crop's window
+        (``target_logit_window`` of each row): over [t0, t0 + num_seconds],
+        or over the whole track with fixedSegments."""
+        logits = [self.imdb.wav_logits[j] for j in chunk]
+        lengths = np.array([len(x) for x in logits], np.int64)
+        if self.time_offsets is None:
+            lo, hi = t0, t0 + self.cfg.num_seconds
+        else:
+            lo, hi = np.zeros_like(t0), np.full_like(t0, 1e6)
+        i0 = logit_indices(lo, lengths)
+        i1 = np.maximum(logit_indices(hi, lengths) + 1, i0 + 1)
+        if self.cfg.logit_aggregator == "mean":
+            return np.stack([x[a:b].mean(axis=0)
+                             for x, a, b in zip(logits, i0, i1)])
+        if self.cfg.logit_aggregator != "max":
+            raise ValueError(f"unknown aggregator {self.cfg.logit_aggregator!r}")
+        if not lengths.all():
+            raise ValueError("a track without teacher logits has no window")
+        # one maximum.reduceat over the batch's tracks end to end, a row
+        # past the last so that each window's end is an index
+        flat = np.concatenate(logits + [logits[-1][:1]])
+        first = np.cumsum(lengths) - lengths
+        bounds = np.stack([first + i0, first + i1], axis=1).ravel()
+        return np.maximum.reduceat(flat, bounds, axis=0)[::2]
+
+    def _assemble(self, chunk, data: np.ndarray, targets: Dict[str, np.ndarray],
                   t0s: list) -> Dict[str, np.ndarray]:
-        batch = {"data": data}
-        for key in targets[0]:
-            batch[key] = np.stack([t[key] for t in targets])
+        batch = {"data": data, **targets}
         if self.cfg.frames_per_crop > 0:
             batch["frames"] = self._crop_frames(chunk, t0s)
         return batch

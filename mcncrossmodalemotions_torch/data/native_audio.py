@@ -5,8 +5,10 @@ data service (``native/dataservice.cc``) without its JPEG decode, so it
 needs no libjpeg: ``ops/_build.py`` compiles it with the host's ``g++`` at
 first use into ``build/kernels/``. The entry points and their ctypes
 signatures are those of ``data/native.py`` (the committed
-``native/libdataservice.so``), and so are the results: bit for bit the
-committed library's and the Python reads' (``tests/test_torch_native_audio.py``).
+``native/libdataservice.so``), but for ``ds_read_crops_packed``'s count of
+the rows it copied (16-bit PCM) and decoded, and so are the results: bit
+for bit the committed library's and the Python reads'
+(``tests/test_torch_native_audio.py``).
 ``MCNCME_DISABLE_NATIVE`` switches it off as it does the committed one. A
 failed build raises with the compiler's output.
 """
@@ -38,7 +40,7 @@ LIB = _ffi.Library(LIBRARY, {
                                      ctypes.POINTER(ctypes.c_float)]),
     "ds_read_crops_packed": (ctypes.c_int, [
         _PATHS, _I64P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])})
+        ctypes.c_int, ctypes.c_void_p, _I64P])})
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -129,7 +131,9 @@ def read_crops_packed(paths: Sequence[str], starts: Sequence[int],
     """Threaded segment reads fused with the device-feed quantisation ->
     [count, n] int16 (``fmt="int16"``: ``data.audio.pack_pcm16`` of the
     float read) or uint8 mu-law (``fmt="mulaw8"``: ``pack_mulaw8``), bit
-    for bit."""
+    for bit. A 16-bit PCM file's samples are copied, any other file's
+    decoded and packed: each row read adds one to ``read_crops_packed.raw_rows``
+    or to ``read_crops_packed.decoded_rows`` (``reset_rows`` zeroes both)."""
     if fmt not in PACKED_FORMATS:
         raise ValueError(f"unknown feed format {fmt!r}; choose from "
                          f"{sorted(PACKED_FORMATS)}")
@@ -137,9 +141,20 @@ def read_crops_packed(paths: Sequence[str], starts: Sequence[int],
     lib = _need()
     count, c_paths, c_starts = _c_args(paths, starts)
     out = np.zeros((count, num_samples), dtype)
+    rows = (ctypes.c_int64 * 2)()
     failures = lib.ds_read_crops_packed(
         c_paths, c_starts, num_samples, count, num_threads, mode,
-        out.ctypes.data_as(ctypes.c_void_p))
+        out.ctypes.data_as(ctypes.c_void_p), rows)
+    read_crops_packed.raw_rows += rows[0]
+    read_crops_packed.decoded_rows += rows[1]
     if failures:
         raise IOError(f"ds_read_crops_packed: {failures}/{count} files failed")
     return out
+
+
+def reset_rows() -> None:
+    """Zero ``read_crops_packed``'s counts of copied and decoded rows."""
+    read_crops_packed.raw_rows = read_crops_packed.decoded_rows = 0
+
+
+reset_rows()

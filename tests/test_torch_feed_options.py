@@ -13,12 +13,19 @@
   in the set (read apart and resampled on the host); the library's
   ``read_crops_packed(fmt="mulaw8")`` rows are ``pack_mulaw8`` of its float
   reads, and the JAX bindings', bit for bit.
+- The library path's array code over a batch (crop draws, windows,
+  targets) on batches that mix tracks shorter than the crop, which draw
+  nothing, with drawing ones, and an off-rate track amid on-rate ones:
+  bitwise the JAX batcher's and the Python reads'; each window against
+  ``target_logit_window`` where it ends on a track's last logit; the
+  ``feed.batch`` span of each batch while spans record.
 - ``DistillationConfig.exp_name()`` letter for letter the JAX package's
   for each option, and the fixedSegments directory suffix the JAX
   driver's.
 """
 
 import dataclasses
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +34,7 @@ import torch
 
 from mcncrossmodalemotions_torch.data import audio, emovox, native_audio
 from mcncrossmodalemotions_torch.exp import run_distillation as rd
+from mcncrossmodalemotions_torch.utils import trace
 from mcncrossmodalemotions_tpu.data import emovox as jemovox
 from mcncrossmodalemotions_tpu.data import native as jnative
 from mcncrossmodalemotions_tpu.exp import run_distillation as jrd
@@ -151,6 +159,132 @@ def test_library_batches_bitwise_equal_to_python_reads(imdb, monkeypatch,
     monkeypatch.setenv("MCNCME_DISABLE_NATIVE", "1")
     assert not batcher.uses_library()
     _assert_equal(lib, [b for e in (1, 2) for b in batcher.batches(e)])
+
+
+SHORT, OFF_RATE = (1, 3, 6), 4  # the mixed set's short and off-rate tracks
+
+
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    """8 tracks of 1.6-2.5 s; tracks ``SHORT`` cut below the 1 s crop
+    (no crop-start draw, their logits cut to match) and track ``OFF_RATE``
+    rewritten at 22.05 kHz."""
+    root = tmp_path_factory.mktemp("mixed") / "wav"
+    imdb = jemovox.build_synthetic_imdb(root, num_speakers=2,
+                                        tracks_per_speaker=4, seed=1,
+                                        duration_range=(1.6, 2.5))
+    for k, seconds in zip(SHORT, (0.6, 0.9, 0.75)):
+        path = root / imdb.wav_paths[k]
+        samples, fs = audio.read_wav(path)
+        audio.write_wav(path, samples[:int(seconds * fs)], fs)
+        imdb.wav_logits[k] = imdb.wav_logits[k][:max(int(seconds * 25 / 6), 1)]
+    path = root / imdb.wav_paths[OFF_RATE]
+    samples, fs = audio.read_wav(path)
+    audio.write_wav(path, audio.resample_to(samples, fs, 22050), 22050)
+    return imdb
+
+
+def _mixed_batches(mod, imdb, option, batch_size, seed):
+    cfg = dataclasses.replace(_cfg(mod, option), batch_size=batch_size)
+    batcher = mod.EmoVoxBatcher(imdb, cfg, train=True, seed=seed)
+    return batcher, [b for e in (1, 2) for b in batcher.batches(e)]
+
+
+@pytest.mark.parametrize("fmt_option", [{}, dict(emit_mulaw=True),
+                                        dict(emit_int16=False)])
+@pytest.mark.parametrize("batch_size,seed", [(8, 11), (4, 2)])
+def test_mixed_library_batches_bitwise_equal_to_jax_and_python(
+        mixed, monkeypatch, fmt_option, batch_size, seed):
+    """Short tracks (no draw) between drawing ones, and the off-rate track
+    (its draw taken by ``load_crop`` in its place) inside a batch, not at
+    its ends: two epochs of the library path bitwise the JAX batcher's and
+    the Python reads'."""
+    batcher, got = _mixed_batches(emovox, mixed, fmt_option, batch_size, seed)
+    assert batcher.uses_library()
+    between = off_inside = False
+    for e in (1, 2):
+        idx = batcher.epoch_indices(e)
+        for i in range(0, len(idx), batch_size):
+            chunk = list(idx[i:i + batch_size])
+            short = [j in SHORT for j in chunk]
+            between |= any(short[p] and not short[p - 1] and not short[p + 1]
+                           for p in range(1, len(chunk) - 1))
+            off_inside |= OFF_RATE in chunk[1:-1]
+    assert between and off_inside
+    want = _mixed_batches(jemovox, mixed, fmt_option, batch_size, seed)[1]
+    assert len(got) == len(want) == 2 * 8 // batch_size
+    for t, j in zip(got, want):
+        assert sorted(t) == sorted(j)
+        for key in j:
+            assert t[key].dtype == j[key].dtype, key
+            np.testing.assert_array_equal(t[key], j[key], err_msg=key)
+    monkeypatch.setenv("MCNCME_DISABLE_NATIVE", "1")
+    assert not batcher.uses_library()
+    python = [b for e in (1, 2) for b in batcher.batches(e)]
+    for t, p in zip(got, python):
+        assert sorted(t) == sorted(p)
+        for key in p:
+            np.testing.assert_array_equal(t[key], p[key], err_msg=key)
+
+
+@pytest.mark.parametrize("aggregator", ["max", "mean"])
+@pytest.mark.parametrize("offsets", [False, True])
+def test_batch_windows_and_targets_are_each_rows(mixed, aggregator, offsets):
+    """The batch's windows and targets against ``target_logit_window`` and
+    ``make_targets`` of each row, at crop starts whose windows end on the
+    track's last logit (by the index arithmetic and by the clip), or just
+    before it, and at 0."""
+    cfg = dataclasses.replace(_cfg(emovox, dict(loss_type="euclidean")),
+                              logit_aggregator=aggregator)
+    times = np.linspace(0.0, 1.5, mixed.num_tracks) if offsets else None
+    batcher = emovox.EmoVoxBatcher(mixed, cfg, train=True, time_offsets=times)
+    chunk = np.arange(mixed.num_tracks)
+    lengths = np.array([len(x) for x in mixed.wav_logits])
+    t0 = np.zeros(len(chunk))
+    ends = 0
+    for shift in (0.0, -1 / 16000, 1 / 16000, -0.1, 0.3):
+        # t0 + 1 s on the first time of the last logit's frame, shifted
+        t0 = np.maximum((6 * (lengths - 1) + 1) / 25 - 1.0 + shift, 0.0)
+        windows = batcher._windows(chunk, t0)
+        targets = emovox.batch_targets(windows, cfg)
+        for k, j in enumerate(chunk):
+            want = emovox.target_logit_window(
+                mixed.wav_logits[j], None if offsets else float(t0[k]), cfg)
+            np.testing.assert_array_equal(windows[k], want)
+            row = emovox.make_targets(want, cfg)
+            assert sorted(row) == sorted(targets)
+            for key, value in row.items():
+                assert targets[key].dtype == value.dtype
+                np.testing.assert_array_equal(targets[key][k], value)
+            i1 = max(emovox.time_to_logit_idx(float(t0[k]) + 1.0, lengths[k])
+                     + 1, 1)
+            ends += i1 == lengths[k]
+    assert ends >= len(chunk)
+
+
+def test_feed_batch_spans_while_recording(mixed):
+    """Each library batch is one ``feed.batch`` span with its ``rows`` and
+    the ``raw_rows`` the library copied: every row of an all-on-rate int16
+    batch, none of the batch with the off-rate track (read apart, then
+    packed on the host); nothing while spans do not record."""
+    batcher = emovox.EmoVoxBatcher(mixed, _cfg(emovox, {}),
+                                   train=True, seed=2)
+    trace.reset()
+    list(batcher.batches(1))
+    assert trace.snapshot()["spans"] == []
+    trace.enable()
+    try:
+        list(batcher.batches(1))
+    finally:
+        trace.disable()
+    spans = [s for s in trace.snapshot()["spans"] if s[trace.NAME] == "feed.batch"]
+    trace.reset()
+    idx = batcher.epoch_indices(1)
+    want = [{"rows": 4, "raw_rows": 0 if OFF_RATE in idx[i:i + 4] else 4}
+            for i in range(0, len(idx), 4)]
+    assert [s[trace.ATTRS] for s in spans] == want
+    assert all(s[trace.END] >= s[trace.START] for s in spans)
+    assert {s[trace.TID] for s in spans} == {threading.get_native_id()}
 
 
 def test_augmented_train_batches_read_in_python(imdb, noise_dir):

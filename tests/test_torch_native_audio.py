@@ -4,7 +4,10 @@ Built here with ``g++`` by ``ops/_build.py``, it is held bit for bit to
 the committed ``native/libdataservice.so`` (through the JAX package's
 bindings) and to the Python reads, entry point by entry point, over the
 wav formats the reader accepts, 44.1 kHz files and files shorter than the
-read; a format both refuse fails in both. A broken source makes the build
+read; a format both refuse fails in both. ``read_crops_packed`` copies the
+rows of 16-bit PCM files (mono and stereo, with a ``LIST`` chunk before the
+samples or not) and decodes every other file's, with the same bytes, and
+counts the rows of each path. A broken source makes the build
 raise with the compiler's output, and extraction does not fall back to
 Python reads when the port's library cannot be built. Extraction reads
 through the port's library, and through Python only where
@@ -27,21 +30,30 @@ pytestmark = pytest.mark.skipif(
     reason="native/libdataservice.so does not load on this host")
 
 
-def _wav(path, data: np.ndarray, fmt: int, channels: int, rate: int) -> str:
+# an INFO list of one odd-sized string: the chunk's size is 17, padded to 18
+LIST_CHUNK = (b"LIST" + struct.pack("<I", 17) + b"INFO" + b"ISFT"
+              + struct.pack("<I", 5) + b"port\x00" + b"\x00")
+
+
+def _wav(path, data: np.ndarray, fmt: int, channels: int, rate: int,
+         extra: bytes = b"") -> str:
+    """A RIFF/WAVE file: fmt chunk, ``extra`` chunks, then the samples."""
     bits = data.dtype.itemsize * 8
     fmt_chunk = struct.pack("<HHIIHH", fmt, channels, rate,
                             rate * channels * bits // 8, channels * bits // 8,
                             bits)
     payload = data.tobytes()
     body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt_chunk)) + fmt_chunk
-            + b"data" + struct.pack("<I", len(payload)) + payload)
+            + extra + b"data" + struct.pack("<I", len(payload)) + payload)
     path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
     return str(path)
 
 
-FORMATS = [  # (dtype, wav format tag, channels, sample rate)
-    ("<i2", 1, 1, 16000), ("<i2", 1, 2, 44100), ("u1", 1, 1, 16000),
-    ("<i4", 1, 2, 44100), ("<f4", 3, 1, 16000)]
+FORMATS = [  # (dtype, wav format tag, channels, sample rate, LIST chunk)
+    ("<i2", 1, 1, 16000, False), ("<i2", 1, 2, 44100, False),
+    ("u1", 1, 1, 16000, False), ("<i4", 1, 2, 44100, False),
+    ("<f4", 3, 1, 16000, False), ("<i2", 1, 1, 16000, True),
+    ("<i2", 1, 2, 16000, True)]
 
 
 def _data(dtype: str, n: int, seed: int) -> np.ndarray:
@@ -57,11 +69,12 @@ def wavs(tmp_path_factory):
     """One file of each format: 3000 frames, and a short one of 700."""
     root = tmp_path_factory.mktemp("wavs")
     out = []
-    for i, (dtype, fmt, channels, rate) in enumerate(FORMATS):
+    for i, (dtype, fmt, channels, rate, listed) in enumerate(FORMATS):
         for frames in (3000, 700):
             out.append(_wav(root / f"{i}-{frames}.wav",
                             _data(dtype, frames * channels, i + frames),
-                            fmt, channels, rate))
+                            fmt, channels, rate,
+                            LIST_CHUNK if listed else b""))
     return out
 
 
@@ -107,6 +120,36 @@ def test_read_crops_and_packed_bitwise(wavs, threads):
         packed, jnative.read_crops_packed(wavs, starts, n, "int16", threads))
     np.testing.assert_array_equal(packed, audio.pack_pcm16(got))
     assert packed.dtype == np.int16
+
+
+@pytest.mark.parametrize("fmt", sorted(native_audio.PACKED_FORMATS))
+@pytest.mark.parametrize("i", range(len(FORMATS) * 2))
+def test_packed_rows_bitwise_and_counted_by_path(wavs, i, fmt):
+    """Rows from the start, mid-file, one sample before the end and past
+    it, and one that ends exactly at the end: bitwise the committed
+    library's and the pack of the float read; a 16-bit PCM file's rows are
+    counted as copied, any other file's as decoded."""
+    path = wavs[i]
+    frames = native_audio.wav_info(path)[0]
+    starts = [0, frames // 2, frames - 1, frames + 5, 0, 100]
+    for n in (2500, frames - 100):  # the second fills the last row exactly
+        native_audio.reset_rows()
+        got = native_audio.read_crops_packed([path] * len(starts), starts, n,
+                                             3, fmt=fmt)
+        want = jnative.read_crops_packed([path] * len(starts), starts, n,
+                                         fmt, 3)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        floats = native_audio.read_crops([path] * len(starts), starts, n, 3)
+        pack = audio.pack_mulaw8 if fmt == "mulaw8" else audio.pack_pcm16
+        np.testing.assert_array_equal(got, pack(floats))
+        dtype, tag, _, _, _ = FORMATS[i // 2]
+        raw = len(starts) if (dtype, tag) == ("<i2", 1) else 0
+        assert (native_audio.read_crops_packed.raw_rows,
+                native_audio.read_crops_packed.decoded_rows) == (
+                    raw, len(starts) - raw)
+    native_audio.reset_rows()
+    assert native_audio.read_crops_packed.raw_rows == 0
+    assert native_audio.read_crops_packed.decoded_rows == 0
 
 
 @pytest.mark.parametrize("threads", [1, 3])
